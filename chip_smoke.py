@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (cp_cals_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (none catches another's failure; any failure exits non-zero before
+the result lines are printed):
+
+1. The card: its name and power limit as nvidia-smi reports them, and the
+   torch and CUDA versions.
+2. Build: the CUDA kernels compile from cp_cals_tpu_torch/csrc/ (nvcc, one
+   process per source, in parallel).
+3. Kernels: at every (bucket batch B, bucket rank R) the engine allocates
+   for the bench workload (299x301x41, buffer_size=2880) and every mode,
+   each kernel is held against its plain PyTorch version on the card on the
+   same inputs, and kernel, plain version and one PyTorch yardstick call are
+   timed with CUDA events. The normal inverse is held on the engine's own
+   normal matrices: a bucket of bench-workload models run through the
+   port's iteration on the card.
+4. Engine: cp_cals on the full bench workload (400 models, ranks 1-20 x 20,
+   buckets 4/8/12/16/20, 10 forced iterations) through the kernels, at the
+   "highest" tier and then at the bench tiers (precision="high",
+   mttkrp_precision="default"). Each run starts with every launch count at
+   0, and each kernel must have launched 3 x the bucket-iterations the
+   engine ran. In both runs 20 models (one of each rank) are cross-checked
+   against the port's own float64 run on the CPU from the same inits.
+5. Result: one {"kernels": [...]} line, then the last line
+   {"ok": true, "device": {...}}. The per-shape measurements go to
+   chiprun_out/chip_smoke.json.
+
+The kernels' "ms", "plain_ms", "bound_ms" and "library_ms" in the result
+line are per-launch means over the launch mix of the bench-tier engine run
+(each (bucket, mode) weighted by that bucket's engine iterations).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet, dense): fp32 on the CUDA cores, bf16 on
+# the tensor cores, HBM3 bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
+
+MODES = (299, 301, 41)
+BUCKETS = (4, 8, 12, 16, 20)
+BUFFER = 2880
+ITERS = 10
+TIERS = ("highest", "high", "default")
+BENCH_TIERS = dict(precision="high", mttkrp_precision="default")
+
+# Tolerances of kernel against plain version, relative to the largest
+# magnitude of the plain result (fp32, eps = 6e-8):
+# - MTTKRP: sums of J*K <= 90,000 products per output, in another order
+#   than cuBLAS; the rounding walk is ~sqrt(J*K)*eps*max|G| ~ 2e-5*max|G|
+#   at worst, and the tier's bf16 roundings are the same in both versions.
+# - hinv: unpivoted Gauss-Jordan in both, division and FMA placement
+#   differ, so per model the difference grows as cond(H) * eps: it is held
+#   per model to TOL["hinv"] * cond(H) * max|H^-1|, cond(H) in float64.
+#   The engine's normal matrices reach cond(H) ~ 2e4 and read at most
+#   8.4e-8 on an H100; the first-order inverse 2I - H reads 3.6e-4 or more
+#   wherever it is not exact, and a kernel that skipped the pivot division
+#   would read about 1 / cond(H) >= 5e-5.
+# - apply: R-term dot products and I-term gramian sums in fp32: 1e-5; the
+#   double-float error columns agree far below that.
+TOL = {"mttkrp": 2e-5, "hinv": 1e-6, "apply": 1e-5}
+# Engine against the port's float64 CPU run (20 models, 10 iterations from
+# the same inits): the largest |fit difference| and relative reconstruction
+# difference allowed, per run. Both runs are deterministic; on an H100 they
+# read 5.1e-6 / 8.2e-6 ("highest") and 1.6e-3 / 1.2e-3 (bench tiers, whose
+# bf16 MTTKRP inputs carry 2^-9 relative rounding).
+CROSS_TOL = {"highest": (5e-5, 5e-5), "bench-tiers": (1e-2, 1e-2)}
+HINV_SNAPSHOTS = (1, 4, ITERS)  # engine iterations whose grams are checked
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, peak: float, nbytes: float) -> dict:
+    """The least time for the work: operations over the peak rate of their
+    type, or bytes (inputs read once, outputs written once) over HBM."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    err = (got.double() - want.double()).abs().max().item()
+    return err, want.abs().max().item()
+
+
+def bench_tensor():
+    """The bench workload's tensor: rank-5 model + 5% noise, seed 42."""
+    from cp_cals_tpu_torch import random_ktensor_host
+
+    rng = np.random.default_rng(42)
+    kt = random_ktensor_host(rng, MODES, 5, dtype=np.float32)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    x = x + 0.05 * x.std() * rng.standard_normal(x.shape)
+    return x.astype(np.float32), rng
+
+
+# ------------------------------------------------------------ kernel phase
+
+
+def random_bucket(gen, b: int, r: int, dev):
+    """Normalized random factors of one bucket: true ranks spread over
+    r-3..r (padded columns zero), jackknife fibers on some slots, and the
+    last slot dead (rank mask all False, zero factors)."""
+    true = torch.tensor([max(1, r - (s % 4)) for s in range(b)])
+    true[-1] = 0
+    mask = (torch.arange(r)[None, :] < true[:, None]).to(dev)
+    factors = []
+    for m in MODES:
+        f = (torch.rand(b, m, r, generator=gen) * 2 - 1).to(dev) * mask[:, None, :]
+        f = f / torch.clamp(torch.linalg.vector_norm(f, dim=1, keepdim=True), min=1e-30)
+        factors.append(f.contiguous())
+    jk = torch.where(torch.arange(b) % 5 == 1, torch.arange(b) % 7, -1)
+    return factors, mask, jk.to(torch.int32).to(dev)
+
+
+def engine_grams(x, b: int, r: int, rng, dev):
+    """The normal-matrix inputs the main path gives the normal inverse at
+    (B, R): B - 1 bench-workload models of the bucket's ranks (R-3..R) and
+    one dead slot, iterated by the port's own iteration on the card. Returns
+    the rank mask and [(iteration, grams)] at HINV_SNAPSHOTS."""
+    from cp_cals_tpu_torch import Ktensor, random_ktensor_host
+    from cp_cals_tpu_torch.solvers.iteration import make_iteration
+    from cp_cals_tpu_torch.solvers.state import init_state
+
+    ranks = [max(1, r - s % 4) for s in range(b - 1)] + [0]
+    parts = [np.zeros((b, m, r), np.float32) for m in MODES]
+    lam = np.zeros((b, r), np.float32)
+    for s, rk in enumerate(ranks[:-1]):
+        kt = random_ktensor_host(rng, MODES, rk, dtype=np.float32)
+        for dst, f in zip(parts, kt.factors):
+            dst[s, :, :rk] = f
+        lam[s, :rk] = kt.lam
+    mask = torch.from_numpy(np.arange(r)[None, :] < np.array(ranks)[:, None]).to(dev)
+    kt = Ktensor(tuple(torch.from_numpy(p).to(dev) for p in parts), torch.from_numpy(lam).to(dev))
+    x_norm = torch.linalg.vector_norm(x.reshape(-1))
+    state = init_state(kt, x_norm, rank_mask=mask, alive=mask.any(1))
+    iteration = make_iteration(bench_params())
+    prepared = iteration.prepare(x)
+    snaps = []
+    for it in range(1, max(HINV_SNAPSHOTS) + 1):
+        state = iteration(x, state, x_norm, prepared)
+        if it in HINV_SNAPSHOTS:
+            snaps.append((it, state.grams))
+    return mask, snaps
+
+
+def hinv_reading(got, want, h) -> dict:
+    """Per model: the kernel's difference from the plain version over
+    cond(H) * max|H^-1|, the quantity TOL["hinv"] bounds."""
+    h64 = h.double()
+    cond = torch.linalg.cond(h64)
+    err = (got.double() - want.double()).abs().amax((1, 2))
+    scale = want.double().abs().amax((1, 2))
+    ratio = err / (cond * scale)
+    exact = torch.linalg.inv(h64)
+    ex_scale = exact.abs().amax((1, 2))
+    return dict(
+        ratio=ratio.max().item(), cond_max=cond.max().item(), cond_min=cond.min().item(),
+        max_abs_err=err.max().item(), ref_max=scale.max().item(),
+        # each version's distance from the float64 inverse, relative
+        kernel_vs_exact=((got.double() - exact).abs().amax((1, 2)) / ex_scale).max().item(),
+        plain_vs_exact=((want.double() - exact).abs().amax((1, 2)) / ex_scale).max().item(),
+    )
+
+
+def kernel_phase(x, dev):
+    from cp_cals_tpu_torch.ops import fused_epilogue as fe
+    from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+    from cp_cals_tpu_torch.ops.gramians import gramians, hadamard_but_one
+    from cp_cals_tpu_torch.ops.update import padded_hadamard
+    from cp_cals_tpu_torch.solvers.cals import allocate_bucket_batches
+
+    (alloc,) = allocate_bucket_batches({r: 80 for r in BUCKETS}, BUFFER)
+    gen = torch.Generator().manual_seed(7)
+    rng = np.random.default_rng(11)
+    rows, worst = [], {"mttkrp": 0.0, "hinv": 0.0, "apply": 0.0}
+    for r, b in sorted(alloc.items()):
+        factors, mask, jk = random_bucket(gen, b, r, dev)
+        grams = gramians(factors)
+        e_mask, snaps = engine_grams(x, b, r, rng, dev)
+        for mode in range(3):
+            small, big = fm.split_others(MODES, mode)
+            j, i, k = MODES[small], MODES[mode], MODES[big]
+            x3 = fm.prepare_mode_tensor(x, mode)
+            u1, u2 = factors[small], factors[big]
+            x_ts = x.permute(mode, small, big).reshape(-1, k)
+            row = dict(B=b, R=r, mode=mode, J=j, I=i, K=k, mttkrp={})
+            nbytes = 4 * (j * i * k + b * (j + k + i) * r)
+            flops = 2 * j * i * k * b * r + 2 * j * i * b * r
+            for tier in TIERS:
+                got = fm.fused_mttkrp(x3, u1, u2, tier)
+                want = fm.fused_mttkrp_plain(x3, u1, u2, tier)
+                torch.cuda.synchronize()
+                err, scale = rel_err(got, want)
+                if not err <= TOL["mttkrp"] * scale:
+                    raise AssertionError(f"fused_mttkrp {tier} B={b} R={r} mode={mode}: {err} vs {scale}")
+                worst["mttkrp"] = max(worst["mttkrp"], err)
+
+                def library(tier=tier):
+                    ub = u2.permute(1, 0, 2).reshape(k, b * r)
+                    if tier == "highest":
+                        t = torch.matmul(x_ts, ub)
+                    else:
+                        xh, uh = x_ts.to(torch.bfloat16), ub.to(torch.bfloat16)
+                        t = torch.matmul(xh, uh).float()
+                        if tier == "high":
+                            xl = (x_ts - xh.float()).to(torch.bfloat16)
+                            ul = (ub - uh.float()).to(torch.bfloat16)
+                            t = t + torch.matmul(xh, ul).float() + torch.matmul(xl, uh).float()
+                    return torch.einsum("njbr,bjr->bnr", t.view(i, j, b, r), u1)
+
+                lib_err, _ = rel_err(library(), want)
+                peak = PEAK_FP32 if tier == "highest" else PEAK_BF16
+                row["mttkrp"][tier] = dict(
+                    **bound(flops * (3 if tier == "high" else 1), peak, nbytes),
+                    max_abs_err=err, ref_max=scale, library_err=lib_err,
+                    ms=cuda_ms(lambda: fm.fused_mttkrp(x3, u1, u2, tier)),
+                    plain_ms=cuda_ms(lambda: fm.fused_mttkrp_plain(x3, u1, u2, tier)),
+                    library_ms=cuda_ms(library),
+                )
+            g = fm.fused_mttkrp(x3, u1, u2, "highest")
+            checks = []
+            for it, e_grams in snaps:
+                got = fe.normal_inverse(e_grams, e_mask, mode)
+                want = fe.normal_inverse_plain(e_grams, e_mask, mode)
+                h = padded_hadamard(hadamard_but_one(e_grams, mode), e_mask)
+                reading = hinv_reading(got, want, h)
+                if not reading["ratio"] <= TOL["hinv"]:
+                    raise AssertionError(f"normal_inverse B={b} R={r} mode={mode} iteration {it}: {reading}")
+                # The check has teeth: the first-order inverse 2I - H fails it.
+                eye = torch.eye(r, device=dev).expand_as(h)
+                if hinv_reading(2 * eye - h, want, h)["ratio"] <= TOL["hinv"]:
+                    raise AssertionError(f"normal_inverse B={b} R={r} mode={mode}: 2I - H passes the check")
+                checks.append(dict(iteration=it, **reading))
+                worst["hinv"] = max(worst["hinv"], reading["max_abs_err"])
+            hinv = fe.normal_inverse(grams, mask, mode)  # the apply check's input
+            row["hinv"] = dict(
+                **bound(b * (4 * r**3 + 5 * r * r), PEAK_FP32, 4 * 3 * b * r * r + b * r),
+                max_abs_err=max(c["max_abs_err"] for c in checks),
+                ratio=max(c["ratio"] for c in checks),
+                cond_max=max(c["cond_max"] for c in checks), checks=checks,
+                ms=cuda_ms(lambda: fe.normal_inverse(e_grams, e_mask, mode)),
+                plain_ms=cuda_ms(lambda: fe.normal_inverse_plain(e_grams, e_mask, mode)),
+                library_ms=cuda_ms(lambda: torch.linalg.inv(h)),
+            )
+            errs = []
+            for iters_val in (1, 4):
+                iters = torch.full((b,), iters_val, dtype=torch.int32, device=dev)
+                for zero_jk in (False, True):
+                    for with_err in (False, True):
+                        got = fe.epilogue_apply(g, hinv, iters, jk, zero_jk, with_err)
+                        want = fe.epilogue_apply_plain(g, hinv, iters, jk, zero_jk, with_err)
+                        torch.cuda.synchronize()
+                        pairs = list(zip(got[:3], want[:3]))
+                        if with_err:
+                            pairs.append((got[3][0].double() + got[3][1].double(),
+                                          want[3][0].double() + want[3][1].double()))
+                        for a, w in pairs:
+                            err, scale = rel_err(a, w)
+                            if not err <= TOL["apply"] * max(scale, 1e-30):
+                                raise AssertionError(
+                                    f"epilogue_apply B={b} R={r} mode={mode} iters={iters_val} "
+                                    f"zero_jk={zero_jk} with_err={with_err}: {err} vs {scale}")
+                            errs.append(err)
+                        if not got[0][-1].eq(0).all() or not got[1][-1].eq(0).all():
+                            raise AssertionError("epilogue_apply: the dead slot is not inert")
+            worst["apply"] = max(worst["apply"], max(errs))
+            # Time the variant the bench path runs on this mode.
+            iters = torch.full((b,), 4, dtype=torch.int32, device=dev)
+            with_err = mode == 2
+            flops = b * (4 * i * r * r + i * r + (12 * i * r if with_err else 0))
+            nbytes = 4 * (2 * b * i * r + 2 * b * r * r + b * r + 2 * b) + (8 * b * r if with_err else 0)
+            row["apply"] = dict(
+                **bound(flops, PEAK_FP32, nbytes),
+                max_abs_err=max(errs), with_err=with_err,
+                ms=cuda_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, False, with_err)),
+                plain_ms=cuda_ms(lambda: fe.epilogue_apply_plain(g, hinv, iters, jk, False, with_err)),
+                library_ms=None,
+            )
+            rows.append(row)
+            print(f"kernels B={b:3d} R={r:2d} mode={mode}: mttkrp "
+                  + " ".join(f"{t}={row['mttkrp'][t]['ms']:.4f}ms" for t in TIERS)
+                  + f" hinv={row['hinv']['ms']:.4f}ms (cond <= {row['hinv']['cond_max']:.3g}, "
+                  f"err/(cond*max) {row['hinv']['ratio']:.3g}) apply={row['apply']['ms']:.4f}ms",
+                  flush=True)
+    return rows, worst
+
+
+# ------------------------------------------------------------ engine phase
+
+
+def engine_queue(rng):
+    from cp_cals_tpu_torch import random_ktensor_host
+
+    return [
+        random_ktensor_host(rng, MODES, r, dtype=np.float32)
+        for r in range(1, 21) for _ in range(20)
+    ]
+
+
+def reset_counts():
+    from cp_cals_tpu_torch.ops import fused_epilogue as fe
+    from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+
+    fm.fused_mttkrp.launches = 0
+    fe.normal_inverse.launches = 0
+    fe.epilogue_apply.launches = 0
+
+
+def read_counts() -> dict:
+    from cp_cals_tpu_torch.ops import fused_epilogue as fe
+    from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+
+    return {
+        "fused_mttkrp": fm.fused_mttkrp.launches,
+        "normal_inverse": fe.normal_inverse.launches,
+        "epilogue_apply": fe.epilogue_apply.launches,
+    }
+
+
+def bench_params(**tiers):
+    """The bench workload's engine settings at the given precision tiers."""
+    from cp_cals_tpu_torch import CalsParams
+
+    return CalsParams(
+        max_iterations=ITERS, force_max_iter=True, bucket_ranks=BUCKETS,
+        buffer_size=BUFFER, tail_compaction_depth=0, tol=1e-6, **tiers,
+    )
+
+
+def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True):
+    from cp_cals_tpu_torch import cp_cals
+
+    params = bench_params(**tiers)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results, rep = cp_cals(x, queue, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    bucket_iters = sum(rep.engine_iterations.values())
+    for k, v in counts.items():
+        if v != 3 * bucket_iters or v == 0:
+            raise AssertionError(f"{name}: {k} launched {v} times, expected 3 x {bucket_iters}")
+    if len(results) != len(queue) or any(kt is None for kt in results):
+        raise AssertionError(f"{name}: missing results")
+    for kt, q in zip(results, queue):
+        if tuple(f.shape for f in kt.factors) != tuple(f.shape for f in q.factors):
+            raise AssertionError(f"{name}: result shapes differ from the queue's")
+        if not all(np.isfinite(f).all() for f in kt.factors) or not np.isfinite(kt.lam).all():
+            raise AssertionError(f"{name}: non-finite factors")
+    fits = np.array([m.fit for m in rep.models])
+    iters = np.array([m.iters for m in rep.models])
+    if (not np.isfinite(fits).all() or fits.max() > 1.0 or (iters != ITERS).any()
+            or (check_fit and fits.mean() < 0.5)):
+        raise AssertionError(f"{name}: fits {fits.mean()} iters {set(iters.tolist())}")
+    out = dict(
+        wall_s=wall, models_per_s=len(queue) / wall, mean_fit=float(fits.mean()),
+        mean_iters=float(iters.mean()), bucket_iterations=rep.engine_iterations,
+        launches=counts, phase_times={str(k): v for k, v in rep.phase_times.items()},
+    )
+    print(f"engine {name}: wall {wall:.3f}s, {out['models_per_s']:.1f} models/s, "
+          f"mean fit {out['mean_fit']:.6f}, mean iters {out['mean_iters']}, "
+          f"bucket-iterations {bucket_iters}, launches {counts}", flush=True)
+    return results, rep, out
+
+
+def cross_check(x, queue, runs: dict) -> dict:
+    """20 models (one per rank) of each engine run against the port's
+    float64 CPU run from the same inits: the largest |fit difference| and
+    relative reconstruction difference, held to CROSS_TOL per run."""
+    from cp_cals_tpu_torch import Ktensor, cp_cals
+    from cp_cals_tpu_torch.ktensor import to_tensor
+
+    def dense(kt):
+        return to_tensor(Ktensor(tuple(torch.from_numpy(f.astype(np.float64)) for f in kt.factors),
+                                 torch.from_numpy(kt.lam.astype(np.float64))))
+
+    pick = [20 * (r - 1) for r in range(1, 21)]
+    q64 = [Ktensor(tuple(f.astype(np.float64) for f in queue[i].factors),
+                   queue[i].lam.astype(np.float64)) for i in pick]
+    res64, rep64 = cp_cals(x.astype(np.float64), q64, bench_params(), device="cpu")
+    out = {}
+    for name, (results, rep) in runs.items():
+        worst_fit = worst_rec = 0.0
+        for n, i in enumerate(pick):
+            worst_fit = max(worst_fit, abs(rep.models[i].fit - rep64.models[n].fit))
+            a, b = dense(results[i]), dense(res64[n])
+            worst_rec = max(worst_rec, (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item())
+        print(f"cross-check {name} vs CPU float64 (20 models): max |fit diff| {worst_fit:.3e}, "
+              f"max relative reconstruction diff {worst_rec:.3e}", flush=True)
+        fit_tol, rec_tol = CROSS_TOL[name]
+        if not (worst_fit <= fit_tol and worst_rec <= rec_tol):
+            raise AssertionError(f"cross-check of {name} against the CPU float64 run failed")
+        out[name] = dict(max_fit_diff=worst_fit, max_rel_recon_diff=worst_rec)
+    return out
+
+
+def weighted(rows, bucket_iters, key, field, tier=None):
+    num = den = 0.0
+    for row in rows:
+        w = bucket_iters.get(row["R"], 0)
+        entry = row[key][tier] if tier else row[key]
+        num += w * entry[field]
+        den += w
+    return num / den
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from cp_cals_tpu_torch import _build
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    t0 = time.perf_counter()
+    _build.load("fused_mttkrp.cu")
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.2f}s (nvcc wall {_build.BUILD_SECONDS.get('wall')})", flush=True)
+
+    x_np, rng = bench_tensor()
+    x = torch.from_numpy(x_np).to(dev)
+    rows, worst = kernel_phase(x, dev)
+
+    queue = engine_queue(rng)
+    engine_run(x_np, queue[::80], {}, "warm-up", check_fit=False)
+    res_a, rep_a, run_a = engine_run(x_np, queue, {}, "highest")
+    res_b, rep_b, run_b = engine_run(x_np, queue, BENCH_TIERS, "bench-tiers")
+    check = cross_check(x_np, queue, {"highest": (res_a, rep_a), "bench-tiers": (res_b, rep_b)})
+
+    w = rep_b.engine_iterations
+    tier = BENCH_TIERS["mttkrp_precision"]
+    spec = [
+        ("fused_mttkrp", "mttkrp", tier, "cp_cals_tpu_torch/csrc/fused_mttkrp.cu",
+         "cp_cals_tpu/ops/pallas_mttkrp.py:98"),
+        ("normal_inverse", "hinv", None, "cp_cals_tpu_torch/csrc/fused_epilogue.cu",
+         "cp_cals_tpu/ops/pallas_epilogue.py:63"),
+        ("epilogue_apply", "apply", None, "cp_cals_tpu_torch/csrc/fused_epilogue.cu",
+         "cp_cals_tpu/ops/pallas_epilogue.py:186"),
+    ]
+    kernels = []
+    for name, key, t, source, replaces in spec:
+        lib = None if key == "apply" else weighted(rows, w, key, "library_ms", t)
+        entry = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=run_b["launches"][name], max_abs_err=worst[key],
+            ms=weighted(rows, w, key, "ms", t), plain_ms=weighted(rows, w, key, "plain_ms", t),
+            bound_ms=weighted(rows, w, key, "bound_ms", t),
+            bound_by=("operations" if weighted(rows, w, key, "bound_ops_ms", t)
+                      >= weighted(rows, w, key, "bound_bytes_ms", t) else "bytes"),
+            library_ms=lib,
+        )
+        if key == "mttkrp":
+            entry["tier"] = t
+            entry["ms_by_tier"] = {tt: weighted(rows, w, key, "ms", tt) for tt in TIERS}
+        kernels.append(entry)
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
+        json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+                       build_s=build_s, shapes=rows, engine={"highest": run_a, "bench_tiers": run_b},
+                       cross_check=check, kernels=kernels), fh, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

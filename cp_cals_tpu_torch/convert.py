@@ -1,0 +1,77 @@
+"""Carry models, solver states and parameters across from the JAX package.
+
+The functions take host data only (NumPy arrays, plain dicts, objects with
+the JAX package's field names), so this module imports nothing of JAX: pull
+a JAX value to the host first, e.g. ``jax.tree.map(np.asarray, state)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+import torch
+
+from .config import AlsParams, CalsParams
+from .device import resolve_device
+from .ktensor import Ktensor
+from .solvers.state import SolverState
+
+
+def _tensor(a, dev, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), device=dev, dtype=dtype)
+
+
+def ktensor_from_numpy(kt, device=None) -> Ktensor:
+    """A Ktensor of torch tensors from any object with ``factors`` and
+    ``lam`` holding arrays (a JAX Ktensor pulled to NumPy, or NumPy)."""
+    dev = resolve_device(device)
+    return Ktensor(
+        tuple(_tensor(f, dev).contiguous() for f in kt.factors), _tensor(kt.lam, dev)
+    )
+
+
+def state_from_numpy(state, device=None) -> SolverState:
+    """A port ``SolverState`` from a JAX ``SolverState`` whose leaves were
+    pulled to NumPy, leaf by leaf. NNLS, line-search and mixed-tier carries
+    must be empty (not ported yet, ROADMAP queue 1 item 5)."""
+    if state.active or state.ls or state.hi:
+        raise NotImplementedError(
+            "NNLS / line-search / mixed-tier state is not ported yet "
+            "(ROADMAP queue 1 item 5)"
+        )
+    dev = resolve_device(device)
+    return SolverState(
+        kt=ktensor_from_numpy(state.kt, dev),
+        grams=tuple(_tensor(g, dev).contiguous() for g in state.grams),
+        rank_mask=_tensor(state.rank_mask, dev, torch.bool),
+        iters=_tensor(state.iters, dev, torch.int32),
+        fit=_tensor(state.fit, dev),
+        old_fit=_tensor(state.old_fit, dev),
+        approx_error=_tensor(state.approx_error, dev),
+        converged=_tensor(state.converged, dev, torch.bool),
+        alive=_tensor(state.alive, dev, torch.bool),
+        jk_fiber=_tensor(state.jk_fiber, dev, torch.int32),
+        x_norm_model=_tensor(state.x_norm_model, dev),
+    )
+
+
+def params_from_dict(d: dict, kind: str = "cals") -> AlsParams | CalsParams:
+    """``AlsParams``/``CalsParams`` from a field dict, such as
+    ``dataclasses.asdict`` of the JAX package's params. Enum members of
+    either package are mapped by value."""
+    cls = {"als": AlsParams, "cals": CalsParams}[kind]
+    types = {f.name: f.type for f in dataclasses.fields(cls)}
+    defaults = cls()
+    out = {}
+    for k, v in d.items():
+        if k not in types:
+            raise ValueError(f"{cls.__name__} has no field {k!r}")
+        cur = getattr(defaults, k)
+        if isinstance(cur, enum.Enum):
+            v = type(cur)(getattr(v, "value", v))
+        elif isinstance(cur, tuple):
+            v = tuple(v)
+        out[k] = v
+    return cls(**out)

@@ -1,0 +1,119 @@
+"""The port's CUDA kernels and engine on the card (marker ``cuda``).
+
+Each kernel is held against its plain PyTorch version on the same inputs on
+the card, and ``cp_cals`` on the card against the same run on the CPU. The
+module imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+(``--noconftest`` skips tests/conftest.py, which sets up JAX.) Without a
+card every test skips. Tolerances are fp32 ones: the kernels sum in
+another order than cuBLAS (MTTKRP 2e-5 relative, epilogue 2e-4).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cp_cals_tpu_torch import CalsParams, cp_cals, random_ktensor_host
+from cp_cals_tpu_torch.ops import fused_epilogue as fe
+from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+from cp_cals_tpu_torch.ops.gramians import gramians
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_mttkrp_kernel_matches_plain(dev, precision):
+    """Odd rank, ragged tiles, and a short target mode that splits j."""
+    rng = np.random.default_rng(1)
+    modes, b, r = (70, 45, 33), 5, 7
+    x = torch.from_numpy(rng.normal(size=modes).astype(np.float32)).to(dev)
+    fs = [torch.from_numpy(rng.normal(size=(b, m, r)).astype(np.float32)).to(dev) for m in modes]
+    for mode in range(3):
+        got = fm.mttkrp_batched_fused(x, fs, mode, precision=precision)
+        small, big = fm.split_others(modes, mode)
+        want = fm.fused_mttkrp_plain(fm.prepare_mode_tensor(x, mode), fs[small], fs[big], precision)
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 2e-5 * scale
+
+
+def test_epilogue_kernels_match_plain(dev):
+    rng = np.random.default_rng(5)
+    b, modes, r, pad = 6, (9, 8, 7), 5, 2
+    rr = r + pad
+    mask = np.broadcast_to(np.arange(rr) < r, (b, rr)).copy()
+    mask[-1] = False
+    m = torch.from_numpy(mask).to(dev)
+    factors = [torch.from_numpy(rng.normal(size=(b, n, rr)).astype(np.float32)).to(dev) * m[:, None, :]
+               for n in modes]
+    grams = gramians(factors)
+    for skip in range(3):
+        hinv = fe.normal_inverse(grams, m, skip)
+        torch.testing.assert_close(hinv, fe.normal_inverse_plain(grams, m, skip), rtol=2e-4, atol=2e-4)
+    g = torch.from_numpy(rng.normal(size=(b, modes[2], rr)).astype(np.float32)).to(dev) * m[:, None, :]
+    jk = torch.tensor([2, -1, 0, -1, 4, -1], dtype=torch.int32, device=dev)
+    for iters_val in (1, 3):
+        iters = torch.full((b,), iters_val, dtype=torch.int32, device=dev)
+        for zero_jk in (False, True):
+            for with_err in (False, True):
+                got = fe.epilogue_apply(g, hinv, iters, jk, zero_jk, with_err)
+                want = fe.epilogue_apply_plain(g, hinv, iters, jk, zero_jk, with_err)
+                for a, w in zip(got[:3], want[:3]):
+                    torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+                if with_err:
+                    torch.testing.assert_close(got[3][0].double() + got[3][1].double(),
+                                               want[3][0].double() + want[3][1].double(),
+                                               rtol=1e-6, atol=1e-6)
+                assert not got[0][-1].any() and not got[1][-1].any()
+
+
+def test_kernels_reject_what_they_do_not_take(dev):
+    g = torch.zeros(2, 4, 3, device=dev)
+    h = torch.eye(3, device=dev).expand(2, 3, 3).contiguous()
+    i32 = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        fe.epilogue_apply(g.double(), h.double(), i32, i32, False, False)
+    with pytest.raises(ValueError):
+        fe.epilogue_apply(torch.zeros(2, 4, fe.MAX_R + 1, device=dev),
+                          torch.zeros(2, fe.MAX_R + 1, fe.MAX_R + 1, device=dev), i32, i32, False, False)
+    eye = torch.eye(3, device=dev).expand(2, 3, 3).contiguous()
+    with pytest.raises(ValueError):  # the kernel takes a 3-D tensor's two other gramians
+        fe.normal_inverse((eye,) * 4, torch.ones(2, 3, dtype=torch.bool, device=dev), 0)
+    x3 = torch.zeros(3, 4, 5, device=dev)
+    with pytest.raises(ValueError):
+        fm.fused_mttkrp(x3.double(), torch.zeros(2, 3, 2, device=dev).double(),
+                        torch.zeros(2, 5, 2, device=dev).double())
+    with pytest.raises(ValueError):
+        fm.fused_mttkrp(x3, torch.zeros(2, 3, 2, device=dev), torch.zeros(2, 6, 2, device=dev))
+
+
+def test_cp_cals_on_card_matches_cpu(dev):
+    """The engine through the kernels (refills, jackknife fibers) against
+    the same fp32 run on the CPU through the plain versions."""
+    rng = np.random.default_rng(2)
+    modes = (20, 17, 9)
+    kt = random_ktensor_host(rng, modes, 3)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    x = (x + 0.01 * rng.standard_normal(modes)).astype(np.float32)
+    queue = [random_ktensor_host(rng, modes, r) for r in (1, 2, 3, 4, 5, 3, 2)]
+    jk = [-1, 3, -1, 0, -1, 7, -1]
+    params = CalsParams(max_iterations=8, force_max_iter=True, buffer_size=12, bucket_ranks=(2, 4, 8))
+    fm.fused_mttkrp.launches = fe.normal_inverse.launches = fe.epilogue_apply.launches = 0
+    res_d, rep_d = cp_cals(x, queue, params, jk_fibers=jk)
+    iters = sum(rep_d.engine_iterations.values())
+    assert fm.fused_mttkrp.launches == fe.normal_inverse.launches == fe.epilogue_apply.launches == 3 * iters
+    res_c, rep_c = cp_cals(x, queue, params, jk_fibers=jk, device="cpu")
+    for a, b, ma, mb in zip(res_d, res_c, rep_d.models, rep_c.models):
+        assert ma.iters == mb.iters
+        assert abs(ma.fit - mb.fit) <= 1e-4
+        for fa, fb in zip(a.factors, b.factors):
+            np.testing.assert_allclose(fa, fb, rtol=2e-3, atol=2e-3)

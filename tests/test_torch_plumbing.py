@@ -1,0 +1,174 @@
+"""Plumbing of the PyTorch/CUDA port: bucketing and budget against the JAX
+engine, parameter structs, the result wire dtype, what is not ported yet,
+the device rule, and the rule that the port imports nothing of JAX."""
+
+import ast
+import dataclasses
+import enum
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import cp_cals_tpu.config as jcfg
+from cp_cals_tpu.solvers import cals as jcals
+from cp_cals_tpu_torch import config as pcfg
+from cp_cals_tpu_torch import cp_cals, random_ktensor_host
+from cp_cals_tpu_torch.solvers import cals as pcals
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize(
+    "bucket_ranks", [(4, 8, 16, 32), (4, 8, 12, 16, 20), (2, 4, 8), (3,), (1, 5, 7)]
+)
+def test_bucket_rank_matches_jax(bucket_ranks):
+    for rank in range(1, 90):
+        assert pcals.bucket_rank(rank, bucket_ranks) == jcals.bucket_rank(rank, bucket_ranks)
+
+
+@pytest.mark.parametrize(
+    "demands,budget",
+    [
+        ({4: 80, 8: 80, 12: 80, 16: 80, 20: 80}, 2880),
+        ({4: 80, 8: 80, 12: 80, 16: 80, 20: 80}, 5760),
+        ({2: 3, 4: 5, 8: 7}, 12),
+        ({2: 40, 4: 1}, 16),
+        ({32: 2, 64: 3}, 40),
+        ({8: 1000}, 4200),
+        ({1: 1}, 1),
+    ],
+)
+def test_allocate_bucket_batches_matches_jax(demands, budget):
+    assert pcals.allocate_bucket_batches(demands, budget) == jcals.allocate_bucket_batches(
+        demands, budget
+    )
+
+
+def test_bench_allocation():
+    """The bench workload's buckets and batch sizes at buffer_size=2880."""
+    waves = pcals.allocate_bucket_batches({4: 80, 8: 80, 12: 80, 16: 80, 20: 80}, 2880)
+    assert waves == [{4: 96, 8: 64, 12: 64, 16: 32, 20: 32}]
+
+
+def _field_map(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        d = f.default if f.default is not dataclasses.MISSING else f.default_factory()
+        out[f.name] = d.value if isinstance(d, enum.Enum) else d
+    return out
+
+
+@pytest.mark.parametrize("name", ["AlsParams", "CalsParams"])
+def test_params_fields_and_defaults_equal_jax(name):
+    assert _field_map(getattr(pcfg, name)) == _field_map(getattr(jcfg, name))
+
+
+@pytest.mark.parametrize("name", ["UpdateMethod", "MttkrpMethod", "LineSearchMethod"])
+def test_enums_equal_jax(name):
+    assert {m.name: m.value for m in getattr(pcfg, name)} == {
+        m.name: m.value for m in getattr(jcfg, name)
+    }
+
+
+def _problem(dtype=np.float32):
+    rng = np.random.default_rng(5)
+    modes = (8, 7, 6)
+    kt = random_ktensor_host(rng, modes, 2, dtype=dtype)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam) + 0.01 * rng.standard_normal(modes)
+    queue = [random_ktensor_host(rng, modes, r, dtype=dtype) for r in (1, 2, 3, 2)]
+    return x.astype(dtype), queue
+
+
+@pytest.mark.parametrize("wire", ["float16", "bfloat16"])
+def test_result_wire_dtype(wire):
+    """The wire rounds only the returned factors: fits, errors, iterations
+    and lam are those of the full-width run."""
+    x, queue = _problem()
+    kw = dict(max_iterations=5, force_max_iter=True, bucket_ranks=(4,))
+    full, rep_f = cp_cals(x, queue, pcfg.CalsParams(**kw), device="cpu")
+    half, rep_h = cp_cals(x, queue, pcfg.CalsParams(result_wire_dtype=wire, **kw), device="cpu")
+    rel = {"float16": 1e-3, "bfloat16": 8e-3}[wire]
+    for a, b, ma, mb in zip(full, half, rep_f.models, rep_h.models):
+        assert (ma.iters, ma.fit, ma.approx_error) == (mb.iters, mb.fit, mb.approx_error)
+        np.testing.assert_array_equal(a.lam, b.lam)
+        for fa, fb in zip(a.factors, b.factors):
+            assert fb.dtype == np.float32
+            np.testing.assert_allclose(fb, fa, rtol=rel, atol=rel)
+            assert not np.array_equal(fa, fb)
+
+
+@pytest.mark.parametrize(
+    "change",
+    [
+        dict(update_method=pcfg.UpdateMethod.NNLS),
+        dict(line_search=True),
+        dict(tol_check_interval=3),
+        dict(polish_iters=1),
+        dict(dimtree="on"),
+        dict(mode_layouts="recompute"),
+        dict(sync_mode="iter"),
+        dict(always_evict_first=True),
+        dict(solve_method="pallas"),
+        dict(mttkrp_method=pcfg.MttkrpMethod.TWOSTEP),
+        dict(mttkrp_method=pcfg.MttkrpMethod.KRP_GEMM),
+    ],
+)
+def test_unported_settings_raise(change):
+    x, queue = _problem()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cp_cals(x, queue, pcfg.CalsParams(**change), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kwargs", [dict(checkpoint_dir="ckpt"), dict(max_rounds_per_bucket=1), dict(trace=[])]
+)
+def test_unported_engine_options_raise(kwargs):
+    x, queue = _problem()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cp_cals(x, queue, pcfg.CalsParams(), device="cpu", **kwargs)
+
+
+def test_unported_queue_entries_raise():
+    from cp_cals_tpu.ktensor import RandomKtensorSpec
+
+    x, _ = _problem()
+    with pytest.raises(NotImplementedError, match="item 7"):
+        cp_cals(x, [RandomKtensorSpec(x.shape, 2, 0)], pcfg.CalsParams(), device="cpu")
+
+
+def test_cp_cals_needs_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    x, queue = _problem()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cp_cals(x, queue, pcfg.CalsParams())
+
+
+def _imports(path: pathlib.Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    return (
+        name == "jax" or name.startswith("jax.")
+        or name == "cp_cals_tpu" or name.startswith("cp_cals_tpu.")
+    )
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = sorted((ROOT / "cp_cals_tpu_torch").rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = {str(p.relative_to(ROOT)): n for p in files for n in _imports(p) if _forbidden(n)}
+    assert not bad, bad
+    # the check matches the module name, not the prefix of the port's name
+    assert not _forbidden("cp_cals_tpu_torch.ops") and _forbidden("cp_cals_tpu.ops")
