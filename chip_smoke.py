@@ -24,13 +24,32 @@ the result lines are printed):
    0, and each kernel must have launched 3 x the bucket-iterations the
    engine ran. In both runs 20 models (one of each rank) are cross-checked
    against the port's own float64 run on the CPU from the same inits.
-5. Result: one {"kernels": [...]} line, then the last line
+5. Jackknife, at full width (the JAX bench's jackknife configuration): a
+   rank-5 model of the bench tensor fitted by cp_als on the card, then its
+   299 leave-one-out replicates in one bucket of rank 8 (B = 320): J1
+   jk_cp_cals as pinned (fused epilogue); J2 the same with
+   solve_method="pallas" (unfused epilogue through the SPD-inverse kernel);
+   J3 jk_cp_batched_als with solve_method="pallas" (one bucket of rank 5).
+   Each run starts with every count at 0 and must launch exactly its
+   path's kernels 3 x its bucket-iterations; each returns 299 replicates
+   with factor 0 NaN on exactly its fiber's row. J1 and J2 are run again at
+   10 forced iterations and 10 fibers are cross-checked against the port's
+   float64 CPU run.
+6. SPD inverse: the kernel against its plain version on the normal
+   matrices J2 inverted, and on random SPD batches (R = 4, 20, 64, cond up
+   to 1e4, dead identity slots), timed at J2's launch mix.
+7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
+   eager and graph-captured; its copy kernel is held to exact equality.
+8. Result: one {"kernels": [...]} line, then the last line
    {"ok": true, "device": {...}}. The per-shape measurements go to
-   chiprun_out/chip_smoke.json.
+   chiprun_out/chip_smoke.json, the probe's to
+   chiprun_out/overhead_probe.json.
 
 The kernels' "ms", "plain_ms", "bound_ms" and "library_ms" in the result
-line are per-launch means over the launch mix of the bench-tier engine run
-(each (bucket, mode) weighted by that bucket's engine iterations).
+line are per-launch means over a launch mix: the bench-tier engine run's
+for the MTTKRP and the fused epilogue (each (bucket, mode) weighted by that
+bucket's engine iterations), J2's for the SPD inverse, and the probe's two
+shapes for the copy kernel.
 """
 
 from __future__ import annotations
@@ -71,6 +90,9 @@ BENCH_TIERS = dict(precision="high", mttkrp_precision="default")
 #   would read about 1 / cond(H) >= 5e-5.
 # - apply: R-term dot products and I-term gramian sums in fp32: 1e-5; the
 #   double-float error columns agree far below that.
+# The SPD inverse is held like hinv (the same elimination with a reciprocal
+# of each pivot): on J2's normal matrices (cond <= 1.1e4) and random batches
+# up to cond 1e4 it read at most 7.9e-8 on an H100.
 TOL = {"mttkrp": 2e-5, "hinv": 1e-6, "apply": 1e-5}
 # Engine against the port's float64 CPU run (20 models, 10 iterations from
 # the same inits): the largest |fit difference| and relative reconstruction
@@ -79,6 +101,16 @@ TOL = {"mttkrp": 2e-5, "hinv": 1e-6, "apply": 1e-5}
 # bf16 MTTKRP inputs carry 2^-9 relative rounding).
 CROSS_TOL = {"highest": (5e-5, 5e-5), "bench-tiers": (1e-2, 1e-2)}
 HINV_SNAPSHOTS = (1, 4, ITERS)  # engine iterations whose grams are checked
+# The jackknife phase: the bench tensor's rank-5 model (fitted from this
+# seed), its 299 replicates in one bucket of rank 8 (B = 320 slots).
+JK_RANK, JK_BUCKET, JK_SEED = 5, 8, 17
+# Rescaled, LSAP-adjusted replicates after 10 forced iterations on the card
+# ("high" tier, float16 result wire) against the port's float64 CPU run of
+# the same 10 fibers: the largest relative reconstruction difference (NaN
+# row dropped) and the largest relative |lam| difference allowed. Both runs
+# are deterministic; on an H100 J1 and J2 both read 3.2e-4 and 7.6e-5 (the
+# float16 wire's 2^-11 rounding of the factors dominates).
+JK_CROSS_TOL = (2e-3, 5e-4)
 
 
 def card_line() -> str:
@@ -331,24 +363,42 @@ def engine_queue(rng):
     ]
 
 
-def reset_counts():
+def wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from cp_cals_tpu_torch import probe_overhead as probe
     from cp_cals_tpu_torch.ops import fused_epilogue as fe
     from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+    from cp_cals_tpu_torch.ops import spd_inverse as si
 
-    fm.fused_mttkrp.launches = 0
-    fe.normal_inverse.launches = 0
-    fe.epilogue_apply.launches = 0
+    return {
+        "fused_mttkrp": fm.fused_mttkrp,
+        "normal_inverse": fe.normal_inverse,
+        "epilogue_apply": fe.epilogue_apply,
+        "spd_inverse": si.spd_inverse,
+        "probe_copy": probe.probe_copy,
+    }
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    from cp_cals_tpu_torch.ops import fused_epilogue as fe
-    from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+    return {name: fn.launches for name, fn in wrappers().items()}
 
-    return {
-        "fused_mttkrp": fm.fused_mttkrp.launches,
-        "normal_inverse": fe.normal_inverse.launches,
-        "epilogue_apply": fe.epilogue_apply.launches,
-    }
+
+FUSED = ("fused_mttkrp", "normal_inverse", "epilogue_apply")
+UNFUSED = ("fused_mttkrp", "spd_inverse")
+
+
+def check_launches(name: str, counts: dict, per_step: tuple, steps: int) -> None:
+    """The kernels in ``per_step`` launched 3 x ``steps`` times (once per
+    mode of each bucket-iteration), every other kernel not at all."""
+    for k, v in counts.items():
+        want = 3 * steps if k in per_step else 0
+        if v != want or (k in per_step and v == 0):
+            raise AssertionError(f"{name}: {k} launched {v} times, expected {want} (3 x {steps})")
 
 
 def bench_params(**tiers):
@@ -373,9 +423,7 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True):
     wall = time.perf_counter() - t0
     counts = read_counts()
     bucket_iters = sum(rep.engine_iterations.values())
-    for k, v in counts.items():
-        if v != 3 * bucket_iters or v == 0:
-            raise AssertionError(f"{name}: {k} launched {v} times, expected 3 x {bucket_iters}")
+    check_launches(name, counts, FUSED, bucket_iters)
     if len(results) != len(queue) or any(kt is None for kt in results):
         raise AssertionError(f"{name}: missing results")
     for kt, q in zip(results, queue):
@@ -430,6 +478,250 @@ def cross_check(x, queue, runs: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ jackknife phase
+
+
+def jk_params(**kw):
+    """The JAX bench's jackknife configuration (bench.py, BASELINE config
+    4): 299 replicates of a rank-5 model in one bucket of rank 8."""
+    from cp_cals_tpu_torch import CalsParams
+
+    base = dict(tol=1e-6, max_iterations=100, buffer_size=4200, bucket_ranks=(JK_BUCKET,),
+                precision="high", dimtree="off", evict_batch=48, result_wire_dtype="float16")
+    return CalsParams(**{**base, **kw})
+
+
+def fit_jk_model(x_np):
+    """The model the jackknife resamples: rank 5, fitted by cp_als on the
+    card from a seeded init at the "highest" tier, through the fused kernels."""
+    from cp_cals_tpu_torch import AlsParams, cp_als, random_ktensor_host
+
+    kt0 = random_ktensor_host(np.random.default_rng(JK_SEED), MODES, JK_RANK)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    kt, rep = cp_als(x_np, kt0, AlsParams(precision="highest", tol=1e-8, max_iterations=500))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_launches("cp_als", counts, FUSED, rep.iters)
+    if not (np.isfinite(rep.fit) and 0.5 < rep.fit <= 1.0):
+        raise AssertionError(f"cp_als: fit {rep.fit}")
+    out = dict(wall_s=wall, fit=rep.fit, iters=rep.iters, converged=rep.converged, launches=counts)
+    print(f"cp_als rank {JK_RANK}: fit {rep.fit:.6f} in {rep.iters} iterations "
+          f"(converged {rep.converged}), wall {wall:.3f}s, launches {counts}", flush=True)
+    return kt, out
+
+
+class SpdRecorder:
+    """Observes the unfused solve's calls of ``spd_inverse`` during one run:
+    how many launches took each (B, R), the first input of each shape, and
+    the inputs of the bucket-iterations in HINV_SNAPSHOTS and of the last
+    one (replicates start from the fitted model, so a run may end before
+    iteration 10). The counts stay the wrapper's own; the inputs are kept by
+    reference (nothing writes to them)."""
+
+    def __enter__(self):
+        from cp_cals_tpu_torch.ops import update
+
+        self.module, self.real = update, update.spd_inverse
+        self.shapes, self.first, self.snap_inputs, self.last, self.n = {}, {}, [], {}, 0
+
+        def record(h):
+            it, mode = self.n // 3 + 1, self.n % 3
+            self.n += 1
+            shape = tuple(h.shape[:2])
+            self.shapes[shape] = self.shapes.get(shape, 0) + 1
+            self.first.setdefault(shape, h)
+            if it in HINV_SNAPSHOTS:
+                self.snap_inputs.append((it, mode, h))
+            self.last[mode] = (it, mode, h)
+            return self.real(h)
+
+        update.spd_inverse = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.spd_inverse = self.real
+
+    @property
+    def snaps(self) -> list:
+        """(bucket-iteration, mode, H) at the snapshots and the last
+        bucket-iteration."""
+        return self.snap_inputs + [e for e in self.last.values() if e[0] not in HINV_SNAPSHOTS]
+
+
+def jk_run(name: str, run, per_step: tuple) -> tuple:
+    """One jackknife run from counts at 0: launches, 299 well-formed
+    replicates (factor 0 NaN exactly on its fiber's row, finite elsewhere,
+    finite lam), wall and replicates/s."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    bucket_iters = sum(rep.cals_report.engine_iterations.values())
+    check_launches(name, counts, per_step, bucket_iters)
+    (reps,) = rep.results
+    if len(reps) != MODES[0]:
+        raise AssertionError(f"{name}: {len(reps)} replicates")
+    rows = np.arange(MODES[0])
+    for fiber, kt in enumerate(reps):
+        f0 = kt.factors[0]
+        nan_rows = np.isnan(f0).any(axis=1)
+        if (not np.array_equal(nan_rows, rows == fiber) or not np.isnan(f0[fiber]).all()
+                or not all(np.isfinite(f).all() for f in kt.factors[1:]) or not np.isfinite(kt.lam).all()):
+            raise AssertionError(f"{name}: replicate {fiber} is malformed")
+    iters = np.array([m.iters for m in rep.cals_report.models])
+    out = dict(wall_s=wall, replicates_per_s=len(reps) / wall, mean_iters=float(iters.mean()),
+               bucket_iterations=rep.cals_report.engine_iterations, launches=counts)
+    print(f"jackknife {name}: wall {wall:.3f}s, {out['replicates_per_s']:.1f} replicates/s, "
+          f"mean iters {out['mean_iters']:.2f}, bucket-iterations {bucket_iters}, launches {counts}",
+          flush=True)
+    return rep, out
+
+
+def jk_phase(x_np, kt5):
+    from cp_cals_tpu_torch import AlsParams, jk_cp_batched_als, jk_cp_cals
+
+    shared = dict(tol=1e-6, max_iterations=100, precision="high", dimtree="off")
+    runs = {}
+    _, runs["J1"] = jk_run("J1", lambda: jk_cp_cals(x_np, [kt5], jk_params()), FUSED)
+    with SpdRecorder() as rec:
+        _, runs["J2"] = jk_run("J2", lambda: jk_cp_cals(x_np, [kt5], jk_params(solve_method="pallas")), UNFUSED)
+    _, runs["J3"] = jk_run(
+        "J3", lambda: jk_cp_batched_als(x_np, [kt5], AlsParams(**shared, solve_method="pallas")), UNFUSED)
+    return runs, rec
+
+
+def replicate_diff(got, want, fiber: int) -> tuple[float, float]:
+    """(relative reconstruction difference with the NaN row dropped,
+    largest |lam difference| over the largest |lam|) of two replicates."""
+    def dense(kt):
+        f0 = np.delete(kt.factors[0].astype(np.float64), fiber, axis=0)
+        fs = [f0] + [f.astype(np.float64) for f in kt.factors[1:]]
+        return np.einsum("ir,jr,kr,r->ijk", *fs, kt.lam.astype(np.float64))
+
+    a, b = dense(got), dense(want)
+    rec = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    lam = float(np.abs(got.lam - want.lam).max() / np.abs(want.lam).max())
+    return rec, lam
+
+
+def jk_cross_check(x_np, kt5) -> dict:
+    """J1 and J2 again at 10 forced iterations against the port's float64
+    CPU run of 10 fibers from the same model, both rescaled and
+    LSAP-adjusted: held to JK_CROSS_TOL."""
+    from cp_cals_tpu_torch import Ktensor, cp_cals, jk_cp_cals
+    from cp_cals_tpu_torch.solvers.jackknife import (
+        _rescale_replicate,
+        jk_permutation_adjustment,
+        to_host_model,
+    )
+
+    ref = to_host_model(Ktensor(tuple(f.astype(np.float64) for f in kt5.factors), kt5.lam.astype(np.float64)))
+    fibers = [int(f) for f in np.linspace(0, MODES[0] - 1, 10).round()]
+    p64 = jk_params(force_max_iter=True, max_iterations=10, precision="highest", result_wire_dtype=None)
+    res64, _ = cp_cals(x_np.astype(np.float64), [ref] * len(fibers), p64, jk_fibers=fibers, device="cpu")
+    want = jk_permutation_adjustment(ref, [_rescale_replicate(k, f) for k, f in zip(res64, fibers)])
+    out = {}
+    for name, solve in (("J1", "gj"), ("J2", "pallas")):
+        rep = jk_cp_cals(x_np, [kt5], jk_params(force_max_iter=True, max_iterations=10, solve_method=solve))
+        diffs = [replicate_diff(rep.results[0][f], w, f) for f, w in zip(fibers, want)]
+        rec, lam = max(d[0] for d in diffs), max(d[1] for d in diffs)
+        print(f"cross-check {name} (10 forced iterations, 10 fibers) vs CPU float64: max relative "
+              f"reconstruction diff {rec:.3e}, max relative |lam| diff {lam:.3e}", flush=True)
+        rec_tol, lam_tol = JK_CROSS_TOL
+        if not (rec <= rec_tol and lam <= lam_tol):
+            raise AssertionError(f"jackknife cross-check of {name} against the CPU float64 run failed")
+        out[name] = dict(max_rel_recon_diff=rec, max_rel_lam_diff=lam)
+    return out
+
+
+def spd_phase(rec, dev) -> dict:
+    """The SPD-inverse kernel against its plain version on the card: on the
+    normal matrices J2 inverted at SNAPSHOTS, and on random SPD batches at
+    R = 4, 20, 64 with condition numbers up to about 1e4 and dead identity
+    slots. Times at every (B, R) of J2's launch mix."""
+    from cp_cals_tpu_torch.ops import spd_inverse as si
+
+    gen = np.random.default_rng(13)
+    cases = [(f"J2 iteration {it} mode {mode}", h) for it, mode, h in rec.snaps]
+    for r in (4, 20, 64):
+        q, _ = np.linalg.qr(gen.normal(size=(320, r, r)))
+        top = np.geomspace(1.0, 1e4, 320)[:, None]
+        h = np.einsum("bij,bj,bkj->bik", q, top ** np.linspace(0.0, 1.0, r)[None, :], q)
+        h[::7] = np.eye(r)  # dead slots
+        cases.append((f"random R={r}", torch.from_numpy(h.astype(np.float32)).to(dev)))
+    its = sorted({it for it, _, _ in rec.snaps})
+    if its[0] != 1 or len(rec.snaps) != 3 * len(its):
+        raise AssertionError(f"spd_inverse: J2 snapshots at iterations {its}, {len(rec.snaps)} inputs")
+    checks, worst = [], 0.0
+    for label, h in cases:
+        got, want = si.spd_inverse(h), si.spd_inverse_plain(h)
+        torch.cuda.synchronize()
+        reading = hinv_reading(got, want, h)
+        if not reading["ratio"] <= TOL["hinv"]:
+            raise AssertionError(f"spd_inverse {label}: {reading}")
+        eye = torch.eye(h.shape[-1], device=dev).expand_as(h)
+        if hinv_reading(2 * eye - h, want, h)["ratio"] <= TOL["hinv"]:
+            raise AssertionError(f"spd_inverse {label}: 2I - H passes the check")
+        dead = (h == eye).all(dim=(1, 2))
+        if not torch.equal(got[dead], eye[dead]):
+            raise AssertionError(f"spd_inverse {label}: a dead slot is not the identity")
+        checks.append(dict(case=label, B=h.shape[0], R=h.shape[-1], **reading))
+        worst = max(worst, reading["max_abs_err"])
+    mix = []
+    for (b, r), n in sorted(rec.shapes.items()):
+        h = rec.first[(b, r)]
+        flops = b * r * (1 + 2 * r + 4 * r * (r - 1))
+        mix.append(dict(B=b, R=r, launches=n, **bound(flops, PEAK_FP32, 2 * 4 * b * r * r),
+                        ms=cuda_ms(lambda: si.spd_inverse(h)),
+                        plain_ms=cuda_ms(lambda: si.spd_inverse_plain(h)),
+                        library_ms=cuda_ms(lambda: torch.linalg.inv(h))))
+    for c in checks:
+        print(f"spd_inverse {c['case']}: B={c['B']} R={c['R']} cond <= {c['cond_max']:.3g}, "
+              f"err/(cond*max) {c['ratio']:.3g}", flush=True)
+    for m in mix:
+        print(f"spd_inverse B={m['B']} R={m['R']} ({m['launches']} launches in J2): {m['ms']:.4f}ms, "
+              f"plain {m['plain_ms']:.4f}ms, torch.linalg.inv {m['library_ms']:.4f}ms, "
+              f"bound {m['bound_ms']:.2e}ms", flush=True)
+    return dict(checks=checks, mix=mix, max_abs_err=worst)
+
+
+# ------------------------------------------------------------ probe phase
+
+
+def probe_phase(dev) -> dict:
+    """The launch-overhead probe from counts at 0, then its copy kernel held
+    to exact equality with x * 0.999 and timed at both shapes."""
+    from cp_cals_tpu_torch import probe_overhead as probe
+
+    torch.cuda.synchronize()
+    reset_counts()
+    res = probe.run_probe()
+    counts = read_counts()
+    for k, v in counts.items():
+        if (v == 0) == (k == "probe_copy"):
+            raise AssertionError(f"probe: {k} launched {v} times")
+    probe.report(res)
+    gen = torch.Generator().manual_seed(3)
+    shapes = []
+    for shape in (probe.SMALL, probe.BIG):
+        x = torch.randn(shape, generator=gen).to(dev)
+        if not torch.equal(probe.probe_copy(x), probe.probe_copy_plain(x)):
+            raise AssertionError(f"probe_copy {shape}: not bit-identical to x * 0.999")
+        n = x.numel()
+        shapes.append(dict(shape=shape, **bound(n, PEAK_FP32, 8 * n),
+                           ms=cuda_ms(lambda: probe.probe_copy(x)),
+                           plain_ms=cuda_ms(lambda: probe.probe_copy_plain(x)),
+                           library_ms=cuda_ms(lambda: torch.mul(x, 0.999))))
+        print(f"probe_copy {shape}: exact; {shapes[-1]['ms']:.4f}ms, plain {shapes[-1]['plain_ms']:.4f}ms, "
+              f"torch.mul {shapes[-1]['library_ms']:.4f}ms", flush=True)
+    return dict(result=res, launches=counts["probe_copy"], shapes=shapes)
+
+
 def weighted(rows, bucket_iters, key, field, tier=None):
     num = den = 0.0
     for row in rows:
@@ -467,6 +759,12 @@ def main() -> int:
     res_b, rep_b, run_b = engine_run(x_np, queue, BENCH_TIERS, "bench-tiers")
     check = cross_check(x_np, queue, {"highest": (res_a, rep_a), "bench-tiers": (res_b, rep_b)})
 
+    kt5, fit5 = fit_jk_model(x_np)
+    jk_runs, rec = jk_phase(x_np, kt5)
+    spd = spd_phase(rec, dev)
+    jk_check = jk_cross_check(x_np, kt5)
+    probe = probe_phase(dev)
+
     w = rep_b.engine_iterations
     tier = BENCH_TIERS["mttkrp_precision"]
     spec = [
@@ -493,12 +791,30 @@ def main() -> int:
             entry["tier"] = t
             entry["ms_by_tier"] = {tt: weighted(rows, w, key, "ms", tt) for tt in TIERS}
         kernels.append(entry)
+    for name, mix, source, replaces, launches, err in (
+        ("spd_inverse", spd["mix"], "cp_cals_tpu_torch/csrc/spd_inverse.cu",
+         "cp_cals_tpu/ops/pallas_solve.py:37", jk_runs["J2"]["launches"]["spd_inverse"], spd["max_abs_err"]),
+        ("probe_copy", probe["shapes"], "cp_cals_tpu_torch/csrc/probe_copy.cu",
+         "scripts/probe_overhead.py:91", probe["launches"], 0.0),
+    ):
+        def mean(field, mix=mix):
+            # J2's launch mix for the SPD inverse; the probe launches both shapes equally.
+            n = [m.get("launches", 1) for m in mix]
+            return sum(k * m[field] for k, m in zip(n, mix)) / sum(n)
+
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+            max_abs_err=err, ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+            bound_by="operations" if mean("bound_ops_ms") >= mean("bound_bytes_ms") else "bytes",
+            library_ms=mean("library_ms"),
+        ))
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                        build_s=build_s, shapes=rows, engine={"highest": run_a, "bench_tiers": run_b},
-                       cross_check=check, kernels=kernels), fh, indent=1)
+                       cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
+                       spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,50 @@
 """cp_cals_tpu_torch: the PyTorch/CUDA port of cp_cals_tpu.
 
 Concurrent ALS for canonical polyadic decomposition on an NVIDIA H100, with
-the JAX package's hot kernels written by hand in CUDA C++ for Hopper
-(``csrc/``): the fused 3-D MTTKRP and the fused per-mode epilogue. Entry
-points run on the card unless the caller passes ``device="cpu"``, which
-runs the kernels' plain PyTorch versions.
+the JAX package's TPU kernels written by hand in CUDA C++ for Hopper
+(``csrc/``): the fused 3-D MTTKRP, the fused per-mode epilogue, the batched
+SPD inverse, and the launch-overhead probe's copy kernel. Entry points run
+on the card unless the caller passes ``device="cpu"``, which runs the
+kernels' plain PyTorch versions.
 """
 
 from .config import AlsParams, CalsParams, LineSearchMethod, MttkrpMethod, UpdateMethod
 from .device import resolve_device
 from .ktensor import Ktensor, random_ktensor_host
-from .solvers.cals import CalsModelReport, CalsReport, cp_cals
+from .solvers import (
+    AlsReport,
+    CalsModelReport,
+    CalsReport,
+    JKReport,
+    cp_als,
+    cp_batched_als,
+    cp_cals,
+    jackknife_norms,
+    jk_cp_als,
+    jk_cp_batched_als,
+    jk_cp_cals,
+    jk_permutation_adjustment,
+)
 
 __all__ = [
     "AlsParams",
+    "AlsReport",
     "CalsModelReport",
     "CalsParams",
     "CalsReport",
+    "JKReport",
     "Ktensor",
     "LineSearchMethod",
     "MttkrpMethod",
     "UpdateMethod",
+    "cp_als",
+    "cp_batched_als",
     "cp_cals",
+    "jackknife_norms",
+    "jk_cp_als",
+    "jk_cp_batched_als",
+    "jk_cp_cals",
+    "jk_permutation_adjustment",
     "random_ktensor_host",
     "resolve_device",
 ]

@@ -4,7 +4,8 @@ Field for field the same names and defaults as ``cp_cals_tpu/config.py``,
 so a configuration carries over between the two packages unchanged
 (``convert.params_from_dict``). This slice of the port runs the main path:
 unconstrained updates, no line search, per-iteration stopping, the fused
-MTTKRP and the fused epilogue. Other values of features not yet ported
+MTTKRP, the fused epilogue, and the unfused epilogue with any of the three
+solves (``"gj"``, ``"chol"``, ``"pallas"``). Other values of features not yet ported
 raise ``NotImplementedError`` naming their ROADMAP item
 (``check_supported``).
 """
@@ -135,9 +136,7 @@ def check_supported(params: AlsParams | CalsParams) -> None:
         if params.mode_layouts == "recompute":
             raise not_ported("mode_layouts='recompute'", "queue 1 item 2")
         raise ValueError(f"mode_layouts={params.mode_layouts!r}")
-    if params.solve_method == "pallas":
-        raise not_ported("solve_method='pallas'", "queue 2 item 4")
-    if params.solve_method not in ("gj", "chol"):
+    if params.solve_method not in ("gj", "chol", "pallas"):
         raise ValueError(f"solve_method={params.solve_method!r}")
     if params.epilogue not in ("auto", "fused", "xla"):
         raise ValueError(f"epilogue={params.epilogue!r}")
@@ -156,9 +155,22 @@ def check_supported(params: AlsParams | CalsParams) -> None:
 
 
 def resolve_epilogue(params: AlsParams | CalsParams) -> str:
-    """``"auto"`` resolves to the fused kernels (an intended difference
-    from the JAX package, whose ``"auto"`` is the unfused XLA path)."""
-    return "xla" if params.epilogue == "xla" else "fused"
+    """``"auto"`` resolves to the fused kernels with the Gauss-Jordan solve
+    (an intended difference from the JAX package, whose ``"auto"`` is the
+    unfused XLA path), and to the unfused path with any other solve: the
+    fused kernels always invert by Gauss-Jordan, so they cannot honour
+    ``"chol"`` or ``"pallas"``. An explicit ``"fused"`` with such a solve
+    raises ``ValueError``."""
+    if params.epilogue == "xla":
+        return "xla"
+    if params.solve_method == "gj":
+        return "fused"
+    if params.epilogue == "fused":
+        raise ValueError(
+            f"epilogue='fused' inverts by Gauss-Jordan and cannot honour "
+            f"solve_method={params.solve_method!r}; use epilogue='auto' or 'xla'"
+        )
+    return "xla"
 
 
 def resolve_mttkrp_method(params: AlsParams | CalsParams, ndim: int) -> str:

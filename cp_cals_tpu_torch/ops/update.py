@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .spd_inverse import spd_inverse
+
 
 def padded_hadamard(h: torch.Tensor, rank_mask: torch.Tensor) -> torch.Tensor:
     """Zero padded rows/columns and put 1 on their diagonal, so the system
@@ -54,12 +56,16 @@ def update_factor_unconstrained(
     """Solve U H = G for U: U = G H^-1, batched.
 
     g: [..., I, R] MTTKRP result; h: [..., R, R] SPD normal matrix.
-    solve: "gj" (unpivoted Gauss-Jordan) or "chol".
+    solve: "gj" (unpivoted Gauss-Jordan), "chol", or "pallas" (the batched
+    SPD-inverse kernel, ``ops/spd_inverse.py``, on a [B, R, R] batch; the
+    name is the JAX package's, and other shapes take ``gj_inverse``).
     """
-    if solve == "chol":
-        h_inv = cholesky_inverse(h)
-    elif solve == "gj":
-        h_inv = gj_inverse(h)
-    else:
+    if solve not in ("gj", "chol", "pallas"):
         raise ValueError(f"solve={solve!r}")
+    if solve == "pallas" and h.ndim == 3:
+        h_inv = spd_inverse(h)
+    elif solve == "chol":
+        h_inv = cholesky_inverse(h)
+    else:
+        h_inv = gj_inverse(h)
     return torch.matmul(g, h_inv)

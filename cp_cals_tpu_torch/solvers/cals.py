@@ -211,16 +211,15 @@ def _unpack_cols(kt_np: Ktensor, off: int, rank: int, np_dtype) -> Ktensor:
 
 def _norms(x: torch.Tensor, with_jk: bool):
     """(|X| on the device in x's dtype, leave-one-out norms per mode-0 fiber
-    on the host or None). The norms reduce in at least float32; the
-    cancellation-prone leave-one-out difference in float64."""
+    on the host or None). |X| reduces in at least float32; the
+    leave-one-out norms are ``jackknife_norms``."""
+    from .jackknife import jackknife_norms
+
     wide = torch.promote_types(x.dtype, torch.float32)
     x_norm = torch.linalg.vector_norm(x.to(wide).reshape(-1)).to(x.dtype)
     if not with_jk:
         return x_norm, None
-    x64 = x.to(torch.float64)
-    row_sq = torch.sum(x64 * x64, dim=tuple(range(1, x.ndim)))
-    loo = torch.sqrt(torch.clamp(row_sq.sum() - row_sq, min=0.0)).to(x.dtype)
-    return x_norm, loo.cpu().numpy()
+    return x_norm, jackknife_norms(x).cpu().numpy()
 
 
 def run_until_evict(iteration, x, state, x_norm, prepared, evict_batch: int = 1):

@@ -46,7 +46,8 @@ def make_iteration(
     """
     if not batched:
         raise NotImplementedError(
-            "single-model ALS is not ported yet (ROADMAP queue 1 item 3)"
+            "the unbatched iteration is not ported: cp_als runs one model as a "
+            "batch of one (ROADMAP section 3)"
         )
     check_supported(params)
     mttkrp_prec = params.mttkrp_precision or params.precision

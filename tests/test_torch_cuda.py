@@ -9,16 +9,29 @@ that has only PyTorch:
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.) Without a
 card every test skips. Tolerances are fp32 ones: the kernels sum in
-another order than cuBLAS (MTTKRP 2e-5 relative, epilogue 2e-4).
+another order than cuBLAS (MTTKRP 2e-5 relative, epilogue 2e-4); the SPD
+inverse is held per model to 1e-6 * cond(H) * max|H^-1| (its plain version
+rounds the same elimination, with FMAs at other places); the probe's copy
+kernel is exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cp_cals_tpu_torch import CalsParams, cp_cals, random_ktensor_host
+from cp_cals_tpu_torch import (
+    AlsParams,
+    CalsParams,
+    cp_als,
+    cp_batched_als,
+    cp_cals,
+    jk_cp_cals,
+    random_ktensor_host,
+)
+from cp_cals_tpu_torch import probe_overhead as probe
 from cp_cals_tpu_torch.ops import fused_epilogue as fe
 from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+from cp_cals_tpu_torch.ops import spd_inverse as si
 from cp_cals_tpu_torch.ops.gramians import gramians
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +130,102 @@ def test_cp_cals_on_card_matches_cpu(dev):
         assert abs(ma.fit - mb.fit) <= 1e-4
         for fa, fb in zip(a.factors, b.factors):
             np.testing.assert_allclose(fa, fb, rtol=2e-3, atol=2e-3)
+
+
+def _spd_batch(rng, b, r, cond):
+    """SPD matrices with condition numbers spread up to ``cond``."""
+    q, _ = np.linalg.qr(rng.normal(size=(b, r, r)))
+    top = np.geomspace(1.0, cond, b)[:, None]
+    s = top ** np.linspace(0.0, 1.0, r)[None, :]
+    return np.einsum("bij,bj,bkj->bik", q, s, q)
+
+
+@pytest.mark.parametrize("r", [1, 4, 8, 20, 64])
+def test_spd_inverse_kernel_matches_plain(dev, r):
+    rng = np.random.default_rng(r)
+    h = _spd_batch(rng, 40, r, 1e4).astype(np.float32)
+    h[[3, 17]] = np.eye(r, dtype=np.float32)  # dead slots
+    ht = torch.from_numpy(h).to(dev)
+    before = si.spd_inverse.launches
+    got = si.spd_inverse(ht)
+    assert si.spd_inverse.launches == before + 1
+    want = si.spd_inverse_plain(ht)
+    cond = torch.linalg.cond(ht.double())
+    err = (got.double() - want.double()).abs().amax((1, 2))
+    assert (err <= 1e-6 * cond * want.double().abs().amax((1, 2))).all()
+    eye = torch.eye(r, device=dev).expand(2, r, r)
+    assert torch.equal(got[[3, 17]], eye)
+    assert si.spd_inverse(ht[:0]).shape == (0, r, r) and si.spd_inverse.launches == before + 1
+
+
+def test_spd_inverse_rejects_what_it_does_not_take(dev):
+    h = torch.eye(3, device=dev).expand(2, 3, 3).contiguous()
+    with pytest.raises(ValueError):
+        si.spd_inverse(h.double())
+    with pytest.raises(ValueError):
+        si.spd_inverse(torch.eye(si.MAX_R + 1, device=dev).expand(2, si.MAX_R + 1, si.MAX_R + 1).contiguous())
+    with pytest.raises(ValueError):
+        si.spd_inverse(torch.zeros(2, 3, 4, device=dev))
+    with pytest.raises(ValueError):
+        si.spd_inverse(h.transpose(0, 2))
+
+
+@pytest.mark.parametrize("shape", [probe.SMALL, probe.BIG, (7,), (0,)])
+def test_probe_copy_kernel_is_exact(dev, shape):
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=shape).astype(np.float32)).to(dev)
+    assert torch.equal(probe.probe_copy(x), probe.probe_copy_plain(x))
+
+
+def _als_problem(seed, rank=3):
+    rng = np.random.default_rng(seed)
+    modes = (20, 17, 9)
+    kt = random_ktensor_host(rng, modes, rank)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    x = (x + 0.01 * rng.standard_normal(modes)).astype(np.float32)
+    return x, rng, modes
+
+
+def _reset():
+    fm.fused_mttkrp.launches = fe.normal_inverse.launches = fe.epilogue_apply.launches = 0
+    si.spd_inverse.launches = 0
+
+
+def test_cp_batched_als_pallas_on_card_matches_cpu(dev):
+    """The unfused epilogue through the SPD-inverse kernel: 3 launches per
+    lock-step iteration, none of the fused epilogue kernels."""
+    x, rng, modes = _als_problem(3)
+    inits = [random_ktensor_host(rng, modes, 3) for _ in range(5)]
+    params = AlsParams(max_iterations=15, force_max_iter=True, solve_method="pallas")
+    _reset()
+    res_d, reps_d = cp_batched_als(x, inits, params)
+    assert si.spd_inverse.launches == fm.fused_mttkrp.launches == 3 * 15
+    assert fe.normal_inverse.launches == fe.epilogue_apply.launches == 0
+    res_c, reps_c = cp_batched_als(x, inits, params, device="cpu")
+    for a, b, ra, rb in zip(res_d, res_c, reps_d, reps_c):
+        assert abs(ra.fit - rb.fit) <= 1e-4
+        for fa, fb in zip(a.factors, b.factors):
+            np.testing.assert_allclose(fa, fb, rtol=2e-3, atol=2e-3)
+    # cp_als: one model as a batch of one, through the fused kernels.
+    _reset()
+    kt, rep = cp_als(x, inits[0], AlsParams(max_iterations=6, force_max_iter=True))
+    assert fe.normal_inverse.launches == fe.epilogue_apply.launches == 3 * 6 and si.spd_inverse.launches == 0
+    kc, rc = cp_als(x, inits[0], AlsParams(max_iterations=6, force_max_iter=True), device="cpu")
+    assert abs(rep.fit - rc.fit) <= 1e-4
+
+
+def test_jk_cp_cals_pallas_on_card_matches_cpu(dev):
+    x, rng, modes = _als_problem(4)
+    kt_fit, _ = cp_als(x, random_ktensor_host(rng, modes, 3), AlsParams(tol=1e-8, max_iterations=200))
+    params = CalsParams(max_iterations=8, force_max_iter=True, bucket_ranks=(4,), solve_method="pallas")
+    _reset()
+    rep_d = jk_cp_cals(x, [kt_fit], params)
+    bucket_iters = sum(rep_d.cals_report.engine_iterations.values())
+    assert si.spd_inverse.launches == fm.fused_mttkrp.launches == 3 * bucket_iters > 0
+    assert fe.normal_inverse.launches == fe.epilogue_apply.launches == 0
+    rep_c = jk_cp_cals(x, [kt_fit], params, device="cpu")
+    assert len(rep_d.results[0]) == modes[0]
+    for a, b in zip(rep_d.results[0], rep_c.results[0]):
+        for fa, fb in zip(a.factors, b.factors):
+            mask = np.isfinite(fa)
+            assert (mask == np.isfinite(fb)).all()
+            np.testing.assert_allclose(fa[mask], fb[mask], rtol=2e-3, atol=2e-3)

@@ -14,7 +14,15 @@ import torch
 import cp_cals_tpu.config as jcfg
 from cp_cals_tpu.solvers import cals as jcals
 from cp_cals_tpu_torch import config as pcfg
-from cp_cals_tpu_torch import cp_cals, random_ktensor_host
+from cp_cals_tpu_torch import (
+    cp_als,
+    cp_batched_als,
+    cp_cals,
+    jk_cp_als,
+    jk_cp_batched_als,
+    jk_cp_cals,
+    random_ktensor_host,
+)
 from cp_cals_tpu_torch.solvers import cals as pcals
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -110,7 +118,6 @@ def test_result_wire_dtype(wire):
         dict(mode_layouts="recompute"),
         dict(sync_mode="iter"),
         dict(always_evict_first=True),
-        dict(solve_method="pallas"),
         dict(mttkrp_method=pcfg.MttkrpMethod.TWOSTEP),
         dict(mttkrp_method=pcfg.MttkrpMethod.KRP_GEMM),
     ],
@@ -139,11 +146,22 @@ def test_unported_queue_entries_raise():
 
 
 def test_cp_cals_needs_cuda_unless_asked_for_cpu():
+    """Every entry point defaults to the card and raises without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     x, queue = _problem()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cp_cals(x, queue, pcfg.CalsParams())
+    calls = [
+        lambda **kw: cp_cals(x, queue, pcfg.CalsParams(), **kw),
+        lambda **kw: cp_als(x, queue[1], pcfg.AlsParams(max_iterations=2), **kw),
+        lambda **kw: cp_batched_als(x, [queue[1], queue[3]], pcfg.AlsParams(max_iterations=2), **kw),
+        lambda **kw: jk_cp_cals(x, [queue[1]], pcfg.CalsParams(max_iterations=2), **kw),
+        lambda **kw: jk_cp_batched_als(x, [queue[1]], pcfg.AlsParams(max_iterations=2), **kw),
+        lambda **kw: jk_cp_als(x, [queue[1]], pcfg.AlsParams(max_iterations=2), **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        call(device="cpu")
 
 
 def _imports(path: pathlib.Path) -> list[str]:
@@ -168,6 +186,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((ROOT / "cp_cals_tpu_torch").rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {"cp_cals_tpu_torch/probe_overhead.py", "cp_cals_tpu_torch/utils/lsap.py",
+            "cp_cals_tpu_torch/solvers/jackknife.py"} <= names
     bad = {str(p.relative_to(ROOT)): n for p in files for n in _imports(p) if _forbidden(n)}
     assert not bad, bad
     # the check matches the module name, not the prefix of the port's name
