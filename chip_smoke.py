@@ -14,15 +14,18 @@ the result lines are printed):
    for the bench workload (299x301x41, buffer_size=2880) and every mode,
    each kernel is held against its plain PyTorch version on the card on the
    same inputs, and kernel, plain version and one PyTorch yardstick call are
-   timed with CUDA events. The normal inverse is held on the engine's own
+   timed with CUDA events. The MTTKRP runs at every tier on that tier's held
+   layout of X: "highest" through the fp32 kernel, "high" and "default"
+   through the tensor-core kernel. The normal inverse is held on the engine's own
    normal matrices: a bucket of bench-workload models run through the
    port's iteration on the card.
 4. Engine: cp_cals on the full bench workload (400 models, ranks 1-20 x 20,
    buckets 4/8/12/16/20, 10 forced iterations) through the kernels, at the
    "highest" tier and then at the bench tiers (precision="high",
    mttkrp_precision="default"). Each run starts with every launch count at
-   0, and each kernel must have launched 3 x the bucket-iterations the
-   engine ran. In both runs 20 models (one of each rank) are cross-checked
+   0, and each kernel of its path (the MTTKRP kernel of its tier) must have
+   launched 3 x the bucket-iterations the engine ran, every other kernel
+   not at all. In both runs 20 models (one of each rank) are cross-checked
    against the port's own float64 run on the CPU from the same inits.
 5. Jackknife, at full width (the JAX bench's jackknife configuration): a
    rank-5 model of the bench tensor fitted by cp_als on the card, then its
@@ -32,7 +35,10 @@ the result lines are printed):
    J3 jk_cp_batched_als with solve_method="pallas" (one bucket of rank 5).
    Each run starts with every count at 0 and must launch exactly its
    path's kernels 3 x its bucket-iterations; each returns 299 replicates
-   with factor 0 NaN on exactly its fiber's row. J1 and J2 are run again at
+   with factor 0 NaN on exactly its fiber's row. J1's MTTKRP calls are
+   recorded, and the tensor-core kernel is held against its plain version
+   and timed on J1's own inputs at each (B, mode) of J1's launch mix.
+   J1 and J2 are run again at
    10 forced iterations and 10 fibers are cross-checked against the port's
    float64 CPU run.
 6. SPD inverse: the kernel against its plain version on the normal
@@ -45,11 +51,15 @@ the result lines are printed):
    chiprun_out/chip_smoke.json, the probe's to
    chiprun_out/overhead_probe.json.
 
-The kernels' "ms", "plain_ms", "bound_ms" and "library_ms" in the result
-line are per-launch means over a launch mix: the bench-tier engine run's
-for the MTTKRP and the fused epilogue (each (bucket, mode) weighted by that
+The kernels' "ms", "graph_ms", "plain_ms", "bound_ms" and "library_ms" in
+the result line are per-launch means over a launch mix: the "highest"
+engine run's for the fp32 MTTKRP, the bench-tier run's for the tensor-core
+MTTKRP and the fused epilogue (each (bucket, mode) weighted by that
 bucket's engine iterations), J2's for the SPD inverse, and the probe's two
-shapes for the copy kernel.
+shapes for the copy kernel. "ms" is a launch's share of 20 eager launches
+back to back (for a small kernel mostly the host's cost of issuing it),
+"graph_ms" its share of 20 launches replayed from one CUDA graph (the
+device's time).
 """
 
 from __future__ import annotations
@@ -135,6 +145,31 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Per-launch device time of ``fn``: ``reps`` calls captured once in a
+    CUDA graph and replayed, so the host's issue cost (Python, ctypes,
+    allocation) is paid once per replay and not once per launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture (build, plan, allocator)
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def bound(flops: float, peak: float, nbytes: float) -> dict:
     """The least time for the work: operations over the peak rate of their
     type, or bytes (inputs read once, outputs written once) over HBM."""
@@ -160,6 +195,27 @@ def bench_tensor():
 
 
 # ------------------------------------------------------------ kernel phase
+
+
+def twostep(x_ts, u1, u2, tier: str):
+    """The MTTKRP's PyTorch yardstick: the unfused twostep at the tier, one
+    cuBLAS GEMM of the [I*J, K] unfolding by U2 (bf16 inputs at the bf16
+    tiers, three GEMMs of the hi/lo split at "high"), then the U1
+    contraction."""
+    b, j, r = u1.shape
+    k = u2.shape[1]
+    i = x_ts.shape[0] // j
+    ub = u2.permute(1, 0, 2).reshape(k, b * r)
+    if tier == "highest":
+        t = torch.matmul(x_ts, ub)
+    else:
+        xh, uh = x_ts.to(torch.bfloat16), ub.to(torch.bfloat16)
+        t = torch.matmul(xh, uh).float()
+        if tier == "high":
+            xl = (x_ts - xh.float()).to(torch.bfloat16)
+            ul = (ub - uh.float()).to(torch.bfloat16)
+            t = t + torch.matmul(xh, ul).float() + torch.matmul(xl, uh).float()
+    return torch.einsum("njbr,bjr->bnr", t.view(i, j, b, r), u1)
 
 
 def random_bucket(gen, b: int, r: int, dev):
@@ -238,7 +294,7 @@ def kernel_phase(x, dev):
     (alloc,) = allocate_bucket_batches({r: 80 for r in BUCKETS}, BUFFER)
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(11)
-    rows, worst = [], {"mttkrp": 0.0, "hinv": 0.0, "apply": 0.0}
+    rows, worst = [], {"hinv": 0.0, "apply": 0.0}
     for r, b in sorted(alloc.items()):
         factors, mask, jk = random_bucket(gen, b, r, dev)
         grams = gramians(factors)
@@ -246,33 +302,24 @@ def kernel_phase(x, dev):
         for mode in range(3):
             small, big = fm.split_others(MODES, mode)
             j, i, k = MODES[small], MODES[mode], MODES[big]
-            x3 = fm.prepare_mode_tensor(x, mode)
             u1, u2 = factors[small], factors[big]
             x_ts = x.permute(mode, small, big).reshape(-1, k)
             row = dict(B=b, R=r, mode=mode, J=j, I=i, K=k, mttkrp={})
-            nbytes = 4 * (j * i * k + b * (j + k + i) * r)
             flops = 2 * j * i * k * b * r + 2 * j * i * b * r
             for tier in TIERS:
+                # The tier's held layout: fp32 X at "highest", bf16 X (2 bytes
+                # an element) at "default", the bf16 hi/lo pair (4) at "high".
+                x3 = fm.prepare_mode_tensor(x, mode, tier)
+                nbytes = x3.nbytes + 4 * b * (j + k + i) * r
                 got = fm.fused_mttkrp(x3, u1, u2, tier)
                 want = fm.fused_mttkrp_plain(x3, u1, u2, tier)
                 torch.cuda.synchronize()
                 err, scale = rel_err(got, want)
                 if not err <= TOL["mttkrp"] * scale:
                     raise AssertionError(f"fused_mttkrp {tier} B={b} R={r} mode={mode}: {err} vs {scale}")
-                worst["mttkrp"] = max(worst["mttkrp"], err)
 
                 def library(tier=tier):
-                    ub = u2.permute(1, 0, 2).reshape(k, b * r)
-                    if tier == "highest":
-                        t = torch.matmul(x_ts, ub)
-                    else:
-                        xh, uh = x_ts.to(torch.bfloat16), ub.to(torch.bfloat16)
-                        t = torch.matmul(xh, uh).float()
-                        if tier == "high":
-                            xl = (x_ts - xh.float()).to(torch.bfloat16)
-                            ul = (ub - uh.float()).to(torch.bfloat16)
-                            t = t + torch.matmul(xh, ul).float() + torch.matmul(xl, uh).float()
-                    return torch.einsum("njbr,bjr->bnr", t.view(i, j, b, r), u1)
+                    return twostep(x_ts, u1, u2, tier)
 
                 lib_err, _ = rel_err(library(), want)
                 peak = PEAK_FP32 if tier == "highest" else PEAK_BF16
@@ -280,10 +327,11 @@ def kernel_phase(x, dev):
                     **bound(flops * (3 if tier == "high" else 1), peak, nbytes),
                     max_abs_err=err, ref_max=scale, library_err=lib_err,
                     ms=cuda_ms(lambda: fm.fused_mttkrp(x3, u1, u2, tier)),
+                    graph_ms=graph_ms(lambda: fm.fused_mttkrp(x3, u1, u2, tier)),
                     plain_ms=cuda_ms(lambda: fm.fused_mttkrp_plain(x3, u1, u2, tier)),
                     library_ms=cuda_ms(library),
                 )
-            g = fm.fused_mttkrp(x3, u1, u2, "highest")
+            g = fm.fused_mttkrp(fm.prepare_mode_tensor(x, mode), u1, u2, "highest")
             checks = []
             for it, e_grams in snaps:
                 got = fe.normal_inverse(e_grams, e_mask, mode)
@@ -305,6 +353,7 @@ def kernel_phase(x, dev):
                 ratio=max(c["ratio"] for c in checks),
                 cond_max=max(c["cond_max"] for c in checks), checks=checks,
                 ms=cuda_ms(lambda: fe.normal_inverse(e_grams, e_mask, mode)),
+                graph_ms=graph_ms(lambda: fe.normal_inverse(e_grams, e_mask, mode)),
                 plain_ms=cuda_ms(lambda: fe.normal_inverse_plain(e_grams, e_mask, mode)),
                 library_ms=cuda_ms(lambda: torch.linalg.inv(h)),
             )
@@ -339,12 +388,14 @@ def kernel_phase(x, dev):
                 **bound(flops, PEAK_FP32, nbytes),
                 max_abs_err=max(errs), with_err=with_err,
                 ms=cuda_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, False, with_err)),
+                graph_ms=graph_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, False, with_err)),
                 plain_ms=cuda_ms(lambda: fe.epilogue_apply_plain(g, hinv, iters, jk, False, with_err)),
                 library_ms=None,
             )
             rows.append(row)
             print(f"kernels B={b:3d} R={r:2d} mode={mode}: mttkrp "
-                  + " ".join(f"{t}={row['mttkrp'][t]['ms']:.4f}ms" for t in TIERS)
+                  + " ".join(f"{t}={row['mttkrp'][t]['ms']:.4f}ms (graph {row['mttkrp'][t]['graph_ms']:.4f})"
+                             for t in TIERS)
                   + f" hinv={row['hinv']['ms']:.4f}ms (cond <= {row['hinv']['cond_max']:.3g}, "
                   f"err/(cond*max) {row['hinv']['ratio']:.3g}) apply={row['apply']['ms']:.4f}ms",
                   flush=True)
@@ -371,7 +422,8 @@ def wrappers() -> dict:
     from cp_cals_tpu_torch.ops import spd_inverse as si
 
     return {
-        "fused_mttkrp": fm.fused_mttkrp,
+        "fused_mttkrp_fp32": fm.fused_mttkrp_fp32,
+        "fused_mttkrp_tc": fm.fused_mttkrp_tc,
         "normal_inverse": fe.normal_inverse,
         "epilogue_apply": fe.epilogue_apply,
         "spd_inverse": si.spd_inverse,
@@ -388,8 +440,18 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-FUSED = ("fused_mttkrp", "normal_inverse", "epilogue_apply")
-UNFUSED = ("fused_mttkrp", "spd_inverse")
+MTTKRP_KERNEL = {"highest": "fused_mttkrp_fp32", "high": "fused_mttkrp_tc", "default": "fused_mttkrp_tc"}
+
+
+def fused(tier: str) -> tuple:
+    """The kernels one bucket-iteration of the fused-epilogue path launches
+    per mode: the MTTKRP kernel of the MTTKRP's tier, then the epilogue."""
+    return (MTTKRP_KERNEL[tier], "normal_inverse", "epilogue_apply")
+
+
+def unfused(tier: str) -> tuple:
+    """... of the unfused path through the SPD-inverse kernel."""
+    return (MTTKRP_KERNEL[tier], "spd_inverse")
 
 
 def check_launches(name: str, counts: dict, per_step: tuple, steps: int) -> None:
@@ -423,7 +485,7 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True):
     wall = time.perf_counter() - t0
     counts = read_counts()
     bucket_iters = sum(rep.engine_iterations.values())
-    check_launches(name, counts, FUSED, bucket_iters)
+    check_launches(name, counts, fused(params.mttkrp_precision or params.precision), bucket_iters)
     if len(results) != len(queue) or any(kt is None for kt in results):
         raise AssertionError(f"{name}: missing results")
     for kt, q in zip(results, queue):
@@ -503,7 +565,7 @@ def fit_jk_model(x_np):
     kt, rep = cp_als(x_np, kt0, AlsParams(precision="highest", tol=1e-8, max_iterations=500))
     wall = time.perf_counter() - t0
     counts = read_counts()
-    check_launches("cp_als", counts, FUSED, rep.iters)
+    check_launches("cp_als", counts, fused("highest"), rep.iters)
     if not (np.isfinite(rep.fit) and 0.5 < rep.fit <= 1.0):
         raise AssertionError(f"cp_als: fit {rep.fit}")
     out = dict(wall_s=wall, fit=rep.fit, iters=rep.iters, converged=rep.converged, launches=counts)
@@ -582,17 +644,77 @@ def jk_run(name: str, run, per_step: tuple) -> tuple:
     return rep, out
 
 
+class MttkrpRecorder:
+    """Observes the MTTKRP calls of one run through the tier dispatcher
+    ``fused_mttkrp`` (the kernel wrappers' counts stay their own): how many
+    launches took each (B, target mode, tier), and the first inputs of each,
+    kept by reference (nothing writes to them)."""
+
+    def __enter__(self):
+        from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+
+        self.module, self.real = fm, fm.fused_mttkrp
+        self.shapes, self.first = {}, {}
+
+        def record(x3, u1, u2, precision="highest"):
+            key = (u1.shape[0], MODES.index(x3.shape[-2]), precision)
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            self.first.setdefault(key, (x3, u1, u2))
+            return self.real(x3, u1, u2, precision)
+
+        fm.fused_mttkrp = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_mttkrp = self.real
+
+
+def mttkrp_mix(rec, x) -> list:
+    """The MTTKRP kernel at every (B, mode, tier) of a recorded run, on that
+    run's own inputs: held against its plain version at TOL["mttkrp"] and
+    timed, with the torch twostep at the same tier beside it."""
+    from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+
+    mix = []
+    for (b, mode, tier), n in sorted(rec.shapes.items(), reverse=True):
+        x3, u1, u2 = rec.first[(b, mode, tier)]
+        got, want = fm.fused_mttkrp(x3, u1, u2, tier), fm.fused_mttkrp_plain(x3, u1, u2, tier)
+        torch.cuda.synchronize()
+        err, scale = rel_err(got, want)
+        if not err <= TOL["mttkrp"] * scale:
+            raise AssertionError(f"fused_mttkrp {tier} B={b} mode={mode} (recorded inputs): {err} vs {scale}")
+        small, big = fm.split_others(MODES, mode)
+        j, i, k, r = MODES[small], MODES[mode], MODES[big], u1.shape[2]
+        x_ts = x.permute(mode, small, big).reshape(-1, k)
+        flops = (2 * j * i * k * b * r + 2 * j * i * b * r) * (3 if tier == "high" else 1)
+        mix.append(dict(
+            B=b, R=r, mode=mode, tier=tier, launches=n, max_abs_err=err, ref_max=scale,
+            **bound(flops, PEAK_FP32 if tier == "highest" else PEAK_BF16, x3.nbytes + 4 * b * (j + k + i) * r),
+            ms=cuda_ms(lambda: fm.fused_mttkrp(x3, u1, u2, tier)),
+            graph_ms=graph_ms(lambda: fm.fused_mttkrp(x3, u1, u2, tier)),
+            plain_ms=cuda_ms(lambda: fm.fused_mttkrp_plain(x3, u1, u2, tier)),
+            library_ms=cuda_ms(lambda: twostep(x_ts, u1, u2, tier)),
+        ))
+        m = mix[-1]
+        print(f"mttkrp J1 mix {tier} B={b} R={r} mode={mode} ({n} launches): {m['ms']:.4f}ms "
+              f"(graph {m['graph_ms']:.4f}), plain {m['plain_ms']:.4f}ms, twostep {m['library_ms']:.4f}ms, "
+              f"bound {m['bound_ms']:.4f}ms, err/max {err / scale:.2e}", flush=True)
+    return mix
+
+
 def jk_phase(x_np, kt5):
     from cp_cals_tpu_torch import AlsParams, jk_cp_batched_als, jk_cp_cals
 
     shared = dict(tol=1e-6, max_iterations=100, precision="high", dimtree="off")
     runs = {}
-    _, runs["J1"] = jk_run("J1", lambda: jk_cp_cals(x_np, [kt5], jk_params()), FUSED)
+    with MttkrpRecorder() as j1_rec:
+        _, runs["J1"] = jk_run("J1", lambda: jk_cp_cals(x_np, [kt5], jk_params()), fused("high"))
     with SpdRecorder() as rec:
-        _, runs["J2"] = jk_run("J2", lambda: jk_cp_cals(x_np, [kt5], jk_params(solve_method="pallas")), UNFUSED)
+        _, runs["J2"] = jk_run("J2", lambda: jk_cp_cals(x_np, [kt5], jk_params(solve_method="pallas")),
+                               unfused("high"))
     _, runs["J3"] = jk_run(
-        "J3", lambda: jk_cp_batched_als(x_np, [kt5], AlsParams(**shared, solve_method="pallas")), UNFUSED)
-    return runs, rec
+        "J3", lambda: jk_cp_batched_als(x_np, [kt5], AlsParams(**shared, solve_method="pallas")), unfused("high"))
+    return runs, rec, j1_rec
 
 
 def replicate_diff(got, want, fiber: int) -> tuple[float, float]:
@@ -678,13 +800,15 @@ def spd_phase(rec, dev) -> dict:
         flops = b * r * (1 + 2 * r + 4 * r * (r - 1))
         mix.append(dict(B=b, R=r, launches=n, **bound(flops, PEAK_FP32, 2 * 4 * b * r * r),
                         ms=cuda_ms(lambda: si.spd_inverse(h)),
+                        graph_ms=graph_ms(lambda: si.spd_inverse(h)),
                         plain_ms=cuda_ms(lambda: si.spd_inverse_plain(h)),
                         library_ms=cuda_ms(lambda: torch.linalg.inv(h))))
     for c in checks:
         print(f"spd_inverse {c['case']}: B={c['B']} R={c['R']} cond <= {c['cond_max']:.3g}, "
               f"err/(cond*max) {c['ratio']:.3g}", flush=True)
     for m in mix:
-        print(f"spd_inverse B={m['B']} R={m['R']} ({m['launches']} launches in J2): {m['ms']:.4f}ms, "
+        print(f"spd_inverse B={m['B']} R={m['R']} ({m['launches']} launches in J2): {m['ms']:.4f}ms "
+              f"(graph {m['graph_ms']:.4f}), "
               f"plain {m['plain_ms']:.4f}ms, torch.linalg.inv {m['library_ms']:.4f}ms, "
               f"bound {m['bound_ms']:.2e}ms", flush=True)
     return dict(checks=checks, mix=mix, max_abs_err=worst)
@@ -715,10 +839,11 @@ def probe_phase(dev) -> dict:
         n = x.numel()
         shapes.append(dict(shape=shape, **bound(n, PEAK_FP32, 8 * n),
                            ms=cuda_ms(lambda: probe.probe_copy(x)),
+                           graph_ms=graph_ms(lambda: probe.probe_copy(x)),
                            plain_ms=cuda_ms(lambda: probe.probe_copy_plain(x)),
                            library_ms=cuda_ms(lambda: torch.mul(x, 0.999))))
-        print(f"probe_copy {shape}: exact; {shapes[-1]['ms']:.4f}ms, plain {shapes[-1]['plain_ms']:.4f}ms, "
-              f"torch.mul {shapes[-1]['library_ms']:.4f}ms", flush=True)
+        print(f"probe_copy {shape}: exact; {shapes[-1]['ms']:.4f}ms (graph {shapes[-1]['graph_ms']:.4f}), "
+              f"plain {shapes[-1]['plain_ms']:.4f}ms, torch.mul {shapes[-1]['library_ms']:.4f}ms", flush=True)
     return dict(result=res, launches=counts["probe_copy"], shapes=shapes)
 
 
@@ -760,36 +885,49 @@ def main() -> int:
     check = cross_check(x_np, queue, {"highest": (res_a, rep_a), "bench-tiers": (res_b, rep_b)})
 
     kt5, fit5 = fit_jk_model(x_np)
-    jk_runs, rec = jk_phase(x_np, kt5)
+    jk_runs, rec, j1_rec = jk_phase(x_np, kt5)
+    j1_mix = mttkrp_mix(j1_rec, x)
     spd = spd_phase(rec, dev)
     jk_check = jk_cross_check(x_np, kt5)
     probe = probe_phase(dev)
 
-    w = rep_b.engine_iterations
-    tier = BENCH_TIERS["mttkrp_precision"]
+    # Each kernel at the launch mix of the engine run that drives it: the
+    # fp32 MTTKRP at "highest", everything else at the bench tiers.
     spec = [
-        ("fused_mttkrp", "mttkrp", tier, "cp_cals_tpu_torch/csrc/fused_mttkrp.cu",
+        ("fused_mttkrp_fp32", "mttkrp", "highest", run_a, rep_a, "cp_cals_tpu_torch/csrc/fused_mttkrp.cu",
          "cp_cals_tpu/ops/pallas_mttkrp.py:98"),
-        ("normal_inverse", "hinv", None, "cp_cals_tpu_torch/csrc/fused_epilogue.cu",
+        ("fused_mttkrp_tc", "mttkrp", BENCH_TIERS["mttkrp_precision"], run_b, rep_b,
+         "cp_cals_tpu_torch/csrc/fused_mttkrp_tc.cu", "cp_cals_tpu/ops/pallas_mttkrp.py:98"),
+        ("normal_inverse", "hinv", None, run_b, rep_b, "cp_cals_tpu_torch/csrc/fused_epilogue.cu",
          "cp_cals_tpu/ops/pallas_epilogue.py:63"),
-        ("epilogue_apply", "apply", None, "cp_cals_tpu_torch/csrc/fused_epilogue.cu",
+        ("epilogue_apply", "apply", None, run_b, rep_b, "cp_cals_tpu_torch/csrc/fused_epilogue.cu",
          "cp_cals_tpu/ops/pallas_epilogue.py:186"),
     ]
     kernels = []
-    for name, key, t, source, replaces in spec:
-        lib = None if key == "apply" else weighted(rows, w, key, "library_ms", t)
+    for name, key, t, run, rep, source, replaces in spec:
+        w = rep.engine_iterations
+
+        def mean(field, t=t, key=key, w=w):
+            return weighted(rows, w, key, field, t)
+
+        err = (max(row[key][t]["max_abs_err"] for row in rows) if key == "mttkrp" else worst[key])
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=run_b["launches"][name], max_abs_err=worst[key],
-            ms=weighted(rows, w, key, "ms", t), plain_ms=weighted(rows, w, key, "plain_ms", t),
-            bound_ms=weighted(rows, w, key, "bound_ms", t),
-            bound_by=("operations" if weighted(rows, w, key, "bound_ops_ms", t)
-                      >= weighted(rows, w, key, "bound_bytes_ms", t) else "bytes"),
-            library_ms=lib,
+            launches=run["launches"][name], max_abs_err=err,
+            ms=mean("ms"), graph_ms=mean("graph_ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+            bound_by="operations" if mean("bound_ops_ms") >= mean("bound_bytes_ms") else "bytes",
+            library_ms=None if key == "apply" else mean("library_ms"),
         )
         if key == "mttkrp":
             entry["tier"] = t
-            entry["ms_by_tier"] = {tt: weighted(rows, w, key, "ms", tt) for tt in TIERS}
+        if name == "fused_mttkrp_tc":
+            entry["max_abs_err"] = max(err, max(m["max_abs_err"] for m in j1_mix))
+            entry["by_tier"] = {tt: {f: mean(f, tt) for f in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")}
+                                for tt in ("default", "high")}
+            n = sum(m["launches"] for m in j1_mix)
+            entry["j1_mix"] = dict(launches=n, **{
+                f: sum(m["launches"] * m[f] for m in j1_mix) / n
+                for f in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")})
         kernels.append(entry)
     for name, mix, source, replaces, launches, err in (
         ("spd_inverse", spd["mix"], "cp_cals_tpu_torch/csrc/spd_inverse.cu",
@@ -804,7 +942,8 @@ def main() -> int:
 
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-            max_abs_err=err, ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+            max_abs_err=err, ms=mean("ms"), graph_ms=mean("graph_ms"), plain_ms=mean("plain_ms"),
+            bound_ms=mean("bound_ms"),
             bound_by="operations" if mean("bound_ops_ms") >= mean("bound_bytes_ms") else "bytes",
             library_ms=mean("library_ms"),
         ))
@@ -814,6 +953,7 @@ def main() -> int:
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                        build_s=build_s, shapes=rows, engine={"highest": run_a, "bench_tiers": run_b},
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
+                       mttkrp_j1_mix=j1_mix,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("fused_mttkrp.cu", "fused_epilogue.cu", "spd_inverse.cu", "probe_copy.cu")
+SOURCES = (
+    "fused_mttkrp.cu", "fused_mttkrp_tc.cu", "fused_epilogue.cu", "spd_inverse.cu",
+    "probe_copy.cu",
+)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,10 @@
-// Fused 3-D MTTKRP for Hopper (sm_90a), CUDA C++ on the CUDA cores.
+// Fused 3-D MTTKRP for Hopper (sm_90a) at the "highest" tier, CUDA C++ on
+// the CUDA cores.
 //
-// Replaces the TPU kernel cp_cals_tpu/ops/pallas_mttkrp.py:_mttkrp_kernel.
+// Replaces the TPU kernel cp_cals_tpu/ops/pallas_mttkrp.py:_mttkrp_kernel at
+// precision "highest" (strict fp32: the tensor cores have no strict-fp32
+// path). The bf16 tiers run on the tensor cores, csrc/fused_mttkrp_tc.cu.
+//
 // Computes, for every model b and rank column r (packed column c = b*R + r):
 //
 //     G[b, n, r] = sum_j U1[b, j, r] * (sum_k X[j, n, k] * U2[b, k, r])
@@ -27,18 +31,11 @@
 // (grid z, sized by the wrapper from the SM count) into a
 // workspace [S, I, B*R] that a second kernel sums in a fixed order, so the
 // result does not depend on scheduling.
-//
-// Precision tier (template parameter), as in the TPU kernel:
-//   HIGHEST: fp32 products.
-//   DEFAULT: X and U2 rounded to bf16 (round to nearest even) before each
-//            product; the products of two bf16 values are exact in fp32 and
-//            the sums are fp32. U1 is not rounded.
-//   HIGH:    the bf16 hi/lo split of X and U2 with three products,
-//            xh*u2h + xh*u2l + xl*u2h in that order (xl*u2l dropped).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mttkrp_common.cuh"
 
 namespace {
 
@@ -50,26 +47,6 @@ constexpr int RM = 8;        // rows per thread (contiguous)
 constexpr int RN = 4;        // columns per thread (contiguous)
 constexpr int XP = TM + 4;   // padded row of the staged X tile
 
-enum Tier { HIGHEST = 0, HIGH = 1, DEFAULT = 2 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Stage one value for the tier: as is, bf16-rounded, or bf16 hi/lo.
-template <int TIER>
-__device__ __forceinline__ void stage(float* hi, float* lo, float v) {
-  if constexpr (TIER == HIGHEST) {
-    *hi = v;
-  } else if constexpr (TIER == DEFAULT) {
-    *hi = bf16_round(v);
-  } else {
-    const float h = bf16_round(v);
-    *hi = h;
-    *lo = bf16_round(v - h);  // v - h is exact in fp32
-  }
-}
-
 __device__ __forceinline__ void load4(float* dst, const float* src) {
   const float4 v = *reinterpret_cast<const float4*>(src);
   dst[0] = v.x;
@@ -78,14 +55,12 @@ __device__ __forceinline__ void load4(float* dst, const float* src) {
   dst[3] = v.w;
 }
 
-template <int TIER>
 __global__ void __launch_bounds__(NT, 2)
 mttkrp_kernel(const float* __restrict__ x, const float* __restrict__ u1,
               const float* __restrict__ u2, float* __restrict__ dst,
               int J, int I, int K, int R, int C, int jchunk, int to_bir) {
-  constexpr int NS = (TIER == HIGH) ? 2 : 1;
-  __shared__ __align__(16) float xs[NS][TK][XP];
-  __shared__ __align__(16) float us[NS][TK][TN];
+  __shared__ __align__(16) float xs[TK][XP];
+  __shared__ __align__(16) float us[TK][TN];
 
   const int tid = threadIdx.x;
   const int tx = tid % 32;   // columns tx*4 .. tx*4+3
@@ -130,41 +105,26 @@ mttkrp_kernel(const float* __restrict__ x, const float* __restrict__ u1,
         const int m = l / TK, kk = l % TK;
         const int i = i0 + m, k = k0 + kk;
         const float v = (i < I && k < K) ? xj[(size_t)i * K + k] : 0.f;
-        stage<TIER>(&xs[0][kk][m], &xs[NS - 1][kk][m], v);
+        xs[kk][m] = v;
       }
 #pragma unroll
       for (int q = 0; q < (TK * TN) / NT; ++q) {
         const int kk = tid / TN + q * (NT / TN);
         const int k = k0 + kk;
         const float v = (ld_c_ok && k < K) ? u2[u2_col + (size_t)k * R] : 0.f;
-        stage<TIER>(&us[0][kk][ld_n], &us[NS - 1][kk][ld_n], v);
+        us[kk][ld_n] = v;
       }
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < TK; ++kk) {
         float a[RM], b[RN];
-        load4(a, &xs[0][kk][ty * RM]);
-        load4(a + 4, &xs[0][kk][ty * RM + 4]);
-        load4(b, &us[0][kk][tx * RN]);
-        if constexpr (TIER == HIGH) {
-          float al[RM], bl[RN];
-          load4(al, &xs[NS - 1][kk][ty * RM]);
-          load4(al + 4, &xs[NS - 1][kk][ty * RM + 4]);
-          load4(bl, &us[NS - 1][kk][tx * RN]);
+        load4(a, &xs[kk][ty * RM]);
+        load4(a + 4, &xs[kk][ty * RM + 4]);
+        load4(b, &us[kk][tx * RN]);
 #pragma unroll
-          for (int m = 0; m < RM; ++m)
+        for (int m = 0; m < RM; ++m)
 #pragma unroll
-            for (int n = 0; n < RN; ++n) {
-              w[m][n] = fmaf(a[m], b[n], w[m][n]);
-              w[m][n] = fmaf(a[m], bl[n], w[m][n]);
-              w[m][n] = fmaf(al[m], b[n], w[m][n]);
-            }
-        } else {
-#pragma unroll
-          for (int m = 0; m < RM; ++m)
-#pragma unroll
-            for (int n = 0; n < RN; ++n) w[m][n] = fmaf(a[m], b[n], w[m][n]);
-        }
+          for (int n = 0; n < RN; ++n) w[m][n] = fmaf(a[m], b[n], w[m][n]);
       }
       __syncthreads();
     }
@@ -194,20 +154,6 @@ mttkrp_kernel(const float* __restrict__ x, const float* __restrict__ u1,
   }
 }
 
-// Sums the S partial results in split order and writes G[b, i, r].
-__global__ void reduce_splits(const float* __restrict__ work,
-                              float* __restrict__ out, int S, int I, int R,
-                              int C) {
-  const size_t ic = (size_t)I * C;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < ic;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < S; ++z) s += work[z * ic + e];
-    const int i = (int)(e / C), c = (int)(e % C);
-    out[(size_t)(c / R) * I * R + (size_t)i * R + (c % R)] = s;
-  }
-}
-
 }  // namespace
 
 // x [J, I, K], u1 [B, J, R], u2 [B, K, R] -> out [B, I, R], all fp32 and
@@ -216,33 +162,13 @@ __global__ void reduce_splits(const float* __restrict__ work,
 extern "C" int fused_mttkrp_launch(const float* x, const float* u1,
                                    const float* u2, float* out, float* work,
                                    int J, int I, int K, int B, int R,
-                                   int tier, int splits, int jchunk,
-                                   void* stream) {
+                                   int splits, int jchunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int C = B * R;
   dim3 grid((C + TN - 1) / TN, (I + TM - 1) / TM, splits);
   const int to_bir = splits == 1;
-  float* dst = to_bir ? out : work;
-  switch (tier) {
-    case HIGHEST:
-      mttkrp_kernel<HIGHEST><<<grid, NT, 0, s>>>(x, u1, u2, dst, J, I, K, R,
-                                                 C, jchunk, to_bir);
-      break;
-    case HIGH:
-      mttkrp_kernel<HIGH><<<grid, NT, 0, s>>>(x, u1, u2, dst, J, I, K, R, C,
-                                              jchunk, to_bir);
-      break;
-    case DEFAULT:
-      mttkrp_kernel<DEFAULT><<<grid, NT, 0, s>>>(x, u1, u2, dst, J, I, K, R,
-                                                 C, jchunk, to_bir);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  if (!to_bir) {
-    const size_t ic = (size_t)I * C;
-    const int blocks = (int)((ic + 255) / 256 < 1024 ? (ic + 255) / 256 : 1024);
-    reduce_splits<<<blocks, 256, 0, s>>>(work, out, splits, I, R, C);
-  }
+  mttkrp_kernel<<<grid, NT, 0, s>>>(x, u1, u2, to_bir ? out : work, J, I, K, R,
+                                    C, jchunk, to_bir);
+  if (!to_bir) launch_reduce_splits(work, out, splits, I, R, C, s);
   return (int)cudaGetLastError();
 }

@@ -1,32 +1,50 @@
-"""Fused 3-D MTTKRP: the hand-written CUDA kernel and its plain version.
+"""Fused 3-D MTTKRP: the hand-written CUDA kernels and their plain version.
 
 Replaces ``cp_cals_tpu/ops/pallas_mttkrp.py:_mttkrp_kernel``. For each
-target mode the tensor is laid out once per solve as ``[J, I, K]``
-(``prepare_mode_tensor``): J the small other mode, I the target mode, K the
-big other mode. Then
+target mode the tensor is laid out once per solve (``prepare_mode_tensor``)
+as ``[J, I, K]``: J the small other mode, I the target mode, K the big other
+mode. Then
 
     G[b, n, r] = sum_j U1[b, j, r] * sum_k X[j, n, k] * U2[b, k, r]
 
 with U1 = factors[small], U2 = factors[big], all in the engine's
-``[B, I_m, R]`` layout. The kernel (``csrc/fused_mttkrp.cu``) says what
-bounds it and what its design does about that. The TPU kernel's lane
-padding (``_pick_db``), its row-tile and j-chunk gates and its VMEM gate
-are TPU artifacts and have no counterpart here.
+``[B, I_m, R]`` layout.
 
-``fused_mttkrp`` runs the plain version for a tensor on the CPU, and the
+The layout is held per precision tier, so X is rounded once per solve and
+not at every load:
+
+- ``"highest"``: X itself, ``[J, I, K]`` in the working dtype;
+- ``"default"``: ``bf16(X)``, bfloat16 ``[J, I, Kp]``;
+- ``"high"``: the bf16 hi/lo split of X, bfloat16 ``[2, J, I, Kp]`` (hi,
+  then lo).
+
+Kp is K padded with zeros to a multiple of 8, so that every row is 16-byte
+aligned for the kernel's copies (the TPU prepare pads K to 8 as well).
+
+On the card ``"highest"`` (strict fp32) runs ``csrc/fused_mttkrp.cu`` on the
+CUDA cores, and the bf16 tiers run ``csrc/fused_mttkrp_tc.cu`` on the tensor
+cores; each source says what bounds it and what its design does about that.
+The TPU kernel's lane padding (``_pick_db``), its row-tile and j-chunk gates
+and its VMEM gate are TPU artifacts and have no counterpart here.
+
+Each kernel's wrapper runs the plain version for a tensor on the CPU and its
 kernel for one on the card; any other case raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
 
-TIERS = {"highest": 0, "high": 1, "default": 2}
-_TM, _TN = 64, 128  # output tile of the kernel (rows, columns)
+TIERS = ("highest", "high", "default")
+PLANES = {"default": 1, "high": 2}  # bf16 planes of the held X at the bf16 tiers
+_TM, _TN = 64, 128  # output tile of the fp32 kernel (rows, columns)
+_TC_NC = (128, 64, 32, 16)  # column tiles of the tensor-core kernel, widest first
+_TC_KS = 64  # k per ring stage of the tensor-core kernel; its k ranges are whole stages
 
 
 def split_others(shape, mode: int) -> tuple[int, int]:
@@ -38,102 +56,230 @@ def split_others(shape, mode: int) -> tuple[int, int]:
     return small, big
 
 
-def prepare_mode_tensor(x: torch.Tensor, mode: int) -> torch.Tensor:
-    """The kernel's ``[J, I, K]`` layout of mode ``mode`` (one copy of X)."""
+def padded_k(k: int) -> int:
+    """Kp: K rounded up to a multiple of 8."""
+    return -(-k // 8) * 8
+
+
+def prepare_mode_tensor(x: torch.Tensor, mode: int, precision: str = "highest") -> torch.Tensor:
+    """The tier's held ``[J, I, K]`` layout of mode ``mode`` (module
+    docstring): one copy of X, two bf16 planes at ``"high"``."""
+    if precision not in TIERS:
+        raise ValueError(f"precision {precision!r}")
     small, big = split_others(tuple(x.shape), mode)
-    return x.permute(small, mode, big).contiguous()
+    x3 = x.permute(small, mode, big)
+    if precision == "highest":
+        return x3.contiguous()
+    x3 = torch.nn.functional.pad(x3, (0, padded_k(x3.shape[2]) - x3.shape[2]))
+    hi = x3.to(torch.bfloat16).contiguous()
+    if precision == "default":
+        return hi
+    lo = (x3 - hi.to(x3.dtype)).to(torch.bfloat16)  # x - hi is exact
+    return torch.stack((hi, lo))
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+def _x_planes(x3: torch.Tensor, k: int, precision: str, dtype) -> list[torch.Tensor]:
+    """The tier's rounded X planes ``[J, I, K]`` in ``dtype``: read from the
+    held bf16 layout, or rounded here from X's own layout (same values)."""
+    if x3.dtype == torch.bfloat16:
+        planes = x3 if precision == "high" else x3[None]
+        return [p[..., :k].to(dtype).contiguous() for p in planes]
+    xh = _bf16(x3)
+    return [xh, _bf16(x3 - xh)] if precision == "high" else [xh]
+
+
 def fused_mttkrp_plain(
     x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, precision: str
 ) -> torch.Tensor:
     """Plain PyTorch version: ``w_j = X_j @ U2`` per j, with the tier's
-    bf16 rounding emulated in the working dtype, then ``sum_j w_j * U1[j]``."""
-    j, i, k = x3.shape
-    b, _, r = u1.shape
-    u1p = u1.permute(1, 0, 2).reshape(j, b * r)
+    bf16 rounding emulated in the working dtype, then ``sum_j w_j * U1[j]``.
+    ``x3`` is the tier's held layout or, at the bf16 tiers, also X's own
+    ``[J, I, K]`` layout; both give bit-identical results."""
+    b, j, r = u1.shape
+    k = u2.shape[1]
     u2p = u2.permute(1, 0, 2).reshape(k, b * r)
     if precision == "highest":
         w = torch.matmul(x3, u2p)
-    elif precision == "default":
-        w = torch.matmul(_bf16(x3), _bf16(u2p))
-    elif precision == "high":
-        xh, uh = _bf16(x3), _bf16(u2p)
-        xl, ul = _bf16(x3 - xh), _bf16(u2p - uh)
-        w = torch.matmul(xh, uh)
-        w = w + torch.matmul(xh, ul)
-        w = w + torch.matmul(xl, uh)
+    elif precision in PLANES:
+        xs = _x_planes(x3, k, precision, u2.dtype)
+        uh = _bf16(u2p)
+        w = torch.matmul(xs[0], uh)
+        if precision == "high":
+            w = w + torch.matmul(xs[0], _bf16(u2p - uh))
+            w = w + torch.matmul(xs[1], uh)
     else:
         raise ValueError(f"precision {precision!r}")
+    i = w.shape[1]
+    u1p = u1.permute(1, 0, 2).reshape(j, b * r)
     g = (w * u1p[:, None, :]).sum(0)  # [I, B*R]
     return g.reshape(i, b, r).permute(1, 0, 2).contiguous()
 
 
 def splits_for(j: int, i: int, c: int, n_sm: int) -> tuple[int, int]:
-    """(splits, j per split) so the grid has about two blocks per SM."""
+    """(splits, j per split) of the fp32 kernel, so the grid has about two
+    blocks per SM."""
     tiles = -(-c // _TN) * -(-i // _TM)
     want = max(1, min(j, -(-2 * n_sm // tiles)))
     jchunk = -(-j // want)
     return -(-j // jchunk), jchunk
 
 
-def _lib():
-    lib = _build.load("fused_mttkrp.cu")
-    fn = lib.fused_mttkrp_launch
+def _check_factors(name, dev, u1, u2, j):
+    b, j1, r = u1.shape
+    for tname, t in (("u1", u1), ("u2", u2)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {tname} must be float32, got {t.dtype}")
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: {tname} must be contiguous on {dev}")
+    if j1 != j or u2.dim() != 3 or u2.shape[0] != b or u2.shape[2] != r:
+        raise ValueError(f"{name}: u1 {tuple(u1.shape)}, u2 {tuple(u2.shape)} do not agree with J = {j}")
+
+
+def _split_work(dev, splits: int, i: int, c: int):
+    return torch.empty((splits, i, c), dtype=torch.float32, device=dev) if splits > 1 else None
+
+
+def _lib_fp32():
+    fn = _build.load("fused_mttkrp.cu").fused_mttkrp_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def fused_mttkrp_fp32(x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """The "highest" tier: x3 float32 [J, I, K], u1 [B, J, R], u2 [B, K, R]
+    -> G [B, I, R], on the CUDA cores."""
+    dev = x3.device
+    if dev.type == "cpu":
+        return fused_mttkrp_plain(x3, u1, u2, "highest")
+    if dev.type != "cuda":
+        raise ValueError(f"fused_mttkrp: unsupported device {dev}")
+    if x3.dtype != torch.float32 or x3.dim() != 3 or not x3.is_contiguous():
+        raise ValueError(f"fused_mttkrp: x3 must be contiguous float32 [J, I, K], got {x3.dtype} {tuple(x3.shape)}")
+    j, i, k = x3.shape
+    _check_factors("fused_mttkrp", dev, u1, u2, j)
+    b, _, r = u1.shape
+    if u2.shape[1] != k:
+        raise ValueError(f"fused_mttkrp: x3 {tuple(x3.shape)} and u2 {tuple(u2.shape)} do not agree")
+    out = torch.empty((b, i, r), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, jchunk = splits_for(j, i, b * r, n_sm)
+    work = _split_work(dev, splits, i, b * r)
+    code = _lib_fp32()(
+        x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),
+        work.data_ptr() if work is not None else None,
+        j, i, k, b, r, splits, jchunk, _build.stream_ptr(dev),
+    )
+    _build.check(code, "fused_mttkrp")
+    fused_mttkrp_fp32.launches += 1
+    return out
+
+
+fused_mttkrp_fp32.launches = 0
+
+
+def _lib_tc():
+    lib = _build.load("fused_mttkrp_tc.cu")
+    if lib.fused_mttkrp_tc_launch.argtypes is None:
+        lib.fused_mttkrp_tc_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        lib.fused_mttkrp_tc_launch.restype = ctypes.c_int
+        lib.fused_mttkrp_tc_smem.argtypes = [ctypes.c_int] * 3
+        lib.fused_mttkrp_tc_smem.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def tc_plan(index: int, j: int, i: int, kp: int, c: int, planes: int) -> tuple[int, ...]:
+    """(column tile, k per block, k splits, j splits, j per split) of the
+    tensor-core kernel on card ``index``. K is split into the fewest ranges
+    (of whole 64-k chunks) for which some tile's resident U2 slice fits in
+    shared memory, one range in all but very long modes. The tile is the
+    narrowest that covers all C columns, else the widest that fits. Then j
+    is split into as many parts as keep the grid within one wave (as many
+    blocks per SM as fit in its shared memory)."""
+    props = torch.cuda.get_device_properties(index)
+    smem = _lib_tc().fused_mttkrp_tc_smem
+    chunks = max(1, -(-kp // _TC_KS))
+    for ksplits in range(1, chunks + 1):
+        kspan = -(-chunks // ksplits) * _TC_KS
+        fits = [nc for nc in _TC_NC if smem(nc, planes - 1, kspan) <= props.shared_memory_per_block_optin]
+        if fits:
+            break
+    else:
+        raise ValueError(f"fused_mttkrp: one 64-k range of U2 does not fit in shared memory on card {index}")
+    ksplits = -(-chunks * _TC_KS // kspan)  # no empty range
+    covering = [nc for nc in fits if nc >= c]
+    nc = covering[-1] if covering else fits[0]
+    per_sm = max(1, props.shared_memory_per_multiprocessor // (smem(nc, planes - 1, kspan) + 1024))
+    tiles = -(-c // nc) * -(-i // _TM) * ksplits
+    # As many splits as fit in one wave of blocks: every block then runs at once.
+    want = max(1, min(j, per_sm * props.multi_processor_count // tiles))
+    jchunk = -(-j // want)
+    return nc, kspan, ksplits, -(-j // jchunk), jchunk
+
+
+def fused_mttkrp_tc(
+    x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, precision: str
+) -> torch.Tensor:
+    """The bf16 tiers: x3 the held layout (bf16 [J, I, Kp] at "default",
+    [2, J, I, Kp] at "high"), u1 [B, J, R], u2 [B, K, R] -> G [B, I, R], on
+    the tensor cores."""
+    dev = x3.device
+    if dev.type == "cpu":
+        return fused_mttkrp_plain(x3, u1, u2, precision)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_mttkrp: unsupported device {dev}")
+    if precision not in PLANES:
+        raise ValueError(f"fused_mttkrp_tc: precision {precision!r} is not a bf16 tier")
+    planes = PLANES[precision]
+    lead = (2,) if planes == 2 else ()
+    b, j, r = u1.shape
+    k = u2.shape[1] if u2.dim() == 3 else -1
+    if (x3.dtype != torch.bfloat16 or x3.dim() != len(lead) + 3
+            or tuple(x3.shape[: len(lead) + 1]) != lead + (j,) or x3.shape[-1] != padded_k(k)
+            or not x3.is_contiguous() or x3.data_ptr() % 16):
+        raise ValueError(
+            f"fused_mttkrp: at precision {precision!r} x3 must be the held layout, contiguous "
+            f"16-byte-aligned bfloat16 {list(lead) + ['J', 'I', 'Kp']} with J = {j}, Kp = "
+            f"{padded_k(k)}; got {x3.dtype} {tuple(x3.shape)}"
+        )
+    _check_factors("fused_mttkrp", dev, u1, u2, j)
+    i, kp = x3.shape[-2], x3.shape[-1]
+    out = torch.empty((b, i, r), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    nc, kspan, ksplits, jsplits, jchunk = tc_plan(
+        dev.index if dev.index is not None else torch.cuda.current_device(), j, i, kp, b * r, planes)
+    work = _split_work(dev, ksplits * jsplits, i, b * r)
+    code = _lib_tc().fused_mttkrp_tc_launch(
+        x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),
+        work.data_ptr() if work is not None else None,
+        j, i, k, kp, b, r, planes - 1, nc, kspan, ksplits, jsplits, jchunk, _build.stream_ptr(dev),
+    )
+    _build.check(code, "fused_mttkrp_tc")
+    fused_mttkrp_tc.launches += 1
+    return out
+
+
+fused_mttkrp_tc.launches = 0
 
 
 def fused_mttkrp(
     x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,
     precision: str = "highest",
 ) -> torch.Tensor:
-    """x3 [J, I, K], u1 [B, J, R], u2 [B, K, R] -> G [B, I, R]."""
-    if x3.device.type == "cpu":
-        return fused_mttkrp_plain(x3, u1, u2, precision)
-    if x3.device.type != "cuda":
-        raise ValueError(f"fused_mttkrp: unsupported device {x3.device}")
-    if precision not in TIERS:
-        raise ValueError(f"precision {precision!r}")
-    j, i, k = x3.shape
-    b, j1, r = u1.shape
-    for name, t in (("x3", x3), ("u1", u1), ("u2", u2)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"fused_mttkrp: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous() or t.device != x3.device:
-            raise ValueError(f"fused_mttkrp: {name} must be contiguous on {x3.device}")
-    if j1 != j or tuple(u2.shape) != (b, k, r):
-        raise ValueError(
-            f"fused_mttkrp: shapes x3 {tuple(x3.shape)}, u1 {tuple(u1.shape)}, "
-            f"u2 {tuple(u2.shape)} do not agree"
-        )
-    out = torch.empty((b, i, r), dtype=torch.float32, device=x3.device)
-    if out.numel() == 0:
-        return out
-    n_sm = torch.cuda.get_device_properties(x3.device).multi_processor_count
-    splits, jchunk = splits_for(j, i, b * r, n_sm)
-    work = (
-        torch.empty((splits, i, b * r), dtype=torch.float32, device=x3.device)
-        if splits > 1 else None
-    )
-    code = _lib()(
-        x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),
-        work.data_ptr() if work is not None else None,
-        j, i, k, b, r, TIERS[precision], splits, jchunk,
-        _build.stream_ptr(x3.device),
-    )
-    _build.check(code, "fused_mttkrp")
-    fused_mttkrp.launches += 1
-    return out
-
-
-fused_mttkrp.launches = 0
+    """x3 the tier's held layout (``prepare_mode_tensor``), u1 [B, J, R],
+    u2 [B, K, R] -> G [B, I, R], through the tier's kernel."""
+    if precision == "highest":
+        return fused_mttkrp_fp32(x3, u1, u2)
+    return fused_mttkrp_tc(x3, u1, u2, precision)
 
 
 def mttkrp_batched_fused(
@@ -141,7 +287,8 @@ def mttkrp_batched_fused(
     prepared: torch.Tensor | None = None, precision: str = "highest",
 ) -> torch.Tensor:
     """Batched fused MTTKRP. factors: per-mode [B, I_m, R]; returns
-    [B, I_mode, R]. ``prepared`` is ``prepare_mode_tensor(x, mode)``."""
+    [B, I_mode, R]. ``prepared`` is ``prepare_mode_tensor(x, mode,
+    precision)``."""
     small, big = split_others(tuple(x.shape), mode)
-    x3 = prepared if prepared is not None else prepare_mode_tensor(x, mode)
+    x3 = prepared if prepared is not None else prepare_mode_tensor(x, mode, precision)
     return fused_mttkrp(x3, factors[small], factors[big], precision)

@@ -29,11 +29,15 @@ def _resolve(method: str, x_ndim: int) -> str:
     return "pallas"
 
 
-def prepare_batched(x: torch.Tensor, methods: Sequence[str]) -> tuple:
-    """Loop-invariant per-mode tensor layouts (one |X|-sized copy each)."""
+def prepare_batched(
+    x: torch.Tensor, methods: Sequence[str], precision: str = "highest"
+) -> tuple:
+    """Loop-invariant per-mode tensor layouts, held for the MTTKRP tier
+    ``precision`` (X, or its bf16 rounding or hi/lo split: one or two
+    |X|-sized copies each)."""
     for m in methods:
         _resolve(m, x.ndim)
-    return tuple(prepare_mode_tensor(x, n) for n in range(x.ndim))
+    return tuple(prepare_mode_tensor(x, n, precision) for n in range(x.ndim))
 
 
 def mttkrp_batched(

@@ -6,7 +6,8 @@ Per mode: the fused MTTKRP, then either the fused epilogue kernels
 (``epilogue="xla"``); after the last mode the FastALS error, the fit and
 the convergence flags. PyTorch runs eagerly, so ``make_iteration`` returns
 a plain function; its ``.prepare(x)`` builds the loop-invariant tensor
-layouts once per solve, outside the loop.
+layouts once per solve, outside the loop, held for the MTTKRP's precision
+tier (at the bf16 tiers X is rounded there, once).
 
 Dead and padded slots are inert (zero factors, zero lam, identity normal
 matrix), so nothing inside the iteration is gated on ``alive``.
@@ -57,7 +58,7 @@ def make_iteration(
         return tuple(resolve_mttkrp_method(params, x.ndim) for _ in range(x.ndim))
 
     def prepare(x):
-        return prepare_batched(x, methods_for(x))
+        return prepare_batched(x, methods_for(x), mttkrp_prec)
 
     def iteration(x, state: SolverState, x_norm_full, prepared=None) -> SolverState:
         if prepared is None:

@@ -59,6 +59,70 @@ def test_mttkrp_kernel_matches_plain(dev, precision):
         assert (got - want).abs().max().item() <= 2e-5 * scale
 
 
+# The tensor-core kernel's edge shapes: (tensor modes, B, R, target mode).
+TC_CASES = [
+    ((30, 301, 41), 5, 1, 0),     # R = 1; K = 301, not a multiple of 8
+    ((30, 299, 41), 9, 4, 1),     # B*R = 36: one partial column tile
+    ((70, 45, 33), 5, 7, 1),      # odd rank; B*R = 35
+    ((40, 33, 25), 11, 20, 2),    # R = 20; B*R = 220 spans two tiles, the second partial
+    ((299, 301, 41), 12, 8, 2),   # I = 41: one partial row tile, j split across blocks
+    ((1, 20, 30), 1, 3, 1),       # B = 1 and J = 1
+    ((64, 64, 1000), 16, 32, 2),  # K = 64, one stage per j, each carrying a U1 row; 16 j per block
+    ((17, 17, 4000), 16, 32, 2),  # K = 17, one partial k-step; 17 j per block
+    ((3, 70, 3001), 6, 5, 0),     # K = 3,001: U2 does not fit whole at "high", k split
+    ((2, 40, 6007), 3, 8, 0),     # K = 6,007: k split at both tiers
+]
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("modes,b,r,mode", TC_CASES)
+def test_mttkrp_tc_kernel_matches_plain(dev, precision, modes, b, r, mode):
+    """The wgmma kernel on the tier's held layout against the plain version
+    on the same layout, at 2e-5 * max|G|."""
+    rng = np.random.default_rng(sum(modes) + b + r)
+    x = torch.from_numpy(rng.normal(size=modes).astype(np.float32)).to(dev)
+    fs = [torch.from_numpy(rng.normal(size=(b, m, r)).astype(np.float32)).to(dev) for m in modes]
+    small, big = fm.split_others(modes, mode)
+    x3 = fm.prepare_mode_tensor(x, mode, precision)
+    before = fm.fused_mttkrp_tc.launches
+    got = fm.fused_mttkrp_tc(x3, fs[small], fs[big], precision)
+    torch.cuda.synchronize()
+    assert fm.fused_mttkrp_tc.launches == before + 1
+    want = fm.fused_mttkrp_plain(x3, fs[small], fs[big], precision)
+    assert got.shape == want.shape == (b, modes[mode], r)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2e-5 * scale
+
+
+def test_mttkrp_tc_rejects_a_mistyped_layout(dev):
+    """The bf16 tiers take only their own held layout: contiguous, 16-byte
+    aligned bfloat16 with K padded to Kp."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(6, 5, 11)).astype(np.float32)).to(dev)
+    u1 = torch.zeros(2, 6, 3, device=dev)  # mode 1: J = 6 (mode 0), K = 11 (mode 2)
+    u2 = torch.zeros(2, 11, 3, device=dev)
+    held = {p: fm.prepare_mode_tensor(x, 1, p) for p in fm.TIERS}
+    assert held["default"].shape == (6, 5, 16) and held["high"].shape == (2, 6, 5, 16)
+    misaligned = torch.zeros(1 + 6 * 5 * 16, dtype=torch.bfloat16, device=dev)[1:].view(6, 5, 16)
+    bad = [
+        (held["highest"], "default"),            # float32, K not padded
+        (held["default"].float(), "default"),    # float32 of the padded layout
+        (held["high"], "default"),               # two planes at one-plane tier
+        (held["default"], "high"),               # one plane at the two-plane tier
+        (held["default"][..., :11], "default"),  # K not padded to Kp
+        (held["high"].transpose(0, 1).contiguous().transpose(0, 1), "high"),  # not contiguous
+        (misaligned, "default"),                 # not 16-byte aligned
+        (held["default"], "highest"),            # not a bf16 tier
+    ]
+    for x3, precision in bad:
+        with pytest.raises(ValueError):
+            fm.fused_mttkrp_tc(x3, u1, u2, precision)
+    with pytest.raises(ValueError):  # the fp32 kernel does not take a held bf16 layout
+        fm.fused_mttkrp(held["default"], u1, u2, "highest")
+    with pytest.raises(ValueError):  # u1 in another dtype
+        fm.fused_mttkrp_tc(held["default"], u1.double(), u2, "default")
+
+
 def test_epilogue_kernels_match_plain(dev):
     rng = np.random.default_rng(5)
     b, modes, r, pad = 6, (9, 8, 7), 5, 2
@@ -120,10 +184,10 @@ def test_cp_cals_on_card_matches_cpu(dev):
     queue = [random_ktensor_host(rng, modes, r) for r in (1, 2, 3, 4, 5, 3, 2)]
     jk = [-1, 3, -1, 0, -1, 7, -1]
     params = CalsParams(max_iterations=8, force_max_iter=True, buffer_size=12, bucket_ranks=(2, 4, 8))
-    fm.fused_mttkrp.launches = fe.normal_inverse.launches = fe.epilogue_apply.launches = 0
+    fm.fused_mttkrp_fp32.launches = fe.normal_inverse.launches = fe.epilogue_apply.launches = 0
     res_d, rep_d = cp_cals(x, queue, params, jk_fibers=jk)
     iters = sum(rep_d.engine_iterations.values())
-    assert fm.fused_mttkrp.launches == fe.normal_inverse.launches == fe.epilogue_apply.launches == 3 * iters
+    assert fm.fused_mttkrp_fp32.launches == fe.normal_inverse.launches == fe.epilogue_apply.launches == 3 * iters
     res_c, rep_c = cp_cals(x, queue, params, jk_fibers=jk, device="cpu")
     for a, b, ma, mb in zip(res_d, res_c, rep_d.models, rep_c.models):
         assert ma.iters == mb.iters
@@ -186,7 +250,7 @@ def _als_problem(seed, rank=3):
 
 
 def _reset():
-    fm.fused_mttkrp.launches = fe.normal_inverse.launches = fe.epilogue_apply.launches = 0
+    fm.fused_mttkrp_fp32.launches = fe.normal_inverse.launches = fe.epilogue_apply.launches = 0
     si.spd_inverse.launches = 0
 
 
@@ -198,7 +262,7 @@ def test_cp_batched_als_pallas_on_card_matches_cpu(dev):
     params = AlsParams(max_iterations=15, force_max_iter=True, solve_method="pallas")
     _reset()
     res_d, reps_d = cp_batched_als(x, inits, params)
-    assert si.spd_inverse.launches == fm.fused_mttkrp.launches == 3 * 15
+    assert si.spd_inverse.launches == fm.fused_mttkrp_fp32.launches == 3 * 15
     assert fe.normal_inverse.launches == fe.epilogue_apply.launches == 0
     res_c, reps_c = cp_batched_als(x, inits, params, device="cpu")
     for a, b, ra, rb in zip(res_d, res_c, reps_d, reps_c):
@@ -220,7 +284,7 @@ def test_jk_cp_cals_pallas_on_card_matches_cpu(dev):
     _reset()
     rep_d = jk_cp_cals(x, [kt_fit], params)
     bucket_iters = sum(rep_d.cals_report.engine_iterations.values())
-    assert si.spd_inverse.launches == fm.fused_mttkrp.launches == 3 * bucket_iters > 0
+    assert si.spd_inverse.launches == fm.fused_mttkrp_fp32.launches == 3 * bucket_iters > 0
     assert fe.normal_inverse.launches == fe.epilogue_apply.launches == 0
     rep_c = jk_cp_cals(x, [kt_fit], params, device="cpu")
     assert len(rep_d.results[0]) == modes[0]

@@ -120,7 +120,7 @@ def test_apply_plain_matches_pallas(iters_val, zero_jk, with_err):
         assert got[3] is None and want[3] is None
 
 
-@pytest.mark.parametrize("which", ["mttkrp", "hinv", "apply"])
+@pytest.mark.parametrize("which", ["mttkrp", "mttkrp_tc", "hinv", "apply"])
 def test_wrappers_raise_off_cpu_and_cuda(which):
     """A wrapper runs its plain version only for CPU tensors: any other
     device gets the kernel or an error, never the plain version."""
@@ -130,6 +130,11 @@ def test_wrappers_raise_off_cpu_and_cuda(which):
             fm.fused_mttkrp(
                 torch.empty(3, 4, 5, device=meta), torch.empty(2, 3, 2, device=meta),
                 torch.empty(2, 5, 2, device=meta),
+            )
+        elif which == "mttkrp_tc":
+            fm.fused_mttkrp(
+                torch.empty(3, 4, 8, dtype=torch.bfloat16, device=meta),
+                torch.empty(2, 3, 2, device=meta), torch.empty(2, 5, 2, device=meta), "default",
             )
         elif which == "hinv":
             g = torch.empty(2, 3, 3, device=meta)
