@@ -65,6 +65,7 @@
 #include <stdint.h>
 
 #include "mttkrp_common.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -474,13 +475,9 @@ int launch(const CUtensorMap& map, const float* u1, const float* u2, float* dst,
            cudaStream_t s) {
   auto kernel = mttkrp_tc_kernel<NC, HIGH>;
   const size_t smem = smem_bytes(NC, HIGH, kspan);
-  static size_t smem_set = 0;  // the largest size this instantiation was allowed
-  if (smem > smem_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
+  static size_t smem_set[MAX_DEVICES] = {};  // per device: the largest size allowed so far
+  const int e = allow_smem((const void*)kernel, smem, smem_set);
+  if (e != 0) return e;
   dim3 grid((C + NC - 1) / NC, (I + TM - 1) / TM, splits);
   kernel<<<grid, NT, smem, s>>>(map, u1, u2, dst, J, I, K, Kp, R, C, kspan, ksplits, jchunk, to_bir);
   return 0;

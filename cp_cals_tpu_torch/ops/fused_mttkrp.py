@@ -13,13 +13,18 @@ with U1 = factors[small], U2 = factors[big], all in the engine's
 The layout is held per precision tier, so X is rounded once per solve and
 not at every load:
 
-- ``"highest"``: X itself, ``[J, I, K]`` in the working dtype;
+- ``"highest"``: X itself in the working dtype, as ``[J, K, I]`` (i
+  contiguous): a view whose rows are padded with zeros to Ip, a multiple of
+  4, so that every row starts 16-byte aligned for the kernel's TMA copies;
 - ``"default"``: ``bf16(X)``, bfloat16 ``[J, I, Kp]``;
 - ``"high"``: the bf16 hi/lo split of X, bfloat16 ``[2, J, I, Kp]`` (hi,
   then lo).
 
 Kp is K padded with zeros to a multiple of 8, so that every row is 16-byte
-aligned for the kernel's copies (the TPU prepare pads K to 8 as well).
+aligned for the kernel's copies (the TPU prepare pads K to 8 as well). The
+TPU kernel holds ``[J, I, K]`` at every tier; the port's "highest" layout
+puts I last so that the fp32 kernel's copies land as its FFMA loop reads
+them.
 
 On the card ``"highest"`` (strict fp32) runs ``csrc/fused_mttkrp.cu`` on the
 CUDA cores, and the bf16 tiers run ``csrc/fused_mttkrp_tc.cu`` on the tensor
@@ -42,8 +47,16 @@ from .. import _build
 
 TIERS = ("highest", "high", "default")
 PLANES = {"default": 1, "high": 2}  # bf16 planes of the held X at the bf16 tiers
-_TM, _TN = 64, 128  # output tile of the fp32 kernel (rows, columns)
+_TN = 128  # columns of an output tile of the fp32 kernel
+# The fp32 kernel's tile shapes (csrc/fused_mttkrp.cu: FP32_TILES), by id:
+# (rows, rows per thread, columns per thread, j groups per block). The
+# planner on the card reads the built kernel's own table and shared-memory
+# sizes; this copy and ``fp32_smem`` serve the planner without a card, and
+# a ``cuda`` test holds them equal to the library's.
+FP32_TILES = {0: (64, 8, 8, 2), 1: (48, 16, 4, 4)}
+_FP32_TK, _FP32_STAGES = 16, 4  # k per ring stage and ring depth of the fp32 kernel
 _TC_NC = (128, 64, 32, 16)  # column tiles of the tensor-core kernel, widest first
+_TC_TM = 64  # rows of an output tile of the tensor-core kernel
 _TC_KS = 64  # k per ring stage of the tensor-core kernel; its k ranges are whole stages
 
 
@@ -61,15 +74,30 @@ def padded_k(k: int) -> int:
     return -(-k // 8) * 8
 
 
+def padded_i(i: int) -> int:
+    """Ip: the row stride of the "highest" layout, I rounded up to a multiple of 4."""
+    return -(-i // 4) * 4
+
+
+def mode_layout(x: torch.Tensor, mode: int) -> torch.Tensor:
+    """X's own ``[J, I, K]`` view of mode ``mode`` (the TPU kernel's layout)."""
+    small, big = split_others(tuple(x.shape), mode)
+    return x.permute(small, mode, big)
+
+
 def prepare_mode_tensor(x: torch.Tensor, mode: int, precision: str = "highest") -> torch.Tensor:
-    """The tier's held ``[J, I, K]`` layout of mode ``mode`` (module
-    docstring): one copy of X, two bf16 planes at ``"high"``."""
+    """The tier's held layout of mode ``mode`` (module docstring): one copy
+    of X, two bf16 planes at ``"high"``."""
     if precision not in TIERS:
         raise ValueError(f"precision {precision!r}")
-    small, big = split_others(tuple(x.shape), mode)
-    x3 = x.permute(small, mode, big)
     if precision == "highest":
-        return x3.contiguous()
+        small, big = split_others(tuple(x.shape), mode)
+        xk = x.permute(small, big, mode)
+        j, k, i = xk.shape
+        held = xk.new_zeros((j, k, padded_i(i)))
+        held[..., :i] = xk
+        return held[..., :i]
+    x3 = mode_layout(x, mode)
     x3 = torch.nn.functional.pad(x3, (0, padded_k(x3.shape[2]) - x3.shape[2]))
     hi = x3.to(torch.bfloat16).contiguous()
     if precision == "default":
@@ -97,13 +125,14 @@ def fused_mttkrp_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version: ``w_j = X_j @ U2`` per j, with the tier's
     bf16 rounding emulated in the working dtype, then ``sum_j w_j * U1[j]``.
-    ``x3`` is the tier's held layout or, at the bf16 tiers, also X's own
-    ``[J, I, K]`` layout; both give bit-identical results."""
+    ``x3`` is the tier's held layout (``[J, K, I]`` at "highest") or, at the
+    bf16 tiers, also X's own ``[J, I, K]`` layout; both give bit-identical
+    results."""
     b, j, r = u1.shape
     k = u2.shape[1]
     u2p = u2.permute(1, 0, 2).reshape(k, b * r)
     if precision == "highest":
-        w = torch.matmul(x3, u2p)
+        w = torch.matmul(x3.transpose(1, 2), u2p)
     elif precision in PLANES:
         xs = _x_planes(x3, k, precision, u2.dtype)
         uh = _bf16(u2p)
@@ -119,13 +148,78 @@ def fused_mttkrp_plain(
     return g.reshape(i, b, r).permute(1, 0, 2).contiguous()
 
 
-def splits_for(j: int, i: int, c: int, n_sm: int) -> tuple[int, int]:
-    """(splits, j per split) of the fp32 kernel, so the grid has about two
-    blocks per SM."""
-    tiles = -(-c // _TN) * -(-i // _TM)
-    want = max(1, min(j, -(-2 * n_sm // tiles)))
-    jchunk = -(-j // want)
-    return -(-j // jchunk), jchunk
+def fp32_smem(tile: int, kspan: int) -> int:
+    """Shared memory of one fp32 block (csrc/fused_mttkrp.cu: smem_bytes):
+    the U2 slice [kspan, 128] and the X ring [4, groups, 16, rows], fp32,
+    or the groups' sums [groups, rows, 128] where larger; then one 8-byte
+    mbarrier per ring stage."""
+    tm, _, _, ng = FP32_TILES[tile]
+    main = kspan * _TN + _FP32_STAGES * ng * _FP32_TK * tm
+    return 4 * max(main, ng * tm * _TN) + 8 * _FP32_STAGES
+
+
+def plan_fp32(
+    j: int, i: int, k: int, c: int, n_sm: int, smem_block: int,
+    tiles: dict | None = None, smem=fp32_smem,
+) -> tuple[int, ...]:
+    """(tile, k per block, k splits, j splits, j per split) of the fp32
+    kernel on a card of ``n_sm`` SMs and ``smem_block`` bytes of shared
+    memory per block, for the tile table ``tiles`` (``FP32_TILES`` when
+    None) and its shared memory ``smem(tile, kspan)``. The tile is the one
+    with the fewest padded rows. K is split into the fewest ranges (of
+    whole 16-k stages) whose U2 slice fits in shared memory, one range in
+    all but very long modes. Then j is split into as many parts as keep the
+    grid within one wave (one block per SM: the U2 slice fills its shared
+    memory), each of as few rounds (``fp32_rounds``) as that allows."""
+    tiles = FP32_TILES if tiles is None else tiles
+    tile = min(tiles, key=lambda t: (-(-i // tiles[t][0]) * tiles[t][0], -tiles[t][0]))
+    tm, ng = tiles[tile][0], tiles[tile][3]
+    chunks = max(1, -(-k // _FP32_TK))
+    for ksplits in range(1, chunks + 1):
+        kspan = -(-chunks // ksplits) * _FP32_TK
+        if smem(tile, kspan) <= smem_block:
+            break
+    else:
+        raise ValueError("fused_mttkrp: one 16-k range of U2 does not fit in shared memory")
+    ksplits = max(1, -(-k // kspan))  # no empty range
+    tiles_n = -(-c // _TN) * -(-i // tm) * ksplits
+    want = max(1, min(j, n_sm // tiles_n))
+    # The fewest rounds per block within one wave; of equals, the longest j
+    # range (the fewest splits).
+    jchunk = min(range(-(-j // want), j + 1), key=lambda n: (fp32_rounds(n, ng), -n))
+    return tile, kspan, ksplits, max(1, -(-j // jchunk)), jchunk
+
+
+def fp32_rounds(nj: int, ng: int) -> float:
+    """Rounds of k stages a block of the fp32 kernel with ``ng`` j groups
+    takes for ``nj`` j: whole rounds of one j per group, and where the last
+    round has r < ng j with r dividing ng, a split round of 1 / (ng / r)
+    (csrc/fused_mttkrp.cu: mttkrp_kernel)."""
+    rem = nj % ng
+    if rem and ng % rem == 0:
+        return nj // ng + rem / ng
+    return -(-nj // ng)
+
+
+@functools.lru_cache(maxsize=None)
+def fp32_tiles_built() -> dict:
+    """The tile table of the built fp32 kernel (its ``FP32_TILES``), read
+    from the library."""
+    lib = _lib_fp32()
+    tiles, shape = {}, (ctypes.c_int * 4)()
+    for tid in range(16):
+        if lib.fused_mttkrp_fp32_tile(tid, shape) == 0:
+            tiles[tid] = tuple(shape)
+    return tiles
+
+
+@functools.lru_cache(maxsize=None)
+def fp32_plan(index: int, j: int, i: int, k: int, c: int) -> tuple[int, ...]:
+    """``plan_fp32`` for card ``index`` (its properties read once), with the
+    built kernel's own tile table and shared-memory sizes."""
+    props = torch.cuda.get_device_properties(index)
+    return plan_fp32(j, i, k, c, props.multi_processor_count, props.shared_memory_per_block_optin,
+                     fp32_tiles_built(), _lib_fp32().fused_mttkrp_fp32_smem)
 
 
 def _check_factors(name, dev, u1, u2, j):
@@ -144,24 +238,41 @@ def _split_work(dev, splits: int, i: int, c: int):
 
 
 def _lib_fp32():
-    fn = _build.load("fused_mttkrp.cu").fused_mttkrp_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("fused_mttkrp.cu")
+    if lib.fused_mttkrp_launch.argtypes is None:
+        lib.fused_mttkrp_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.fused_mttkrp_launch.restype = ctypes.c_int
+        lib.fused_mttkrp_fp32_tile.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.fused_mttkrp_fp32_tile.restype = ctypes.c_int
+        lib.fused_mttkrp_fp32_smem.argtypes = [ctypes.c_int] * 2
+        lib.fused_mttkrp_fp32_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def fused_mttkrp_fp32(x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
-    """The "highest" tier: x3 float32 [J, I, K], u1 [B, J, R], u2 [B, K, R]
-    -> G [B, I, R], on the CUDA cores."""
+    """The "highest" tier: x3 the held float32 [J, K, I] layout (rows of
+    stride Ip, a multiple of 4), u1 [B, J, R], u2 [B, K, R] -> G [B, I, R],
+    on the CUDA cores."""
     dev = x3.device
     if dev.type == "cpu":
         return fused_mttkrp_plain(x3, u1, u2, "highest")
     if dev.type != "cuda":
         raise ValueError(f"fused_mttkrp: unsupported device {dev}")
-    if x3.dtype != torch.float32 or x3.dim() != 3 or not x3.is_contiguous():
-        raise ValueError(f"fused_mttkrp: x3 must be contiguous float32 [J, I, K], got {x3.dtype} {tuple(x3.shape)}")
-    j, i, k = x3.shape
+    if x3.dtype != torch.float32 or x3.dim() != 3:
+        raise ValueError(f"fused_mttkrp: x3 must be the held float32 [J, K, I], got {x3.dtype} {tuple(x3.shape)}")
+    j, k, i = x3.shape
+    ip = x3.stride(1)
+    if (x3.stride(2) != 1 or ip < i or ip % 4 or x3.stride(0) != k * ip or x3.data_ptr() % 16
+            or x3.untyped_storage().nbytes() < 4 * (x3.storage_offset() + j * k * ip)):
+        raise ValueError(
+            f"fused_mttkrp: at precision 'highest' x3 must be the held layout [J, K, I], 16-byte "
+            f"aligned, rows of stride Ip (a multiple of 4, >= I) in a [J, K, Ip] block; got "
+            f"shape {tuple(x3.shape)} strides {x3.stride()}"
+        )
     _check_factors("fused_mttkrp", dev, u1, u2, j)
     b, _, r = u1.shape
     if u2.shape[1] != k:
@@ -169,13 +280,12 @@ def fused_mttkrp_fp32(x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> t
     out = torch.empty((b, i, r), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, jchunk = splits_for(j, i, b * r, n_sm)
-    work = _split_work(dev, splits, i, b * r)
-    code = _lib_fp32()(
+    tile, kspan, ksplits, jsplits, jchunk = fp32_plan(_device_index(dev), j, i, k, b * r)
+    work = _split_work(dev, ksplits * jsplits, i, b * r)
+    code = _lib_fp32().fused_mttkrp_launch(
         x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),
         work.data_ptr() if work is not None else None,
-        j, i, k, b, r, splits, jchunk, _build.stream_ptr(dev),
+        j, i, ip, k, b, r, tile, kspan, ksplits, jsplits, jchunk, _build.stream_ptr(dev),
     )
     _build.check(code, "fused_mttkrp")
     fused_mttkrp_fp32.launches += 1
@@ -218,7 +328,7 @@ def tc_plan(index: int, j: int, i: int, kp: int, c: int, planes: int) -> tuple[i
     covering = [nc for nc in fits if nc >= c]
     nc = covering[-1] if covering else fits[0]
     per_sm = max(1, props.shared_memory_per_multiprocessor // (smem(nc, planes - 1, kspan) + 1024))
-    tiles = -(-c // nc) * -(-i // _TM) * ksplits
+    tiles = -(-c // nc) * -(-i // _TC_TM) * ksplits
     # As many splits as fit in one wave of blocks: every block then runs at once.
     want = max(1, min(j, per_sm * props.multi_processor_count // tiles))
     jchunk = -(-j // want)
@@ -255,8 +365,7 @@ def fused_mttkrp_tc(
     out = torch.empty((b, i, r), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    nc, kspan, ksplits, jsplits, jchunk = tc_plan(
-        dev.index if dev.index is not None else torch.cuda.current_device(), j, i, kp, b * r, planes)
+    nc, kspan, ksplits, jsplits, jchunk = tc_plan(_device_index(dev), j, i, kp, b * r, planes)
     work = _split_work(dev, ksplits * jsplits, i, b * r)
     code = _lib_tc().fused_mttkrp_tc_launch(
         x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),

@@ -27,7 +27,7 @@ from ..config import (
     resolve_mttkrp_method,
 )
 from ..ktensor import Ktensor, normalize_factor_fused, scale_jk_rows
-from ..ops.error import fast_error, fast_error_from_cols
+from ..ops.error import fast_error
 from ..ops.fused_epilogue import epilogue_apply, normal_inverse
 from ..ops.gramians import hadamard_all, hadamard_but_one
 from ..ops.mttkrp import mttkrp_batched, prepare_batched
@@ -67,21 +67,20 @@ def make_iteration(
         n_modes = x.ndim
         iters = state.iters + 1
         kt, grams = state.kt, state.grams
-        g_last = t3_last = None
+        g_last = err = None
         for n in range(n_modes):
             g = mttkrp_batched(x, kt.factors, n, methods[n], mttkrp_prec, prepared[n])
             if n == n_modes - 1:
                 g_last = g
             if fused:
                 hinv = normal_inverse(grams, state.rank_mask, n)
-                f_new, lam_new, gm_raw, t3 = epilogue_apply(
-                    g, hinv, iters, state.jk_fiber,
-                    zero_jk=(n == 0 and has_jk), with_err=(n == n_modes - 1),
+                # The last mode's apply also finishes the FastALS error, from
+                # the other modes' new gramians (hadamard_all's mode order).
+                err_inputs = (state.x_norm_model, *grams[:n]) if n == n_modes - 1 else None
+                f_new, lam_new, gm, err = epilogue_apply(
+                    g, hinv, iters, state.jk_fiber, zero_jk=(n == 0 and has_jk),
+                    err_inputs=err_inputs,
                 )
-                if t3 is not None:
-                    t3_last = t3
-                safe = torch.where(lam_new != 0, lam_new, torch.ones_like(lam_new))
-                gm = gm_raw / (safe[..., :, None] * safe[..., None, :])
             else:
                 h = padded_hadamard(hadamard_but_one(grams, n), state.rank_mask)
                 u = update_factor_unconstrained(g, h, solve=params.solve_method)
@@ -91,11 +90,7 @@ def make_iteration(
             kt = Ktensor(kt.factors[:n] + (f_new,) + kt.factors[n + 1 :], lam_new)
             grams = grams[:n] + (gm,) + grams[n + 1 :]
 
-        if t3_last is not None:
-            err = fast_error_from_cols(
-                state.x_norm_model, kt.lam, t3_last[0], t3_last[1], hadamard_all(grams)
-            )
-        else:
+        if err is None:
             err = fast_error(
                 state.x_norm_model, kt.lam, kt.factors[-1], g_last, hadamard_all(grams)
             )

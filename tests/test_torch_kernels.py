@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from cp_cals_tpu.ops.error import fast_error_from_cols as jax_fast_error_from_cols
 from cp_cals_tpu.ops.pallas_epilogue import epilogue_apply_pallas, normal_inverse_pallas
 from cp_cals_tpu.ops.pallas_mttkrp import mttkrp_batched_pallas
 from cp_cals_tpu_torch.ops import fused_epilogue as fe
@@ -45,17 +46,19 @@ def test_mttkrp_plain_matches_pallas(mode, precision):
 
 
 def test_mttkrp_layout_and_split():
-    """The [J, I, K] layout puts ties of the other modes' sizes on the
-    lowest index as the big (contracted) mode, like the TPU kernel."""
+    """The layouts put ties of the other modes' sizes on the lowest index as
+    the big (contracted) mode, like the TPU kernel; the "highest" layout
+    holds X as [J, K, I] with rows padded to a multiple of 4."""
     assert fm.split_others((10, 10, 10), 2) == (1, 0)
     assert fm.split_others((299, 301, 41), 0) == (2, 1)
     assert fm.split_others((299, 301, 41), 2) == (0, 1)
     x = torch.arange(2 * 3 * 4, dtype=torch.float32).reshape(2, 3, 4)
     x3 = fm.prepare_mode_tensor(x, 1)
-    assert tuple(x3.shape) == (2, 3, 4) and x3.is_contiguous()
+    assert tuple(x3.shape) == (2, 4, 3) and x3.stride() == (16, 4, 1)
+    assert torch.equal(x3, x.permute(0, 2, 1))
     # every split covers all of J exactly once
     for j, i, c, n_sm in [(41, 299, 640, 132), (299, 41, 384, 132), (41, 301, 768, 114), (5, 7, 3, 1)]:
-        s, chunk = fm.splits_for(j, i, c, n_sm)
+        _, _, _, s, chunk = fm.plan_fp32(j, i, 301, c, n_sm, 232448)
         assert (s - 1) * chunk < j <= s * chunk
 
 
@@ -89,35 +92,55 @@ def test_normal_inverse_plain_matches_pallas(skip):
 @pytest.mark.parametrize("zero_jk", [False, True])
 @pytest.mark.parametrize("iters_val", [1, 5])
 def test_apply_plain_matches_pallas(iters_val, zero_jk, with_err):
+    """The JAX apply kernel's outputs (F, lam, raw gramian, error columns),
+    and the port's apply: those with the gramian rescaled and, on the error
+    mode, the error finished by JAX's fast_error_from_cols."""
     factors, mask, g = _epilogue_problem(seed=3)
     b = g.shape[0]
     grams_t = gramians([torch.from_numpy(f) for f in factors])
     hinv = fe.normal_inverse(grams_t, torch.from_numpy(mask), 0 if zero_jk else 1)
     iters = np.full((b,), iters_val, np.int32)
     jk = np.asarray([2, -1, 0, -1, 4, -1], np.int32)
+    x_norm = np.linspace(20.0, 30.0, b).astype(np.float32)
 
     want = epilogue_apply_pallas(
         jnp.asarray(g), jnp.asarray(hinv.numpy()), jnp.asarray(iters), jnp.asarray(jk),
         zero_jk=zero_jk, with_err=with_err, interpret=True,
     )
-    got = fe.epilogue_apply(
+    raw = fe._apply_raw_plain(
         torch.from_numpy(g), hinv, torch.from_numpy(iters), torch.from_numpy(jk),
         zero_jk, with_err,
     )
-    for a, w in zip(got[:3], want[:3]):
+    for a, w in zip(raw[:3], want[:3]):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2e-4, atol=2e-4)
-    f, lam = got[0].numpy(), got[1].numpy()
+    f, lam = raw[0].numpy(), raw[1].numpy()
     assert not f[-1].any() and not lam[-1].any()  # dead slot stays inert
     if zero_jk:
         assert not f[0, 2].any() and not f[2, 0].any() and not f[4, 4].any()
     if with_err:
-        t3 = got[3][0].double() + got[3][1].double()
+        t3 = raw[3][0].double() + raw[3][1].double()
         ref = np.einsum("bir,bir->br", f.astype(np.float64), g.astype(np.float64))
         np.testing.assert_allclose(t3.numpy(), ref, rtol=1e-6, atol=1e-6)
         jt3 = np.asarray(want[3][0], np.float64) + np.asarray(want[3][1], np.float64)
         np.testing.assert_allclose(t3.numpy(), jt3, rtol=2e-4, atol=2e-4)
     else:
-        assert got[3] is None and want[3] is None
+        assert raw[3] is None and want[3] is None
+
+    err_inputs = (torch.from_numpy(x_norm), grams_t[0], grams_t[2]) if with_err else None
+    got = fe.epilogue_apply(
+        torch.from_numpy(g), hinv, torch.from_numpy(iters), torch.from_numpy(jk),
+        zero_jk, err_inputs,
+    )
+    safe = jnp.where(want[1] != 0, want[1], 1.0)
+    gm_want = want[2] / (safe[..., :, None] * safe[..., None, :])
+    for a, w in zip(got[:3], (want[0], want[1], gm_want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2e-4, atol=2e-4)
+    if with_err:
+        h = jnp.asarray(grams_t[0].numpy()) * jnp.asarray(grams_t[2].numpy()) * gm_want
+        err_want = jax_fast_error_from_cols(jnp.asarray(x_norm), want[1], want[3][0], want[3][1], h)
+        np.testing.assert_allclose(got[3].numpy(), np.asarray(err_want), rtol=2e-4, atol=2e-4)
+    else:
+        assert got[3] is None
 
 
 @pytest.mark.parametrize("which", ["mttkrp", "mttkrp_tc", "hinv", "apply"])
@@ -143,5 +166,5 @@ def test_wrappers_raise_off_cpu_and_cuda(which):
             fe.epilogue_apply(
                 torch.empty(2, 4, 3, device=meta), torch.empty(2, 3, 3, device=meta),
                 torch.ones(2, dtype=torch.int32, device=meta),
-                torch.ones(2, dtype=torch.int32, device=meta), False, False,
+                torch.ones(2, dtype=torch.int32, device=meta), False, None,
             )

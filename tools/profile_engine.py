@@ -6,9 +6,14 @@
 Runs the bench workload of chip_smoke.py (299x301x41, 400 models of ranks
 1-20 x 20, buckets 4/8/12/16/20, buffer_size=2880, 10 forced iterations)
 once to warm up and once under torch.profiler, then prints the wall time,
-the device busy share (union of the CUDA kernel intervals over the wall)
-and device time by kernel name, and writes the summary and a Chrome trace
-to DIR (default chiprun_out/). Needs a CUDA card.
+the device busy share (union of the CUDA kernel intervals over the wall),
+device kernels per bucket-iteration, the device time and count of
+PyTorch's elementwise kernels (all, and those on float data) and device
+time by kernel name, and writes the summary and a Chrome trace to DIR
+(default chiprun_out/). A third run is profiled on the host only, with
+Python stacks, to count the PyTorch ops issued from ops/error.py (the
+compensated error's elementwise ops, which the fused path leaves to the
+apply kernel). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -75,10 +80,27 @@ def main() -> int:
             count[e.name] += 1
     busy_us = union_us(intervals)
     top = [dict(name=n[:120], ms=us / 1e3, calls=count[n]) for n, us in by_name.most_common(20)]
+    elementwise = [n for n in by_name if "elementwise" in n]
+    elementwise_f32 = [n for n in elementwise if "float" in n]
+    bucket_iters = sum(rep.engine_iterations.values())
+
+    # The same run again, host side only, with Python stacks: which ops came
+    # from the compensated error of ops/error.py.
+    with profile(activities=[ProfilerActivity.CPU], with_stack=True) as prof_stack:
+        cp_cals(x, queue, params)
+        torch.cuda.synchronize()
+    error_ops = sum(1 for e in prof_stack.events()
+                    if e.name.startswith("aten::") and any("ops/error.py" in f for f in (e.stack or ())))
     summary = dict(
         card=card, tiers=args.tiers, wall_s=wall, models_per_s=len(queue) / wall,
         device_busy_ms=busy_us / 1e3, device_busy_share=busy_us / 1e6 / wall,
-        kernels_launched=len(intervals), bucket_iterations=sum(rep.engine_iterations.values()),
+        kernels_launched=len(intervals), bucket_iterations=bucket_iters,
+        kernels_per_bucket_iteration=len(intervals) / bucket_iters,
+        elementwise_ms=sum(by_name[n] for n in elementwise) / 1e3,
+        elementwise_launches=sum(count[n] for n in elementwise),
+        elementwise_f32_ms=sum(by_name[n] for n in elementwise_f32) / 1e3,
+        elementwise_f32_launches=sum(count[n] for n in elementwise_f32),
+        error_py_ops=error_ops,
         top=top,
     )
     os.makedirs(args.out, exist_ok=True)
@@ -88,7 +110,10 @@ def main() -> int:
     print(card)
     print(f"wall {wall:.4f}s ({summary['models_per_s']:.1f} models/s), device busy "
           f"{summary['device_busy_ms']:.2f} ms = {summary['device_busy_share']:.3f} of wall, "
-          f"{len(intervals)} device kernels")
+          f"{len(intervals)} device kernels, {summary['kernels_per_bucket_iteration']:.1f} per "
+          f"bucket-iteration ({bucket_iters}); elementwise {summary['elementwise_ms']:.2f} ms in "
+          f"{summary['elementwise_launches']} launches (float: {summary['elementwise_f32_ms']:.2f} ms in "
+          f"{summary['elementwise_f32_launches']}); ops from ops/error.py: {error_ops}")
     for t in top:
         print(f"  {t['ms']:9.3f} ms  {t['calls']:6d}  {t['name']}")
     print(json.dumps(summary))
