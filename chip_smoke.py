@@ -45,8 +45,10 @@ the result lines are printed):
    10 forced iterations and 10 fibers are cross-checked against the port's
    float64 CPU run.
 6. SPD inverse: the kernel against its plain version on the normal
-   matrices J2 inverted, and on random SPD batches (R = 4, 20, 64, cond up
-   to 1e4, dead identity slots), timed at J2's launch mix.
+   matrices J2 inverted, and on random SPD batches (R = 4, 20, 32, 33, 64,
+   cond up to 1e4, dead identity slots), timed at J2's launch mix. Both
+   inverses record which path of their shared elimination (warp or block)
+   each shape took.
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality.
 8. Result: one {"kernels": [...]} line, then the last line
@@ -306,6 +308,17 @@ def cancelling_norms(g, hinv, iters, jk, zero_jk, gram_a, gram_b):
     return torch.sqrt(xn2.clamp(min=0)).float()
 
 
+def inverse_path(b: int, r: int) -> str:
+    """The path (warp or block, csrc/gj_elim.cuh) both inverse kernels take
+    at (B, R), as the built library plans it; its Python mirror must agree."""
+    from cp_cals_tpu_torch.ops import spd_inverse as si
+
+    plan = si.built_plan(b, r)
+    if plan != si.gj_plan(b, r):
+        raise AssertionError(f"inverse launch plan at B={b} R={r}: built {plan}, mirror {si.gj_plan(b, r)}")
+    return plan.path
+
+
 def kernel_phase(x, dev):
     from cp_cals_tpu_torch.ops import fused_epilogue as fe
     from cp_cals_tpu_torch.ops import fused_mttkrp as fm
@@ -374,7 +387,7 @@ def kernel_phase(x, dev):
             hinv = fe.normal_inverse(grams, mask, mode)  # the apply check's input
             row["hinv"] = dict(
                 **bound(b * (4 * r**3 + 5 * r * r), PEAK_FP32, 4 * 3 * b * r * r + b * r),
-                max_abs_err=max(c["max_abs_err"] for c in checks),
+                path=inverse_path(b, r), max_abs_err=max(c["max_abs_err"] for c in checks),
                 ratio=max(c["ratio"] for c in checks),
                 cond_max=max(c["cond_max"] for c in checks), checks=checks,
                 ms=cuda_ms(lambda: fe.normal_inverse(e_grams, e_mask, mode)),
@@ -440,7 +453,8 @@ def kernel_phase(x, dev):
                              for t in TIERS)
                   + f" twostep (highest) {row['mttkrp']['highest']['library_ms']:.4f}ms (graph "
                   f"{row['mttkrp']['highest']['library_graph_ms']:.4f})"
-                  + f" hinv={row['hinv']['ms']:.4f}ms (cond <= {row['hinv']['cond_max']:.3g}, "
+                  + f" hinv={row['hinv']['ms']:.4f}ms (graph {row['hinv']['graph_ms']:.4f}, "
+                  f"{row['hinv']['path']} path, cond <= {row['hinv']['cond_max']:.3g}, "
                   f"err/(cond*max) {row['hinv']['ratio']:.3g}) apply={row['apply']['ms']:.4f}ms "
                   f"(graph {row['apply']['graph_ms']:.4f}, error {with_err})",
                   flush=True)
@@ -809,13 +823,14 @@ def jk_cross_check(x_np, kt5) -> dict:
 def spd_phase(rec, dev) -> dict:
     """The SPD-inverse kernel against its plain version on the card: on the
     normal matrices J2 inverted at SNAPSHOTS, and on random SPD batches at
-    R = 4, 20, 64 with condition numbers up to about 1e4 and dead identity
+    R = 4, 20, 32, 33, 64 (both paths of csrc/gj_elim.cuh and their
+    boundary) with condition numbers up to about 1e4 and dead identity
     slots. Times at every (B, R) of J2's launch mix."""
     from cp_cals_tpu_torch.ops import spd_inverse as si
 
     gen = np.random.default_rng(13)
     cases = [(f"J2 iteration {it} mode {mode}", h) for it, mode, h in rec.snaps]
-    for r in (4, 20, 64):
+    for r in (4, 20, 32, 33, 64):
         q, _ = np.linalg.qr(gen.normal(size=(320, r, r)))
         top = np.geomspace(1.0, 1e4, 320)[:, None]
         h = np.einsum("bij,bj,bkj->bik", q, top ** np.linspace(0.0, 1.0, r)[None, :], q)
@@ -837,22 +852,22 @@ def spd_phase(rec, dev) -> dict:
         dead = (h == eye).all(dim=(1, 2))
         if not torch.equal(got[dead], eye[dead]):
             raise AssertionError(f"spd_inverse {label}: a dead slot is not the identity")
-        checks.append(dict(case=label, B=h.shape[0], R=h.shape[-1], **reading))
+        checks.append(dict(case=label, B=h.shape[0], R=h.shape[-1], path=inverse_path(*h.shape[:2]), **reading))
         worst = max(worst, reading["max_abs_err"])
     mix = []
     for (b, r), n in sorted(rec.shapes.items()):
         h = rec.first[(b, r)]
         flops = b * r * (1 + 2 * r + 4 * r * (r - 1))
-        mix.append(dict(B=b, R=r, launches=n, **bound(flops, PEAK_FP32, 2 * 4 * b * r * r),
+        mix.append(dict(B=b, R=r, launches=n, path=inverse_path(b, r), **bound(flops, PEAK_FP32, 2 * 4 * b * r * r),
                         ms=cuda_ms(lambda: si.spd_inverse(h)),
                         graph_ms=graph_ms(lambda: si.spd_inverse(h)),
                         plain_ms=cuda_ms(lambda: si.spd_inverse_plain(h)),
                         library_ms=cuda_ms(lambda: torch.linalg.inv(h))))
     for c in checks:
-        print(f"spd_inverse {c['case']}: B={c['B']} R={c['R']} cond <= {c['cond_max']:.3g}, "
+        print(f"spd_inverse {c['case']}: B={c['B']} R={c['R']} ({c['path']} path) cond <= {c['cond_max']:.3g}, "
               f"err/(cond*max) {c['ratio']:.3g}", flush=True)
     for m in mix:
-        print(f"spd_inverse B={m['B']} R={m['R']} ({m['launches']} launches in J2): {m['ms']:.4f}ms "
+        print(f"spd_inverse B={m['B']} R={m['R']} ({m['launches']} launches in J2, {m['path']} path): {m['ms']:.4f}ms "
               f"(graph {m['graph_ms']:.4f}), "
               f"plain {m['plain_ms']:.4f}ms, torch.linalg.inv {m['library_ms']:.4f}ms, "
               f"bound {m['bound_ms']:.2e}ms", flush=True)

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 SOURCES = (
     "fused_mttkrp.cu", "fused_mttkrp_tc.cu", "fused_epilogue.cu", "spd_inverse.cu",
     "probe_copy.cu",
-)
+)  # gj_elim.cuh, mttkrp_common.cuh and smem_attr.cuh are included by these
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -98,6 +98,11 @@ def check(code: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream, read without
+    building a ``torch.cuda.Stream`` object (``torch.cuda.current_stream``
+    costs a few microseconds of every launch more;
+    ``tools/probe_inverse_wrapper.py`` times both)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -1,6 +1,7 @@
 // Fused per-mode ALS epilogue for Hopper (sm_90a): two CUDA C++ kernels.
 //
-// hinv_kernel replaces cp_cals_tpu/ops/pallas_epilogue.py:_hinv_kernel:
+// hinv (gj_elim.cuh's elimination behind HadamardLoad, launched by
+//   hinv_launch) replaces cp_cals_tpu/ops/pallas_epilogue.py:_hinv_kernel:
 //   H^-1 of padded_hadamard(grams[a] * grams[b], rank_mask) per model, a and
 //   b the two other modes of a 3-D tensor.
 // apply_kernel replaces cp_cals_tpu/ops/pallas_epilogue.py:_apply_kernel,
@@ -18,11 +19,13 @@
 // What bounds them: neither bytes nor arithmetic. Each call moves well under
 // 1 MB and does under 0.2 GFLOP at the engine's shapes, so both sit at the
 // launch latency of the card, and the host's cost of each launch is larger
-// still. The design therefore spends one launch per call and one block per
-// model, with everything between G and F kept in shared memory, and the
-// apply finishes the whole error on the card, which would otherwise take
-// some hundred elementwise launches. hinv keeps the R x R matrices of the
-// elimination in shared memory.
+// still. hinv is the shared Gauss-Jordan elimination of gj_elim.cuh (which
+// says what its design does about that) behind the hadamard front end:
+// one warp per model with the matrix in registers for R <= 32, one block
+// per model above. The apply spends one launch per call and one block per
+// model, with everything between G and F kept in shared memory, and
+// finishes the whole error on the card, which would otherwise take some
+// hundred elementwise launches.
 //
 // apply, per model (one block of 512 threads):
 // - H^-1 and G are staged in shared memory with coalesced loads, and
@@ -48,10 +51,6 @@
 //   rounding. Every sum has a fixed order: the result does not depend on
 //   scheduling.
 //
-// The elimination is the same unpivoted Gauss-Jordan as ops/update.py:
-// gj_inverse (SPD pivots are positive Schur-complement diagonals), so its
-// rounding stays in that class.
-//
 // The double-float sums use the exact FMA TwoProd
 // (p = a*b; e = fma(a, b, -p)) and the _rn intrinsics for every add and
 // product in them: nvcc contracts a*b + c into an FMA by default, which
@@ -62,62 +61,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "gj_elim.cuh"
 #include "smem_attr.cuh"
 
 namespace {
 
-constexpr int EPI_THREADS = 256;
 constexpr int MAX_R = 64;
-constexpr int MAX_PER_THREAD = (MAX_R * MAX_R + EPI_THREADS - 1) / EPI_THREADS;
-
-__global__ void __launch_bounds__(EPI_THREADS)
-hinv_kernel(const float* __restrict__ g0, const float* __restrict__ g1,
-            const uint8_t* __restrict__ mask, float* __restrict__ out, int R) {
-  extern __shared__ float sm[];
-  const int RR = R * R;
-  float* a = sm;
-  float* inv = sm + RR;
-  const int b = blockIdx.x;
-  const size_t base = (size_t)b * RR;
-
-  for (int e = threadIdx.x; e < RR; e += blockDim.x) {
-    const int r = e / R, c = e % R;
-    const float h = g0[base + e] * g1[base + e];
-    const float mr = mask[(size_t)b * R + r] ? 1.f : 0.f;
-    const float mc = mask[(size_t)b * R + c] ? 1.f : 0.f;
-    const float eye = r == c ? 1.f : 0.f;
-    a[e] = h * (mr * mc) + eye * (1.f - mc);
-    inv[e] = eye;
-  }
-  __syncthreads();
-
-  for (int j = 0; j < R; ++j) {
-    float na[MAX_PER_THREAD], ni[MAX_PER_THREAD];
-    const float d = a[j * R + j];
-    int t = 0;
-    for (int e = threadIdx.x; e < RR; e += blockDim.x, ++t) {
-      const int r = e / R, c = e % R;
-      const float arow = a[j * R + c] / d;
-      const float irow = inv[j * R + c] / d;
-      if (r == j) {
-        na[t] = arow;
-        ni[t] = irow;
-      } else {
-        const float colj = a[r * R + j];
-        na[t] = a[e] - colj * arow;
-        ni[t] = inv[e] - colj * irow;
-      }
-    }
-    __syncthreads();
-    t = 0;
-    for (int e = threadIdx.x; e < RR; e += blockDim.x, ++t) {
-      a[e] = na[t];
-      inv[e] = ni[t];
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < RR; e += blockDim.x) out[base + e] = inv[e];
-}
 
 // Knuth TwoSum and the double-float add of ops/error.py, contraction-free.
 __device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
@@ -423,18 +372,12 @@ int smem_optin() {
 }  // namespace
 
 // The two other modes' grams g0, g1 [B, R, R], mask [B, R] (1 byte each)
-// -> out [B, R, R].
+// -> out [B, R, R] (gj_elim.cuh: warp path for R <= 32, block path above).
 extern "C" int hinv_launch(const float* g0, const float* g1,
                            const uint8_t* mask, float* out, int B, int R,
                            void* stream) {
-  if (R < 1 || R > MAX_R) return (int)cudaErrorInvalidValue;
-  static size_t smem_set[MAX_DEVICES] = {};
-  const size_t smem = 2 * (size_t)R * R * sizeof(float);
-  int err = allow_smem((const void*)hinv_kernel, smem, smem_set);
-  if (err) return err;
-  hinv_kernel<<<B, EPI_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      g0, g1, mask, out, R);
-  return (int)cudaGetLastError();
+  return gj_launch<DividePivot>(HadamardLoad{g0, g1, mask, R}, out, B, R,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // The least shared memory of one apply block at (I, R), in bytes (one

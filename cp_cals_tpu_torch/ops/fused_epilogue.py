@@ -137,6 +137,8 @@ def normal_inverse(grams, rank_mask: torch.Tensor, skip: int) -> torch.Tensor:
     """H^-1 of padded_hadamard(hadamard_but_one(grams, skip), rank_mask).
 
     grams: per-mode [B, R, R]; rank_mask [B, R] bool. Returns [B, R, R].
+    The engine calls it once per mode, so its checks build no strings or
+    tuples unless they fail.
     """
     dev = rank_mask.device
     if dev.type == "cpu":
@@ -149,21 +151,26 @@ def normal_inverse(grams, rank_mask: torch.Tensor, skip: int) -> torch.Tensor:
             f"normal_inverse: {len(others)} other-mode gramians; the kernel takes the "
             "two of a 3-D tensor (N-D: ROADMAP queue 1 item 2)"
         )
-    b, r, _ = others[0].shape
+    g0, g1 = others
+    b, r, r2 = shape = g0.shape
     _check_rank("normal_inverse", r)
     for g in others:
-        if g.dtype != torch.float32 or tuple(g.shape) != (b, r, r):
+        if g.dtype != torch.float32 or g.shape != shape or r2 != r:
             raise ValueError(f"normal_inverse: gramian {g.dtype} {tuple(g.shape)}")
-    if rank_mask.dtype != torch.bool or tuple(rank_mask.shape) != (b, r):
+        if g.device != dev:
+            raise ValueError(f"normal_inverse: a gramian is on {g.device}, expected {dev}")
+        if not g.is_contiguous():
+            raise ValueError("normal_inverse: the gramians must be contiguous")
+    if rank_mask.dtype != torch.bool or rank_mask.shape != (b, r):
         raise ValueError(f"normal_inverse: rank_mask {rank_mask.dtype} {tuple(rank_mask.shape)}")
-    _check_cuda("normal_inverse", dev, rank_mask=rank_mask,
-                **{f"gram{k}": g for k, g in enumerate(others)})
-    out = torch.empty((b, r, r), dtype=torch.float32, device=dev)
+    if not rank_mask.is_contiguous():
+        raise ValueError("normal_inverse: rank_mask must be contiguous")
+    out = torch.empty_like(g0)  # a little cheaper than torch.empty with its keywords
     if b == 0:
         return out
     code = _lib().hinv_launch(
-        others[0].data_ptr(), others[1].data_ptr(), rank_mask.data_ptr(),
-        out.data_ptr(), b, r, _build.stream_ptr(dev),
+        g0.data_ptr(), g1.data_ptr(), rank_mask.data_ptr(), out.data_ptr(), b, r,
+        _build.stream_ptr(dev),
     )
     _build.check(code, "normal_inverse")
     normal_inverse.launches += 1

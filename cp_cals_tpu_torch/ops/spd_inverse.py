@@ -6,8 +6,10 @@ inverts every ``[B, R, R]`` normal matrix of the unfused epilogue with it.
 
 The elimination is the TPU kernel's: unpivoted Gauss-Jordan with one
 reciprocal of the pivot per step, then multiplies (``gj_inverse`` divides
-instead). The kernel (``csrc/spd_inverse.cu``) says what bounds it and
-what its design does about that.
+instead). The kernel (``csrc/spd_inverse.cu``) is the Gauss-Jordan
+elimination it shares with the normal inverse (``csrc/gj_elim.cuh``, which
+says what bounds it and what its design does about that) behind a plain
+load. ``gj_plan`` mirrors the launch plan of both.
 
 ``spd_inverse`` runs the plain version for a tensor on the CPU and the
 kernel for one on the card; any other case raises. The kernel takes
@@ -17,12 +19,37 @@ float32, ``R <= MAX_R`` and a contiguous ``[B, R, R]`` batch.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 
-MAX_R = 64  # csrc/spd_inverse.cu: MAX_R
+MAX_R = 64  # csrc/gj_elim.cuh: GJ_MAX_R
+# csrc/gj_elim.cuh: the warp path's largest R, models (warps) per block on
+# it, and the block path's threads: BLOCK_COLS columns x ROW_GROUPS groups,
+# thread (c, g) holding rows g, g + ROW_GROUPS, ... of column c.
+WARP_MAX_R = 32
+MODELS_PER_BLOCK = 4
+BLOCK_COLS, ROW_GROUPS = 64, 8
+
+
+class GjPlan(NamedTuple):
+    path: str  # "warp" or "block"
+    blocks: int
+    threads: int
+
+
+def gj_plan(b: int, r: int) -> GjPlan:
+    """The launch plan of both inverse kernels at B models of rank R
+    (``csrc/gj_elim.cuh:gj_plan``): for R <= WARP_MAX_R one warp per model,
+    model = block * MODELS_PER_BLOCK + warp, lane c on column c; above, one
+    block per model."""
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"gj_plan: rank {r} outside 1..{MAX_R}")
+    if r <= WARP_MAX_R:
+        return GjPlan("warp", -(-b // MODELS_PER_BLOCK), 32 * MODELS_PER_BLOCK)
+    return GjPlan("block", b, BLOCK_COLS * ROW_GROUPS)
 
 
 def spd_inverse_plain(h: torch.Tensor) -> torch.Tensor:
@@ -50,7 +77,17 @@ def _lib():
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         )
         lib.spd_inverse_launch.restype = ctypes.c_int
+        lib.gj_plan_of.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.gj_plan_of.restype = ctypes.c_int
     return lib
+
+
+def built_plan(b: int, r: int) -> GjPlan:
+    """The launch plan as the built library has it (needs the card's
+    build); ``gj_plan`` must equal it."""
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    path = _lib().gj_plan_of(b, r, ctypes.byref(blocks), ctypes.byref(threads))
+    return GjPlan(("warp", "block")[path], blocks.value, threads.value)
 
 
 def spd_inverse(h: torch.Tensor) -> torch.Tensor:

@@ -10,10 +10,10 @@ that has only PyTorch:
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.) Without a
 card every test skips. Tolerances are fp32 ones: the kernels sum in
 another order than cuBLAS (MTTKRP 2e-5 relative, epilogue 2e-4, or 1e-5
-of the largest magnitude at the engine's shapes); the SPD
-inverse is held per model to 1e-6 * cond(H) * max|H^-1| (its plain version
-rounds the same elimination, with FMAs at other places); the probe's copy
-kernel is exact.
+of the largest magnitude at the engine's shapes); both
+inverses are held per model to 1e-6 * cond(H) * max|H^-1| (their plain
+versions round the same elimination, with FMAs at other places); the
+probe's copy kernel is exact.
 """
 
 import numpy as np
@@ -299,21 +299,69 @@ def test_apply_kernel_rejects_mistyped_error_inputs(dev):
     fe.epilogue_apply(g, hinv, iters, jk, False, (x_norm, grams[0], grams[1]))
 
 
-def test_epilogue_kernels_match_plain(dev):
-    rng = np.random.default_rng(5)
-    b, modes, r, pad = 6, (9, 8, 7), 5, 2
-    rr = r + pad
-    mask = np.broadcast_to(np.arange(rr) < r, (b, rr)).copy()
+# Both inverses at every boundary of their launch plan (csrc/gj_elim.cuh:
+# the warp path up to R = 32, four models per block; the block path above).
+GJ_RANKS = [1, 2, 4, 5, 8, 12, 16, 20, 31, 32, 33, 48, 64]
+
+
+def _hinv_ratio(got, want, h):
+    """Per model: |kernel - plain| over cond(H) * max|plain|, cond in float64."""
+    cond = torch.linalg.cond(h.double())
+    err = (got.double() - want.double()).abs().amax((1, 2))
+    return err / (cond * want.double().abs().amax((1, 2)))
+
+
+def _check_inverse(got, want, h):
+    """The check chip_smoke.py holds both inverses to: each model within
+    1e-6 * cond(H) * max|H^-1| of the plain version, where the first-order
+    inverse 2I - H fails."""
+    assert (_hinv_ratio(got, want, h) <= 1e-6).all()
+    eye = torch.eye(h.shape[-1], device=h.device).expand_as(h)
+    assert not (_hinv_ratio(2 * eye - h, want, h) <= 1e-6).all()
+
+
+@pytest.mark.parametrize("r", GJ_RANKS)
+def test_epilogue_kernels_match_plain(dev, r):
+    rng = np.random.default_rng(5 + r)
+    # The normal inverse on SPD gramians with cond(H) up to 1e4, B = 7 (not
+    # a multiple of the warp path's four models per block) and B = 1; true
+    # ranks r - 2 .. r (masked columns) and a dead slot, which come out
+    # exactly as the identity.
+    b = 7
+    g0 = torch.from_numpy(_spd_batch(rng, b, r, 1e4).astype(np.float32)).to(dev)
+    g1 = (torch.ones(r, r, device=dev) + 0.5 * torch.eye(r, device=dev)).expand(b, r, r).contiguous()
+    true = torch.tensor([max(1, r - s % 3) for s in range(b)])
+    true[-1] = 0
+    m = (torch.arange(r)[None, :] < true[:, None]).to(dev)
+    eye = torch.eye(r, device=dev).expand(b, r, r)
+    pad = ~m[:, :, None] | ~m[:, None, :]
+    for skip in range(3):
+        grams = [g0, g1]
+        grams.insert(skip, torch.full((b, r, r), float("nan"), device=dev))  # never read
+        before = fe.normal_inverse.launches
+        got = fe.normal_inverse(grams, m, skip)
+        assert fe.normal_inverse.launches == before + 1
+        want = fe.normal_inverse_plain(grams, m, skip)
+        torch.cuda.synchronize()
+        h = torch.where(pad, eye, g0 * g1)
+        live = m.any(1)
+        _check_inverse(got[live], want[live], h[live])
+        assert torch.equal(got[pad], eye[pad])
+        one = fe.normal_inverse([g[:1] for g in grams], m[:1], skip)
+        assert torch.equal(one, got[:1])
+    # The apply on the kernel's H^-1 of random factors' gramians.
+    modes, pad_cols = (2 * r + 9, 2 * r + 8, 7), min(2, r - 1)
+    mask = np.broadcast_to(np.arange(r) < r - pad_cols, (b, r)).copy()
     mask[-1] = False
     m = torch.from_numpy(mask).to(dev)
-    factors = [torch.from_numpy(rng.normal(size=(b, n, rr)).astype(np.float32)).to(dev) * m[:, None, :]
+    factors = [torch.from_numpy(rng.normal(size=(b, n, r)).astype(np.float32)).to(dev) * m[:, None, :]
                for n in modes]
     grams = gramians(factors)
     for skip in range(3):
         hinv = fe.normal_inverse(grams, m, skip)
         torch.testing.assert_close(hinv, fe.normal_inverse_plain(grams, m, skip), rtol=2e-4, atol=2e-4)
-    g = torch.from_numpy(rng.normal(size=(b, modes[2], rr)).astype(np.float32)).to(dev) * m[:, None, :]
-    jk = torch.tensor([2, -1, 0, -1, 4, -1], dtype=torch.int32, device=dev)
+    g = torch.from_numpy(rng.normal(size=(b, modes[2], r)).astype(np.float32)).to(dev) * m[:, None, :]
+    jk = torch.tensor([2, -1, 0, -1, 4, -1, 6], dtype=torch.int32, device=dev)
     x_norm = torch.linspace(20.0, 30.0, b, device=dev)
     for iters_val in (1, 3):
         iters = torch.full((b,), iters_val, dtype=torch.int32, device=dev)
@@ -327,6 +375,12 @@ def test_epilogue_kernels_match_plain(dev):
                 if with_err:
                     torch.testing.assert_close(got[3], want[3], rtol=2e-4, atol=2e-4)
                 assert not got[0][-1].any() and not got[1][-1].any()
+
+
+def test_inverse_launch_plan_matches_the_built_kernels(dev):
+    for r in range(1, si.MAX_R + 1):
+        for b in (1, 3, 4, 5, 96, 97, 320):
+            assert si.built_plan(b, r) == si.gj_plan(b, r)
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
@@ -380,22 +434,23 @@ def _spd_batch(rng, b, r, cond):
     return np.einsum("bij,bj,bkj->bik", q, s, q)
 
 
-@pytest.mark.parametrize("r", [1, 4, 8, 20, 64])
+@pytest.mark.parametrize("r", GJ_RANKS)
 def test_spd_inverse_kernel_matches_plain(dev, r):
     rng = np.random.default_rng(r)
-    h = _spd_batch(rng, 40, r, 1e4).astype(np.float32)
+    # 41: not a multiple of 4 models per block; scaled, so that 2I - H is not
+    # the inverse at R = 1 (where every H of _spd_batch is 1)
+    h = (_spd_batch(rng, 41, r, 1e4) * np.geomspace(0.5, 4.0, 41)[:, None, None]).astype(np.float32)
     h[[3, 17]] = np.eye(r, dtype=np.float32)  # dead slots
     ht = torch.from_numpy(h).to(dev)
     before = si.spd_inverse.launches
     got = si.spd_inverse(ht)
     assert si.spd_inverse.launches == before + 1
     want = si.spd_inverse_plain(ht)
-    cond = torch.linalg.cond(ht.double())
-    err = (got.double() - want.double()).abs().amax((1, 2))
-    assert (err <= 1e-6 * cond * want.double().abs().amax((1, 2))).all()
+    _check_inverse(got, want, ht)
     eye = torch.eye(r, device=dev).expand(2, r, r)
     assert torch.equal(got[[3, 17]], eye)
-    assert si.spd_inverse(ht[:0]).shape == (0, r, r) and si.spd_inverse.launches == before + 1
+    assert torch.equal(si.spd_inverse(ht[:1]), got[:1])
+    assert si.spd_inverse(ht[:0]).shape == (0, r, r) and si.spd_inverse.launches == before + 2
 
 
 def test_spd_inverse_rejects_what_it_does_not_take(dev):

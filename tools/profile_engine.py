@@ -8,9 +8,9 @@ Runs the bench workload of chip_smoke.py (299x301x41, 400 models of ranks
 once to warm up and once under torch.profiler, then prints the wall time,
 the device busy share (union of the CUDA kernel intervals over the wall),
 device kernels per bucket-iteration, the device time and count of
-PyTorch's elementwise kernels (all, and those on float data) and device
-time by kernel name, and writes the summary and a Chrome trace to DIR
-(default chiprun_out/). A third run is profiled on the host only, with
+PyTorch's elementwise kernels (all, and those on float data), the device
+time of the normal inverse and by kernel name, and writes the summary and
+a Chrome trace to DIR (default chiprun_out/). A third run is profiled on the host only, with
 Python stacks, to count the PyTorch ops issued from ops/error.py (the
 compensated error's elementwise ops, which the fused path leaves to the
 apply kernel). Needs a CUDA card.
@@ -101,6 +101,9 @@ def main() -> int:
         elementwise_f32_ms=sum(by_name[n] for n in elementwise_f32) / 1e3,
         elementwise_f32_launches=sum(count[n] for n in elementwise_f32),
         error_py_ops=error_ops,
+        # the normal inverse under either kernel name (hinv_kernel before
+        # csrc/gj_elim.cuh, then gj_warp_kernel / gj_block_kernel with HadamardLoad)
+        normal_inverse_ms=sum(us for n, us in by_name.items() if "hinv_kernel" in n or "HadamardLoad" in n) / 1e3,
         top=top,
     )
     os.makedirs(args.out, exist_ok=True)
@@ -113,7 +116,8 @@ def main() -> int:
           f"{len(intervals)} device kernels, {summary['kernels_per_bucket_iteration']:.1f} per "
           f"bucket-iteration ({bucket_iters}); elementwise {summary['elementwise_ms']:.2f} ms in "
           f"{summary['elementwise_launches']} launches (float: {summary['elementwise_f32_ms']:.2f} ms in "
-          f"{summary['elementwise_f32_launches']}); ops from ops/error.py: {error_ops}")
+          f"{summary['elementwise_f32_launches']}); ops from ops/error.py: {error_ops}; normal inverse "
+          f"{summary['normal_inverse_ms']:.3f} ms")
     for t in top:
         print(f"  {t['ms']:9.3f} ms  {t['calls']:6d}  {t['name']}")
     print(json.dumps(summary))
