@@ -23,35 +23,50 @@ the result lines are printed):
    the iteration calls it (the error on mode 2). The fp32 MTTKRP is also
    timed against the torch twostep replayed from a CUDA graph.
 4. Engine: cp_cals on the full bench workload (400 models, ranks 1-20 x 20,
-   buckets 4/8/12/16/20, 10 forced iterations) through the kernels, at the
-   "highest" tier and then at the bench tiers (precision="high",
-   mttkrp_precision="default"). Each run starts with every launch count at
-   0, and each kernel of its path (the MTTKRP kernel of its tier) must have
-   launched 3 x the bucket-iterations the engine ran, every other kernel
-   not at all. In both runs 20 models (one of each rank) are cross-checked
-   against the port's own float64 run on the CPU from the same inits.
+   buckets 4/8/12/16/20, 10 forced iterations) through the kernels and the
+   device-paced loop (CUDA-graph replays), at the "highest" tier and then
+   at the bench tiers (precision="high", mttkrp_precision="default"); the
+   bench-tier run again with sync_mode="iter" (the eager per-iteration
+   loop), whose every model's fit, iteration count and factors must equal
+   the graph loop's bit for bit. Then the headline leg of bench.py: 50
+   forced iterations, polish_iters=1, float16 wire, at the bench tiers.
+   Each run starts with every launch count at 0, and each kernel of its
+   path (the MTTKRP kernel of its tier) must have launched 3 x (the
+   bucket-iterations the engine ran + its polish sweeps), replays
+   included, every other kernel not at all. In the graph-loop runs 20
+   models (one of each rank) are cross-checked against the port's own
+   float64 run on the CPU from the same inits.
 5. Jackknife, at full width (the JAX bench's jackknife configuration): a
    rank-5 model of the bench tensor fitted by cp_als on the card, then its
-   299 leave-one-out replicates in one bucket of rank 8 (B = 320): J1
-   jk_cp_cals as pinned (fused epilogue); J2 the same with
-   solve_method="pallas" (unfused epilogue through the SPD-inverse kernel);
-   J3 jk_cp_batched_als with solve_method="pallas" (one bucket of rank 5).
-   Each run starts with every count at 0 and must launch exactly its
-   path's kernels 3 x its bucket-iterations; each returns 299 replicates
-   with factor 0 NaN on exactly its fiber's row. J1's MTTKRP calls are
-   recorded, and the tensor-core kernel is held against its plain version
-   and timed on J1's own inputs at each (B, mode) of J1's launch mix.
-   J1 and J2 are run again at
-   10 forced iterations and 10 fibers are cross-checked against the port's
-   float64 CPU run.
+   299 leave-one-out replicates in one bucket of rank 8 (B = 320), each
+   through the graph loop: J1 jk_cp_cals as pinned (fused epilogue); J2
+   the same with solve_method="pallas" (unfused epilogue through the
+   SPD-inverse kernel); J3 jk_cp_batched_als with solve_method="pallas"
+   (one bucket of rank 5); J4 the bench's --fast tier (mttkrp_precision=
+   "default", tol_check_interval=5, polish_iters=25, polish_tol=1e-6). Each
+   run starts with every count at 0 and must launch exactly its path's
+   kernels 3 x (its bucket-iterations + polish sweeps); J4's predicated
+   check MTTKRP is counted apart, once per bucket-iteration. Each returns
+   299 replicates with factor 0 NaN on exactly its fiber's row. J1's
+   MTTKRP calls and J2's SPD inverses are recorded in those runs, replays
+   included (a recorder's tallies advance with each graph replay, as the
+   launch counts do, and must sum to them), and the tensor-core kernel is
+   held against its plain version and timed on J1's own inputs at each
+   (B, mode) of J1's launch mix. J1, J2 and J4 are run again at 10 forced
+   iterations, and J4 once more as the bench runs it (tol-driven, polished)
+   with float32 results, and 10 fibers are cross-checked against the
+   port's float64 CPU run of the same settings (J4's stops within one
+   check window).
 6. SPD inverse: the kernel against its plain version on the normal
-   matrices J2 inverted, and on random SPD batches (R = 4, 20, 32, 33, 64,
+   matrices J2 inverted (each eager call's, and each captured call's
+   last replay), and on random SPD batches (R = 4, 20, 32, 33, 64,
    cond up to 1e4, dead identity slots), timed at J2's launch mix. Both
    inverses record which path of their shared elimination (warp or block)
    each shape took.
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality.
-8. Result: one {"kernels": [...]} line, then the last line
+8. Result: the graph captures, replays and stats fetches of each run, one
+   {"kernels": [...]} line, then the last line
    {"ok": true, "device": {...}}. The per-shape measurements go to
    chiprun_out/chip_smoke.json, the probe's to
    chiprun_out/overhead_probe.json.
@@ -64,11 +79,14 @@ bucket's engine iterations), J2's for the SPD inverse, and the probe's two
 shapes for the copy kernel. "ms" is a launch's share of 20 eager launches
 back to back (for a small kernel mostly the host's cost of issuing it),
 "graph_ms" its share of 20 launches replayed from one CUDA graph (the
-device's time).
+device's time); "library_graph_ms" the same for the PyTorch yardstick
+(None for torch.linalg.inv, which tools/profile_engine.py replays).
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -118,8 +136,11 @@ TOL = {"mttkrp": 2e-5, "hinv": 1e-6, "apply": 1e-5, "apply_err": 1e-5}
 # the same inits): the largest |fit difference| and relative reconstruction
 # difference allowed, per run. Both runs are deterministic; on an H100 they
 # read 5.1e-6 / 8.2e-6 ("highest") and 1.6e-3 / 1.2e-3 (bench tiers, whose
-# bf16 MTTKRP inputs carry 2^-9 relative rounding).
-CROSS_TOL = {"highest": (5e-5, 5e-5), "bench-tiers": (1e-2, 1e-2)}
+# bf16 MTTKRP inputs carry 2^-9 relative rounding). The headline leg (50
+# forced iterations, one polish sweep at "high", float16 wire) reads
+# 1.2e-5 / 1.0e-3.
+CROSS_TOL = {"highest": (5e-5, 5e-5), "bench-tiers": (1e-2, 1e-2), "headline": (1e-4, 5e-3)}
+HEADLINE = dict(max_iterations=50, polish_iters=1, result_wire_dtype="float16")
 HINV_SNAPSHOTS = (1, 4, ITERS)  # engine iterations whose grams are checked
 # The jackknife phase: the bench tensor's rank-5 model (fitted from this
 # seed), its 299 replicates in one bucket of rank 8 (B = 320 slots).
@@ -129,8 +150,24 @@ JK_RANK, JK_BUCKET, JK_SEED = 5, 8, 17
 # the same 10 fibers: the largest relative reconstruction difference (NaN
 # row dropped) and the largest relative |lam| difference allowed. Both runs
 # are deterministic; on an H100 J1 and J2 both read 3.2e-4 and 7.6e-5 (the
-# float16 wire's 2^-11 rounding of the factors dominates).
+# float16 wire's 2^-11 rounding of the factors dominates). J4 (the fast
+# tier, polished to polish_tol at "high") is held to the same limits.
 JK_CROSS_TOL = (2e-3, 5e-4)
+# J4: the bench's --fast jackknife tier (bench.py: tol_check_interval=5,
+# polish to polish_tol=1e-6 in at most 25 sweeps, bf16 MTTKRP).
+J4 = dict(mttkrp_precision="default", tol_check_interval=5, polish_iters=25, polish_tol=1e-6)
+# The replicates cross-checked against the port's float64 CPU runs.
+JK_FIBERS = [int(f) for f in np.linspace(0, MODES[0] - 1, 10).round()]
+# J4 as the bench runs it (tol-driven, polished) with float32 results,
+# against the port's float64 CPU run of the same settings on JK_FIBERS: each
+# replicate's stop within one check window (5 iterations) of the CPU
+# run's, and the largest |fit difference| and relative reconstruction
+# difference (NaN row dropped) allowed. On an H100 the stops read 6 of 10
+# equal and 4 iterations apart at most (fp32 rounding of the checked fit
+# moves a stop by a check), fits 7.7e-6 and reconstructions 5.3e-6: the
+# polish takes both runs to one fixed point. Without its polish the card's
+# run reads 1.4e-4, which the reconstruction limit must refuse.
+J4_STOP_TOL = (5e-5, 3e-5)
 
 
 def card_line() -> str:
@@ -366,9 +403,8 @@ def kernel_phase(x, dev):
                     graph_ms=graph_ms(lambda: fm.fused_mttkrp(x3, u1, u2, tier)),
                     plain_ms=cuda_ms(lambda: fm.fused_mttkrp_plain(x3, u1, u2, tier)),
                     library_ms=cuda_ms(library),
+                    library_graph_ms=graph_ms(library),
                 )
-                if tier == "highest":  # the fp32 kernel against the twostep, both replayed
-                    row["mttkrp"][tier]["library_graph_ms"] = graph_ms(library)
             g = fm.fused_mttkrp(fm.prepare_mode_tensor(x, mode), u1, u2, "highest")
             checks = []
             for it, e_grams in snaps:
@@ -394,6 +430,7 @@ def kernel_phase(x, dev):
                 graph_ms=graph_ms(lambda: fe.normal_inverse(e_grams, e_mask, mode)),
                 plain_ms=cuda_ms(lambda: fe.normal_inverse_plain(e_grams, e_mask, mode)),
                 library_ms=cuda_ms(lambda: torch.linalg.inv(h)),
+                library_graph_ms=None,  # tools/profile_engine.py replays torch.linalg.inv_ex
             )
             # The apply on every mode, with and without the error it finishes
             # on the last mode (the bucket's other gramians), at iterations 1
@@ -445,7 +482,7 @@ def kernel_phase(x, dev):
                 ms=cuda_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, False, err_inputs)),
                 graph_ms=graph_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, False, err_inputs)),
                 plain_ms=cuda_ms(lambda: fe.epilogue_apply_plain(g, hinv, iters, jk, False, err_inputs)),
-                library_ms=None,
+                library_ms=None, library_graph_ms=None,
             )
             rows.append(row)
             print(f"kernels B={b:3d} R={r:2d} mode={mode}: mttkrp "
@@ -473,30 +510,19 @@ def engine_queue(rng):
     ]
 
 
-def wrappers() -> dict:
-    """Every kernel wrapper of the port, by kernel name."""
-    from cp_cals_tpu_torch import probe_overhead as probe
-    from cp_cals_tpu_torch.ops import fused_epilogue as fe
-    from cp_cals_tpu_torch.ops import fused_mttkrp as fm
-    from cp_cals_tpu_torch.ops import spd_inverse as si
-
-    return {
-        "fused_mttkrp_fp32": fm.fused_mttkrp_fp32,
-        "fused_mttkrp_tc": fm.fused_mttkrp_tc,
-        "normal_inverse": fe.normal_inverse,
-        "epilogue_apply": fe.epilogue_apply,
-        "spd_inverse": si.spd_inverse,
-        "probe_copy": probe.probe_copy,
-    }
-
-
 def reset_counts():
-    for fn in wrappers().values():
-        fn.launches = 0
+    """Every kernel wrapper's launch counts to 0 (cp_cals_tpu_torch/launches.py)."""
+    from cp_cals_tpu_torch import launches
+
+    launches.reset()
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Each wrapper's launches by kernel name; the MTTKRPs' predicated
+    launches apart, as "<name>.predicated"."""
+    from cp_cals_tpu_torch import launches
+
+    return launches.read()
 
 
 MTTKRP_KERNEL = {"highest": "fused_mttkrp_fp32", "high": "fused_mttkrp_tc", "default": "fused_mttkrp_tc"}
@@ -513,29 +539,46 @@ def unfused(tier: str) -> tuple:
     return (MTTKRP_KERNEL[tier], "spd_inverse")
 
 
-def check_launches(name: str, counts: dict, per_step: tuple, steps: int) -> None:
+def check_launches(name: str, counts: dict, per_step: tuple, steps: int, checked: str | None = None,
+                   checks: int = 0) -> None:
     """The kernels in ``per_step`` launched 3 x ``steps`` times (once per
-    mode of each bucket-iteration), every other kernel not at all."""
+    mode of each bucket-iteration or polish sweep), every other kernel not
+    at all; the predicated launches of the mixed-tier check's MTTKRP
+    (kernel ``checked``) ``checks`` times, once per bucket-iteration."""
     for k, v in counts.items():
-        want = 3 * steps if k in per_step else 0
+        if k.endswith(".predicated"):
+            want = checks if k == f"{checked}.predicated" else 0
+        else:
+            want = 3 * steps if k in per_step else 0
         if v != want or (k in per_step and v == 0):
-            raise AssertionError(f"{name}: {k} launched {v} times, expected {want} (3 x {steps})")
+            raise AssertionError(f"{name}: {k} launched {v} times, expected {want} (3 x {steps}, "
+                                 f"{checks} checks)")
 
 
-def bench_params(**tiers):
-    """The bench workload's engine settings at the given precision tiers."""
+def loop_totals(rep) -> dict:
+    """A run's graph captures and replays, stats fetches and polish sweeps,
+    over its buckets."""
+    out = dict(captures=0, replays=0, stats_fetches=0, polish_sweeps=0)
+    for counts in rep.loop_counts.values():
+        for k in out:
+            out[k] += counts[k]
+    return out
+
+
+def bench_params(**kw):
+    """The bench workload's engine settings, with ``kw`` (precision tiers,
+    and the headline leg's depth, polish and wire) over them."""
     from cp_cals_tpu_torch import CalsParams
 
-    return CalsParams(
-        max_iterations=ITERS, force_max_iter=True, bucket_ranks=BUCKETS,
-        buffer_size=BUFFER, tail_compaction_depth=0, tol=1e-6, **tiers,
-    )
+    base = dict(max_iterations=ITERS, force_max_iter=True, bucket_ranks=BUCKETS,
+                buffer_size=BUFFER, tail_compaction_depth=0, tol=1e-6)
+    return CalsParams(**{**base, **kw})
 
 
-def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True):
+def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, **kw):
     from cp_cals_tpu_torch import cp_cals
 
-    params = bench_params(**tiers)
+    params = bench_params(**tiers, **kw)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -544,7 +587,9 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True):
     wall = time.perf_counter() - t0
     counts = read_counts()
     bucket_iters = sum(rep.engine_iterations.values())
-    check_launches(name, counts, fused(params.mttkrp_precision or params.precision), bucket_iters)
+    loop = loop_totals(rep)
+    check_launches(name, counts, fused(params.mttkrp_precision or params.precision),
+                   bucket_iters + loop["polish_sweeps"])
     if len(results) != len(queue) or any(kt is None for kt in results):
         raise AssertionError(f"{name}: missing results")
     for kt, q in zip(results, queue):
@@ -554,24 +599,42 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True):
             raise AssertionError(f"{name}: non-finite factors")
     fits = np.array([m.fit for m in rep.models])
     iters = np.array([m.iters for m in rep.models])
-    if (not np.isfinite(fits).all() or fits.max() > 1.0 or (iters != ITERS).any()
+    if (not np.isfinite(fits).all() or fits.max() > 1.0 or (iters != params.max_iterations).any()
             or (check_fit and fits.mean() < 0.5)):
         raise AssertionError(f"{name}: fits {fits.mean()} iters {set(iters.tolist())}")
     out = dict(
         wall_s=wall, models_per_s=len(queue) / wall, mean_fit=float(fits.mean()),
         mean_iters=float(iters.mean()), bucket_iterations=rep.engine_iterations,
-        launches=counts, phase_times={str(k): v for k, v in rep.phase_times.items()},
+        launches=counts, phase_times={str(k): v for k, v in rep.phase_times.items()}, loop=loop,
+        sync_mode=params.sync_mode,
     )
     print(f"engine {name}: wall {wall:.3f}s, {out['models_per_s']:.1f} models/s, "
           f"mean fit {out['mean_fit']:.6f}, mean iters {out['mean_iters']}, "
           f"bucket-iterations {bucket_iters}, launches {counts}", flush=True)
+    print(f"engine {name} loop ({params.sync_mode}): {loop['captures']} graph captures, "
+          f"{loop['replays']} replays, {loop['stats_fetches']} stats fetches, "
+          f"{loop['polish_sweeps']} polish sweeps", flush=True)
     return results, rep, out
 
 
-def cross_check(x, queue, runs: dict) -> dict:
+def assert_bit_identical(name: str, a, b) -> None:
+    """Every model's fit, iteration count, error and factors equal bit for
+    bit between two engine runs (results, report)."""
+    (res_a, rep_a), (res_b, rep_b) = a, b
+    for ka, kb, ma, mb in zip(res_a, res_b, rep_a.models, rep_b.models):
+        if (ma.id, ma.iters, ma.fit, ma.approx_error) != (mb.id, mb.iters, mb.fit, mb.approx_error):
+            raise AssertionError(f"{name}: model {ma.id} differs: {ma} vs {mb}")
+        for fa, fb in zip(ka.factors + (ka.lam,), kb.factors + (kb.lam,)):
+            if not np.array_equal(fa, fb):
+                raise AssertionError(f"{name}: model {ma.id}'s factors differ")
+    print(f"{name}: {len(res_a)} models bit-identical (fits, iterations, factors)", flush=True)
+
+
+def cross_check(x, queue, runs: dict, **kw) -> dict:
     """20 models (one per rank) of each engine run against the port's
-    float64 CPU run from the same inits: the largest |fit difference| and
-    relative reconstruction difference, held to CROSS_TOL per run."""
+    float64 CPU run from the same inits (``kw``: the runs' settings beside
+    the bench's): the largest |fit difference| and relative reconstruction
+    difference, held to CROSS_TOL per run."""
     from cp_cals_tpu_torch import Ktensor, cp_cals
     from cp_cals_tpu_torch.ktensor import to_tensor
 
@@ -582,7 +645,7 @@ def cross_check(x, queue, runs: dict) -> dict:
     pick = [20 * (r - 1) for r in range(1, 21)]
     q64 = [Ktensor(tuple(f.astype(np.float64) for f in queue[i].factors),
                    queue[i].lam.astype(np.float64)) for i in pick]
-    res64, rep64 = cp_cals(x.astype(np.float64), q64, bench_params(), device="cpu")
+    res64, rep64 = cp_cals(x.astype(np.float64), q64, bench_params(**kw), device="cpu")
     out = {}
     for name, (results, rep) in runs.items():
         worst_fit = worst_rec = 0.0
@@ -633,48 +696,122 @@ def fit_jk_model(x_np):
     return kt, out
 
 
-class SpdRecorder:
-    """Observes the unfused solve's calls of ``spd_inverse`` during one run:
-    how many launches took each (B, R), the first input of each shape, and
-    the inputs of the bucket-iterations in HINV_SNAPSHOTS and of the last
-    one (replicates start from the fitted model, so a run may end before
-    iteration 10). The counts stay the wrapper's own; the inputs are kept by
-    reference (nothing writes to them)."""
+class Recorder:
+    """Observes the calls of one kernel's wrapper during one run, where the
+    run makes them: ``module.attr`` is swapped for a recording function
+    while the run lasts (the wrapper's own counts stay its own). Its
+    tallies go into ``launches.TALLIES``, so a CUDA-graph replay advances
+    them as it advances the wrappers' counts: ``shapes`` counts launches by
+    ``key``, replays included. ``first`` holds copies of the first inputs
+    of each key, taken at an eager call (the graph loop runs every captured
+    iteration eagerly first, as its warm-up); ``keep`` says which
+    arguments stay by reference (ones nothing writes to)."""
+
+    module, attr, keep = None, None, ()
+
+    def key(self, *args):
+        raise NotImplementedError
+
+    def seen(self, n: int, captured: bool, args) -> None:
+        """Every call's hook (``n`` counts the calls)."""
 
     def __enter__(self):
-        from cp_cals_tpu_torch.ops import update
+        import importlib
 
-        self.module, self.real = update, update.spd_inverse
-        self.shapes, self.first, self.snap_inputs, self.last, self.n = {}, {}, [], {}, 0
+        from cp_cals_tpu_torch import launches
 
-        def record(h):
-            it, mode = self.n // 3 + 1, self.n % 3
-            self.n += 1
-            shape = tuple(h.shape[:2])
-            self.shapes[shape] = self.shapes.get(shape, 0) + 1
-            self.first.setdefault(shape, h)
-            if it in HINV_SNAPSHOTS:
-                self.snap_inputs.append((it, mode, h))
-            self.last[mode] = (it, mode, h)
-            return self.real(h)
+        self.mod = importlib.import_module(self.module)
+        self.real = getattr(self.mod, self.attr)
+        self.shapes, self.first, self.n = {}, {}, 0
+        self.tallies = [self.shapes]
+        launches.TALLIES.extend(self.tallies)
 
-        update.spd_inverse = record
+        def record(*args):
+            key = self.key(*args)
+            if key is not None:
+                captured = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+                self.shapes[key] = self.shapes.get(key, 0) + 1
+                if key not in self.first and not captured:
+                    self.first[key] = tuple(a if i in self.keep else a.clone() for i, a in enumerate(args[:3]))
+                self.seen(self.n, captured, args)
+                self.n += 1
+            return self.real(*args)
+
+        setattr(self.mod, self.attr, record)
         return self
 
     def __exit__(self, *exc):
-        self.module.spd_inverse = self.real
+        from cp_cals_tpu_torch import launches
+
+        setattr(self.mod, self.attr, self.real)
+        for t in self.tallies:
+            launches.TALLIES.remove(t)
+
+    def check_total(self, name: str, launched: int) -> None:
+        """The recorded launches, replays included, are the run's count."""
+        total = sum(self.shapes.values())
+        if total != launched or set(self.first) != set(self.shapes):
+            raise AssertionError(f"{name}: {total} launches recorded in {sorted(self.shapes)}, "
+                                 f"{launched} counted; eager inputs of {sorted(self.first)}")
+
+
+class SpdRecorder(Recorder):
+    """The unfused solve's calls of ``spd_inverse`` by (B, R), and every
+    call's input H: a copy where the call ran eagerly, and where it was
+    captured, the graph's own H buffer, which after the run holds that
+    graph's last replay (kept where the graph was replayed: ``written``, a
+    tally of one per eager call or replay)."""
+
+    module, attr = "cp_cals_tpu_torch.ops.update", "spd_inverse"
+
+    def __enter__(self):
+        super().__enter__()
+        from cp_cals_tpu_torch import launches
+
+        self.calls, self.written = [], {}
+        self.tallies.append(self.written)
+        launches.TALLIES.append(self.written)
+        return self
+
+    def key(self, h):
+        return tuple(h.shape[:2])
+
+    def seen(self, n, captured, args):
+        (h,) = args
+        self.written[n] = 1
+        self.calls.append((captured, n % 3, h if captured else h.clone()))  # modes in turn
 
     @property
     def snaps(self) -> list:
-        """(bucket-iteration, mode, H) at the snapshots and the last
-        bucket-iteration."""
-        return self.snap_inputs + [e for e in self.last.values() if e[0] not in HINV_SNAPSHOTS]
+        """(label, H) of every eager call and of every captured call's last
+        replay."""
+        out = []
+        for n, (captured, mode, h) in enumerate(self.calls):
+            times = self.written.get(n, 0)
+            if times:
+                kind = f"last of {times} replays" if captured else "eager"
+                out.append((f"{kind} B={h.shape[0]} mode {mode}", h))
+        return out
 
 
-def jk_run(name: str, run, per_step: tuple) -> tuple:
-    """One jackknife run from counts at 0: launches, 299 well-formed
-    replicates (factor 0 NaN exactly on its fiber's row, finite elsewhere,
-    finite lam), wall and replicates/s."""
+class MttkrpRecorder(Recorder):
+    """The unpredicated MTTKRP calls through the tier dispatcher
+    ``fused_mttkrp`` by (B, target mode, tier); the held layout X stays by
+    reference."""
+
+    module, attr, keep = "cp_cals_tpu_torch.ops.fused_mttkrp", "fused_mttkrp", (0,)
+
+    def key(self, x3, u1, u2, precision="highest", pred=None):
+        # the target mode's I: [.., J, I, Kp] at the bf16 tiers, [J, K, I] at "highest"
+        i = x3.shape[-1] if precision == "highest" else x3.shape[-2]
+        return None if pred is not None else (u1.shape[0], MODES.index(i), precision)
+
+
+def jk_run(name: str, run, per_step: tuple, checked: str | None = None) -> tuple:
+    """One jackknife run from counts at 0: launches (with ``checked``, the
+    mixed-tier check's MTTKRP kernel, one predicated launch per
+    bucket-iteration), 299 well-formed replicates (factor 0 NaN exactly on
+    its fiber's row, finite elsewhere, finite lam), wall and replicates/s."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -683,7 +820,9 @@ def jk_run(name: str, run, per_step: tuple) -> tuple:
     wall = time.perf_counter() - t0
     counts = read_counts()
     bucket_iters = sum(rep.cals_report.engine_iterations.values())
-    check_launches(name, counts, per_step, bucket_iters)
+    loop = loop_totals(rep.cals_report)
+    check_launches(name, counts, per_step, bucket_iters + loop["polish_sweeps"], checked,
+                   bucket_iters if checked else 0)
     (reps,) = rep.results
     if len(reps) != MODES[0]:
         raise AssertionError(f"{name}: {len(reps)} replicates")
@@ -696,36 +835,15 @@ def jk_run(name: str, run, per_step: tuple) -> tuple:
             raise AssertionError(f"{name}: replicate {fiber} is malformed")
     iters = np.array([m.iters for m in rep.cals_report.models])
     out = dict(wall_s=wall, replicates_per_s=len(reps) / wall, mean_iters=float(iters.mean()),
-               bucket_iterations=rep.cals_report.engine_iterations, launches=counts)
+               bucket_iterations=rep.cals_report.engine_iterations, launches=counts, loop=loop,
+               stats_fetches_per_replicate=loop["stats_fetches"] / len(reps))
     print(f"jackknife {name}: wall {wall:.3f}s, {out['replicates_per_s']:.1f} replicates/s, "
           f"mean iters {out['mean_iters']:.2f}, bucket-iterations {bucket_iters}, launches {counts}",
           flush=True)
+    print(f"jackknife {name} loop: {loop['captures']} graph captures, {loop['replays']} replays, "
+          f"{loop['stats_fetches']} stats fetches ({out['stats_fetches_per_replicate']:.4f} per replicate), "
+          f"{loop['polish_sweeps']} polish sweeps", flush=True)
     return rep, out
-
-
-class MttkrpRecorder:
-    """Observes the MTTKRP calls of one run through the tier dispatcher
-    ``fused_mttkrp`` (the kernel wrappers' counts stay their own): how many
-    launches took each (B, target mode, tier), and the first inputs of each,
-    kept by reference (nothing writes to them)."""
-
-    def __enter__(self):
-        from cp_cals_tpu_torch.ops import fused_mttkrp as fm
-
-        self.module, self.real = fm, fm.fused_mttkrp
-        self.shapes, self.first = {}, {}
-
-        def record(x3, u1, u2, precision="highest"):
-            key = (u1.shape[0], MODES.index(x3.shape[-2]), precision)
-            self.shapes[key] = self.shapes.get(key, 0) + 1
-            self.first.setdefault(key, (x3, u1, u2))
-            return self.real(x3, u1, u2, precision)
-
-        fm.fused_mttkrp = record
-        return self
-
-    def __exit__(self, *exc):
-        self.module.fused_mttkrp = self.real
 
 
 def mttkrp_mix(rec, x) -> list:
@@ -766,13 +884,20 @@ def jk_phase(x_np, kt5):
 
     shared = dict(tol=1e-6, max_iterations=100, precision="high", dimtree="off")
     runs = {}
+    # J1's MTTKRP launches and J2's SPD inverses are recorded in the runs
+    # themselves, replays included.
     with MttkrpRecorder() as j1_rec:
         _, runs["J1"] = jk_run("J1", lambda: jk_cp_cals(x_np, [kt5], jk_params()), fused("high"))
+    j1_rec.check_total("J1's MTTKRP mix", runs["J1"]["launches"]["fused_mttkrp_tc"])
     with SpdRecorder() as rec:
         _, runs["J2"] = jk_run("J2", lambda: jk_cp_cals(x_np, [kt5], jk_params(solve_method="pallas")),
                                unfused("high"))
+    rec.check_total("J2's SPD-inverse mix", runs["J2"]["launches"]["spd_inverse"])
     _, runs["J3"] = jk_run(
         "J3", lambda: jk_cp_batched_als(x_np, [kt5], AlsParams(**shared, solve_method="pallas")), unfused("high"))
+    # J4: the fast MTTKRP at "default"; the check's and the polish's at "high".
+    _, runs["J4"] = jk_run("J4", lambda: jk_cp_cals(x_np, [kt5], jk_params(**J4)),
+                           ("fused_mttkrp_tc", "normal_inverse", "epilogue_apply"), checked="fused_mttkrp_tc")
     return runs, rec, j1_rec
 
 
@@ -790,11 +915,11 @@ def replicate_diff(got, want, fiber: int) -> tuple[float, float]:
     return rec, lam
 
 
-def jk_cross_check(x_np, kt5) -> dict:
-    """J1 and J2 again at 10 forced iterations against the port's float64
-    CPU run of 10 fibers from the same model, both rescaled and
-    LSAP-adjusted: held to JK_CROSS_TOL."""
-    from cp_cals_tpu_torch import Ktensor, cp_cals, jk_cp_cals
+def jk_reference(x_np, kt5, params):
+    """The port's float64 CPU run of JK_FIBERS' replicates of ``kt5`` under
+    ``params``, rescaled and LSAP-adjusted as jk_cp_cals returns them, and
+    its engine report."""
+    from cp_cals_tpu_torch import Ktensor, cp_cals
     from cp_cals_tpu_torch.solvers.jackknife import (
         _rescale_replicate,
         jk_permutation_adjustment,
@@ -802,14 +927,27 @@ def jk_cross_check(x_np, kt5) -> dict:
     )
 
     ref = to_host_model(Ktensor(tuple(f.astype(np.float64) for f in kt5.factors), kt5.lam.astype(np.float64)))
-    fibers = [int(f) for f in np.linspace(0, MODES[0] - 1, 10).round()]
-    p64 = jk_params(force_max_iter=True, max_iterations=10, precision="highest", result_wire_dtype=None)
-    res64, _ = cp_cals(x_np.astype(np.float64), [ref] * len(fibers), p64, jk_fibers=fibers, device="cpu")
-    want = jk_permutation_adjustment(ref, [_rescale_replicate(k, f) for k, f in zip(res64, fibers)])
+    res64, rep64 = cp_cals(x_np.astype(np.float64), [ref] * len(JK_FIBERS), params, jk_fibers=JK_FIBERS,
+                           device="cpu")
+    return jk_permutation_adjustment(ref, [_rescale_replicate(k, f) for k, f in zip(res64, JK_FIBERS)]), rep64
+
+
+def jk_cross_check(x_np, kt5) -> dict:
+    """J1, J2 and J4 again at 10 forced iterations (J4 then polished)
+    against the port's float64 CPU run of 10 fibers from the same model
+    and settings, both rescaled and LSAP-adjusted: held to JK_CROSS_TOL."""
+    from cp_cals_tpu_torch import jk_cp_cals
+
+    def reference(**kw):
+        return jk_reference(x_np, kt5, jk_params(force_max_iter=True, max_iterations=10, precision="highest",
+                                                 result_wire_dtype=None, **kw))[0]
+
+    plain, polished = reference(), reference(polish_iters=J4["polish_iters"], polish_tol=J4["polish_tol"])
     out = {}
-    for name, solve in (("J1", "gj"), ("J2", "pallas")):
-        rep = jk_cp_cals(x_np, [kt5], jk_params(force_max_iter=True, max_iterations=10, solve_method=solve))
-        diffs = [replicate_diff(rep.results[0][f], w, f) for f, w in zip(fibers, want)]
+    for name, kw in (("J1", {}), ("J2", dict(solve_method="pallas")), ("J4", J4)):
+        want = polished if name == "J4" else plain
+        rep = jk_cp_cals(x_np, [kt5], jk_params(force_max_iter=True, max_iterations=10, **kw))
+        diffs = [replicate_diff(rep.results[0][f], w, f) for f, w in zip(JK_FIBERS, want)]
         rec, lam = max(d[0] for d in diffs), max(d[1] for d in diffs)
         print(f"cross-check {name} (10 forced iterations, 10 fibers) vs CPU float64: max relative "
               f"reconstruction diff {rec:.3e}, max relative |lam| diff {lam:.3e}", flush=True)
@@ -820,25 +958,61 @@ def jk_cross_check(x_np, kt5) -> dict:
     return out
 
 
+def j4_stop_check(x_np, kt5) -> dict:
+    """J4 as the bench runs it, its stops decided by the mixed-tier checks
+    and then polished to polish_tol, with the result wire off, against the
+    port's float64 CPU run of the same settings: held to J4_STOP_TOL. The
+    same run without its polish must fail the reconstruction limit."""
+    from cp_cals_tpu_torch import jk_cp_cals
+
+    params = jk_params(result_wire_dtype=None, **J4)
+    want, rep64 = jk_reference(x_np, kt5, params)
+    out = {}
+    for name, p in (("J4 stop", params), ("J4 stop, unpolished", dataclasses.replace(params, polish_iters=0))):
+        rep = jk_cp_cals(x_np, [kt5], p)
+        models = {m.id: m for m in rep.cals_report.models}
+        got = [models[f] for f in JK_FIBERS]
+        iters = [(m.iters, m64.iters) for m, m64 in zip(got, rep64.models)]
+        res = dict(
+            iters=iters, max_iter_diff=max(abs(a - b) for a, b in iters),
+            exact_stops=sum(a == b for a, b in iters),
+            max_fit_diff=max(abs(m.fit - m64.fit) for m, m64 in zip(got, rep64.models)),
+            max_rel_recon_diff=max(replicate_diff(rep.results[0][f], w, f)[0] for f, w in zip(JK_FIBERS, want)),
+        )
+        print(f"cross-check {name} (tol-driven, float32 results, 10 fibers) vs CPU float64: stops (card, CPU) "
+              f"{iters}, {res['exact_stops']} equal; max |fit diff| {res['max_fit_diff']:.3e}, max relative "
+              f"reconstruction diff {res['max_rel_recon_diff']:.3e}", flush=True)
+        out[name] = res
+    fit_tol, rec_tol = J4_STOP_TOL
+    res = out["J4 stop"]
+    if not (res["max_iter_diff"] <= J4["tol_check_interval"] and res["max_fit_diff"] <= fit_tol
+            and res["max_rel_recon_diff"] <= rec_tol):
+        raise AssertionError(f"J4's tol-driven cross-check against the CPU float64 run failed: {res}")
+    if out["J4 stop, unpolished"]["max_rel_recon_diff"] <= rec_tol:
+        raise AssertionError("J4's tol-driven cross-check: the run without its polish passes the limit")
+    return out
+
+
 def spd_phase(rec, dev) -> dict:
     """The SPD-inverse kernel against its plain version on the card: on the
-    normal matrices J2 inverted at SNAPSHOTS, and on random SPD batches at
-    R = 4, 20, 32, 33, 64 (both paths of csrc/gj_elim.cuh and their
-    boundary) with condition numbers up to about 1e4 and dead identity
-    slots. Times at every (B, R) of J2's launch mix."""
+    normal matrices J2 inverted (every eager call's, the warm-up iteration
+    before each capture, and each captured call's last replay), and on
+    random SPD batches at R = 4, 20, 32, 33, 64 (both paths of
+    csrc/gj_elim.cuh and their boundary) with condition numbers up to about
+    1e4 and dead identity slots. Times at every (B, R) of J2's launch mix."""
     from cp_cals_tpu_torch.ops import spd_inverse as si
 
     gen = np.random.default_rng(13)
-    cases = [(f"J2 iteration {it} mode {mode}", h) for it, mode, h in rec.snaps]
+    cases = [(f"J2 {label}", h) for label, h in rec.snaps]
+    kinds = collections.Counter(label.startswith("last") for label, _ in rec.snaps)
+    if kinds[False] < 3 or kinds[True] < 3 or len(rec.snaps) % 3:
+        raise AssertionError(f"spd_inverse: J2 inputs {[label for label, _ in rec.snaps]}")
     for r in (4, 20, 32, 33, 64):
         q, _ = np.linalg.qr(gen.normal(size=(320, r, r)))
         top = np.geomspace(1.0, 1e4, 320)[:, None]
         h = np.einsum("bij,bj,bkj->bik", q, top ** np.linspace(0.0, 1.0, r)[None, :], q)
         h[::7] = np.eye(r)  # dead slots
         cases.append((f"random R={r}", torch.from_numpy(h.astype(np.float32)).to(dev)))
-    its = sorted({it for it, _, _ in rec.snaps})
-    if its[0] != 1 or len(rec.snaps) != 3 * len(its):
-        raise AssertionError(f"spd_inverse: J2 snapshots at iterations {its}, {len(rec.snaps)} inputs")
     checks, worst = [], 0.0
     for label, h in cases:
         got, want = si.spd_inverse(h), si.spd_inverse_plain(h)
@@ -856,13 +1030,13 @@ def spd_phase(rec, dev) -> dict:
         worst = max(worst, reading["max_abs_err"])
     mix = []
     for (b, r), n in sorted(rec.shapes.items()):
-        h = rec.first[(b, r)]
+        (h,) = rec.first[(b, r)]
         flops = b * r * (1 + 2 * r + 4 * r * (r - 1))
         mix.append(dict(B=b, R=r, launches=n, path=inverse_path(b, r), **bound(flops, PEAK_FP32, 2 * 4 * b * r * r),
                         ms=cuda_ms(lambda: si.spd_inverse(h)),
                         graph_ms=graph_ms(lambda: si.spd_inverse(h)),
                         plain_ms=cuda_ms(lambda: si.spd_inverse_plain(h)),
-                        library_ms=cuda_ms(lambda: torch.linalg.inv(h))))
+                        library_ms=cuda_ms(lambda: torch.linalg.inv(h)), library_graph_ms=None))
     for c in checks:
         print(f"spd_inverse {c['case']}: B={c['B']} R={c['R']} ({c['path']} path) cond <= {c['cond_max']:.3g}, "
               f"err/(cond*max) {c['ratio']:.3g}", flush=True)
@@ -901,10 +1075,18 @@ def probe_phase(dev) -> dict:
                            ms=cuda_ms(lambda: probe.probe_copy(x)),
                            graph_ms=graph_ms(lambda: probe.probe_copy(x)),
                            plain_ms=cuda_ms(lambda: probe.probe_copy_plain(x)),
-                           library_ms=cuda_ms(lambda: torch.mul(x, 0.999))))
+                           library_ms=cuda_ms(lambda: torch.mul(x, 0.999)),
+                           library_graph_ms=graph_ms(lambda: torch.mul(x, 0.999))))
         print(f"probe_copy {shape}: exact; {shapes[-1]['ms']:.4f}ms (graph {shapes[-1]['graph_ms']:.4f}), "
               f"plain {shapes[-1]['plain_ms']:.4f}ms, torch.mul {shapes[-1]['library_ms']:.4f}ms", flush=True)
     return dict(result=res, launches=counts["probe_copy"], shapes=shapes)
+
+
+def mean_or_none(rows, bucket_iters, key, field, tier=None):
+    """``weighted``, or None where a row has no reading."""
+    if any((row[key][tier] if tier else row[key])[field] is None for row in rows):
+        return None
+    return weighted(rows, bucket_iters, key, field, tier)
 
 
 def weighted(rows, bucket_iters, key, field, tier=None):
@@ -942,13 +1124,18 @@ def main() -> int:
     engine_run(x_np, queue[::80], {}, "warm-up", check_fit=False)
     res_a, rep_a, run_a = engine_run(x_np, queue, {}, "highest")
     res_b, rep_b, run_b = engine_run(x_np, queue, BENCH_TIERS, "bench-tiers")
+    res_i, rep_i, run_i = engine_run(x_np, queue, BENCH_TIERS, "bench-tiers iter", sync_mode="iter")
+    assert_bit_identical("bench-tiers graph loop vs sync_mode='iter'", (res_b, rep_b), (res_i, rep_i))
+    res_h, rep_h, run_h = engine_run(x_np, queue, BENCH_TIERS, "headline", **HEADLINE)
     check = cross_check(x_np, queue, {"highest": (res_a, rep_a), "bench-tiers": (res_b, rep_b)})
+    check.update(cross_check(x_np, queue, {"headline": (res_h, rep_h)}, **HEADLINE))
 
     kt5, fit5 = fit_jk_model(x_np)
     jk_runs, rec, j1_rec = jk_phase(x_np, kt5)
     j1_mix = mttkrp_mix(j1_rec, x)
     spd = spd_phase(rec, dev)
     jk_check = jk_cross_check(x_np, kt5)
+    jk_check.update(j4_stop_check(x_np, kt5))
     probe = probe_phase(dev)
 
     # Each kernel at the launch mix of the engine run that drives it: the
@@ -977,11 +1164,11 @@ def main() -> int:
             ms=mean("ms"), graph_ms=mean("graph_ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
             bound_by="operations" if mean("bound_ops_ms") >= mean("bound_bytes_ms") else "bytes",
             library_ms=None if key == "apply" else mean("library_ms"),
+            library_graph_ms=None if key == "apply" else mean_or_none(rows, w, key, "library_graph_ms", t),
         )
         if key == "mttkrp":
             entry["tier"] = t
         if name == "fused_mttkrp_fp32":
-            entry["library_graph_ms"] = mean("library_graph_ms")
             print(f"fused_mttkrp_fp32 at the highest engine's mix: {entry['ms']:.4f}ms eager, "
                   f"{entry['graph_ms']:.4f}ms graph-replayed; torch twostep {entry['library_ms']:.4f}ms eager, "
                   f"{entry['library_graph_ms']:.4f}ms graph-replayed; bound {entry['bound_ms']:.4f}ms", flush=True)
@@ -989,7 +1176,8 @@ def main() -> int:
             entry["max_err_rel"] = worst["apply_err"]
         if name == "fused_mttkrp_tc":
             entry["max_abs_err"] = max(err, max(m["max_abs_err"] for m in j1_mix))
-            entry["by_tier"] = {tt: {f: mean(f, tt) for f in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")}
+            entry["by_tier"] = {tt: {f: mean_or_none(rows, w, key, f, tt) for f in
+                                     ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")}
                                 for tt in ("default", "high")}
             n = sum(m["launches"] for m in j1_mix)
             entry["j1_mix"] = dict(launches=n, **{
@@ -1013,12 +1201,15 @@ def main() -> int:
             bound_ms=mean("bound_ms"),
             bound_by="operations" if mean("bound_ops_ms") >= mean("bound_bytes_ms") else "bytes",
             library_ms=mean("library_ms"),
+            library_graph_ms=None if any(m["library_graph_ms"] is None for m in mix) else mean("library_graph_ms"),
         ))
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                       build_s=build_s, shapes=rows, engine={"highest": run_a, "bench_tiers": run_b},
+                       build_s=build_s, shapes=rows,
+                       engine={"highest": run_a, "bench_tiers": run_b, "bench_tiers_iter": run_i,
+                               "headline": run_h},
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
                        mttkrp_j1_mix=j1_mix,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)

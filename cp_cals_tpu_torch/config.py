@@ -2,12 +2,13 @@
 
 Field for field the same names and defaults as ``cp_cals_tpu/config.py``,
 so a configuration carries over between the two packages unchanged
-(``convert.params_from_dict``). This slice of the port runs the main path:
-unconstrained updates, no line search, per-iteration stopping, the fused
-MTTKRP, the fused epilogue, and the unfused epilogue with any of the three
-solves (``"gj"``, ``"chol"``, ``"pallas"``). Other values of features not yet ported
-raise ``NotImplementedError`` naming their ROADMAP item
-(``check_supported``).
+(``convert.params_from_dict``). The port runs unconstrained updates without
+line search, per-iteration and mixed-tier stopping (``tol_check_interval``),
+polish sweeps (``polish_iters``, ``polish_tol``), both engine loops
+(``sync_mode``), the fused MTTKRP, the fused epilogue, and the unfused
+epilogue with any of the three solves (``"gj"``, ``"chol"``, ``"pallas"``).
+Other values of features not yet ported raise ``NotImplementedError``
+naming their ROADMAP item (``check_supported``).
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ class CalsParams:
 
     ``buffer_size`` is the global padded-column budget split across rank
     buckets; ``bucket_threads`` is accepted and not used yet (buckets run
-    one after another in this slice).
+    one after another, ROADMAP queue 1 item 1).
     """
 
     max_iterations: int = 200
@@ -115,26 +116,22 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 def check_supported(params: AlsParams | CalsParams) -> None:
     """Raise for every setting this slice of the port does not run."""
     if params.update_method != UpdateMethod.UNCONSTRAINED:
-        raise not_ported("update_method=NNLS", "queue 1 item 5")
+        raise not_ported("update_method=NNLS", "queue 1 item 6")
     if params.line_search:
-        raise not_ported("line_search", "queue 1 item 5")
-    if params.tol_check_interval > 0:
-        raise not_ported("tol_check_interval > 0", "queue 1 item 5")
+        raise not_ported("line_search", "queue 1 item 6")
     if params.debug:
-        raise not_ported("debug (monotonicity hook)", "queue 1 item 5")
-    if getattr(params, "polish_iters", 0) > 0:
-        raise not_ported("polish_iters > 0", "queue 1 item 5")
+        raise not_ported("debug (monotonicity hook)", "queue 1 item 6")
     if params.mttkrp_method in (MttkrpMethod.KRP_GEMM, MttkrpMethod.TWOSTEP):
         raise not_ported(
-            f"mttkrp_method={params.mttkrp_method.value}", "queue 1 item 2"
+            f"mttkrp_method={params.mttkrp_method.value}", "queue 1 item 5"
         )
     if params.dimtree not in ("auto", "off"):
         if params.dimtree == "on":
-            raise not_ported("dimtree='on'", "queue 1 item 2")
+            raise not_ported("dimtree='on'", "queue 1 item 5")
         raise ValueError(f"dimtree={params.dimtree!r}")
     if params.mode_layouts not in ("auto", "materialized"):
         if params.mode_layouts == "recompute":
-            raise not_ported("mode_layouts='recompute'", "queue 1 item 2")
+            raise not_ported("mode_layouts='recompute'", "queue 1 item 5")
         raise ValueError(f"mode_layouts={params.mode_layouts!r}")
     if params.solve_method not in ("gj", "chol", "pallas"):
         raise ValueError(f"solve_method={params.solve_method!r}")
@@ -144,10 +141,8 @@ def check_supported(params: AlsParams | CalsParams) -> None:
         if p not in PRECISIONS:
             raise ValueError(f"precision {p!r}: expected one of {PRECISIONS}")
     if isinstance(params, CalsParams):
-        if params.sync_mode != "evict":
-            raise not_ported("sync_mode='iter'", "queue 1 item 4")
-        if params.always_evict_first:
-            raise not_ported("always_evict_first", "queue 1 item 4")
+        if params.sync_mode not in ("evict", "iter"):
+            raise ValueError(f"sync_mode={params.sync_mode!r}")
         if params.result_wire_dtype not in (None, "float16", "bfloat16"):
             raise ValueError(
                 f"result_wire_dtype={params.result_wire_dtype!r}"
@@ -177,5 +172,5 @@ def resolve_mttkrp_method(params: AlsParams | CalsParams, ndim: int) -> str:
     """``AUTO`` resolves to the fused kernel on 3-D tensors until the CUDA
     lookup table lands (ROADMAP queue 1 item 9)."""
     if ndim != 3:
-        raise not_ported(f"a {ndim}-D tensor (twostep MTTKRP)", "queue 1 item 2")
+        raise not_ported(f"a {ndim}-D tensor (twostep MTTKRP)", "queue 1 item 5")
     return "pallas"

@@ -16,7 +16,7 @@ import torch
 from .config import AlsParams, CalsParams
 from .device import resolve_device
 from .ktensor import Ktensor
-from .solvers.state import SolverState
+from .solvers.state import HiState, SolverState
 
 
 def _tensor(a, dev, dtype=None) -> torch.Tensor:
@@ -34,14 +34,18 @@ def ktensor_from_numpy(kt, device=None) -> Ktensor:
 
 def state_from_numpy(state, device=None) -> SolverState:
     """A port ``SolverState`` from a JAX ``SolverState`` whose leaves were
-    pulled to NumPy, leaf by leaf. NNLS, line-search and mixed-tier carries
-    must be empty (not ported yet, ROADMAP queue 1 item 5)."""
-    if state.active or state.ls or state.hi:
+    pulled to NumPy, leaf by leaf. NNLS and line-search carries must be
+    empty (not ported yet, ROADMAP queue 1 item 6)."""
+    if state.active or state.ls:
         raise NotImplementedError(
-            "NNLS / line-search / mixed-tier state is not ported yet "
-            "(ROADMAP queue 1 item 5)"
+            "NNLS / line-search state is not ported yet (ROADMAP queue 1 item 6)"
         )
     dev = resolve_device(device)
+    hi = ()
+    if state.hi:
+        h = state.hi
+        hi = HiState(_tensor(h.fit_prev, dev), _tensor(h.iters_prev, dev, torch.int32),
+                     _tensor(h.rate_prev, dev), _tensor(h.gap_prev, dev, torch.int32))
     return SolverState(
         kt=ktensor_from_numpy(state.kt, dev),
         grams=tuple(_tensor(g, dev).contiguous() for g in state.grams),
@@ -54,6 +58,7 @@ def state_from_numpy(state, device=None) -> SolverState:
         alive=_tensor(state.alive, dev, torch.bool),
         jk_fiber=_tensor(state.jk_fiber, dev, torch.int32),
         x_norm_model=_tensor(state.x_norm_model, dev),
+        hi=hi,
     )
 
 

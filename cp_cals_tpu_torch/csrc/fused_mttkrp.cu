@@ -177,7 +177,9 @@ template <int TM, int RM, int RN, int NG>
 __global__ void __launch_bounds__(Tile<TM, RM, RN, NG>::NT, 1)
 mttkrp_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ u1,
               const float* __restrict__ u2, float* __restrict__ dst, int J, int I, int K, int R,
-              int C, int kspan, int jsplits, int jchunk, int to_bir, int u2_vec) {
+              int C, int kspan, int jsplits, int jchunk, int to_bir, int u2_vec,
+              const int* __restrict__ pred) {
+  if (pred != nullptr && *pred == 0) return;  // a predicated launch that is off: no work, no writes
   using T = Tile<TM, RM, RN, NG>;
   extern __shared__ __align__(128) float smem[];
   float* us = smem;                           // [kspan][TN]   U2 column slice
@@ -431,7 +433,7 @@ int x_map(CUtensorMap* map, const float* x, int J, int K, int Ip, int tm) {
 template <int TM, int RM, int RN, int NG>
 int launch(const float* x, const float* u1, const float* u2, float* dst, int J, int I, int Ip,
            int K, int R, int C, int kspan, int splits, int jsplits, int jchunk, int to_bir,
-           cudaStream_t s) {
+           const int* pred, cudaStream_t s) {
   CUtensorMap map = {};
   if (J > 0 && K > 0) {
     const int code = x_map(&map, x, J, K, Ip, TM);
@@ -445,7 +447,7 @@ int launch(const float* x, const float* u1, const float* u2, float* dst, int J, 
   dim3 grid((C + TN - 1) / TN, (I + TM - 1) / TM, splits);
   const int u2_vec = R % 4 == 0 && reinterpret_cast<uintptr_t>(u2) % 16 == 0;
   kernel<<<grid, Tile<TM, RM, RN, NG>::NT, smem, s>>>(map, u1, u2, dst, J, I, K, R, C, kspan,
-                                                      jsplits, jchunk, to_bir, u2_vec);
+                                                      jsplits, jchunk, to_bir, u2_vec, pred);
   return 0;
 }
 
@@ -487,13 +489,14 @@ extern "C" long long fused_mttkrp_fp32_smem(int id, int kspan) {
 // 16-byte aligned; u1 [B, J, R], u2 [B, K, R] -> out [B, I, R], fp32,
 // contiguous. tile is the tile shape (FP32_TILES); each block takes kspan k
 // (a multiple of 16) of ksplits ranges and jchunk j of jsplits ranges. More
-// than one split in all needs work [ksplits * jsplits, I, B*R]. Returns
-// cudaGetLastError() after the launches, or the error that kept them from
-// launching.
+// than one split in all needs work [ksplits * jsplits, I, B*R]. pred is
+// null, or a device int: where it holds 0 every block of both launches
+// returns at once and nothing is written. Returns cudaGetLastError() after
+// the launches, or the error that kept them from launching.
 extern "C" int fused_mttkrp_launch(const float* x, const float* u1, const float* u2, float* out,
                                    float* work, int J, int I, int Ip, int K, int B, int R,
                                    int tile, int kspan, int ksplits, int jsplits, int jchunk,
-                                   void* stream) {
+                                   const int* pred, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int C = B * R;
   const int splits = ksplits * jsplits;
@@ -503,10 +506,10 @@ extern "C" int fused_mttkrp_launch(const float* x, const float* u1, const float*
 #define LAUNCH_CASE(id, tm, rm, rn, ng)                                                         \
   if (tile == id)                                                                            \
     code = launch<tm, rm, rn, ng>(x, u1, u2, dst, J, I, Ip, K, R, C, kspan, splits, jsplits, \
-                                  jchunk, to_bir, s);
+                                  jchunk, to_bir, pred, s);
   FP32_TILES(LAUNCH_CASE)
 #undef LAUNCH_CASE
   if (code != 0) return code;
-  if (!to_bir) launch_reduce_splits(work, out, splits, I, R, C, s);
+  if (!to_bir) launch_reduce_splits(work, out, splits, I, R, C, pred, s);
   return (int)cudaGetLastError();
 }

@@ -248,7 +248,9 @@ template <int NC, bool HIGH>
 __global__ void __launch_bounds__(NT, 1)
 mttkrp_tc_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ u1,
                  const float* __restrict__ u2, float* __restrict__ dst, int J, int I, int K,
-                 int Kp, int R, int C, int kspan, int ksplits, int jchunk, int to_bir) {
+                 int Kp, int R, int C, int kspan, int ksplits, int jchunk, int to_bir,
+                 const int* __restrict__ pred) {
+  if (pred != nullptr && *pred == 0) return;  // a predicated launch that is off: no work, no writes
   constexpr int P = HIGH ? 2 : 1;
   constexpr int NW = NC / WGS;   // columns of one warpgroup
   constexpr int NREG = NW / 2;   // accumulator floats per thread
@@ -472,22 +474,23 @@ int x_map(CUtensorMap* map, const void* x, int planes_j, int I, int Kp) {
 template <int NC, bool HIGH>
 int launch(const CUtensorMap& map, const float* u1, const float* u2, float* dst, int J, int I,
            int K, int Kp, int R, int C, int kspan, int ksplits, int splits, int jchunk, int to_bir,
-           cudaStream_t s) {
+           const int* pred, cudaStream_t s) {
   auto kernel = mttkrp_tc_kernel<NC, HIGH>;
   const size_t smem = smem_bytes(NC, HIGH, kspan);
   static size_t smem_set[MAX_DEVICES] = {};  // per device: the largest size allowed so far
   const int e = allow_smem((const void*)kernel, smem, smem_set);
   if (e != 0) return e;
   dim3 grid((C + NC - 1) / NC, (I + TM - 1) / TM, splits);
-  kernel<<<grid, NT, smem, s>>>(map, u1, u2, dst, J, I, K, Kp, R, C, kspan, ksplits, jchunk, to_bir);
+  kernel<<<grid, NT, smem, s>>>(map, u1, u2, dst, J, I, K, Kp, R, C, kspan, ksplits, jchunk, to_bir,
+                                pred);
   return 0;
 }
 
-#define LAUNCH_ARGS map, u1, u2, dst, J, I, K, Kp, R, C, kspan, ksplits, splits, jchunk, to_bir, s
+#define LAUNCH_ARGS map, u1, u2, dst, J, I, K, Kp, R, C, kspan, ksplits, splits, jchunk, to_bir, pred, s
 template <bool HIGH>
 int launch_nc(int nc, const CUtensorMap& map, const float* u1, const float* u2, float* dst,
               int J, int I, int K, int Kp, int R, int C, int kspan, int ksplits, int splits,
-              int jchunk, int to_bir, cudaStream_t s) {
+              int jchunk, int to_bir, const int* pred, cudaStream_t s) {
   switch (nc) {
     case 128: return launch<128, HIGH>(LAUNCH_ARGS);
     case 64: return launch<64, HIGH>(LAUNCH_ARGS);
@@ -510,12 +513,14 @@ extern "C" long long fused_mttkrp_tc_smem(int nc, int high, int kspan) {
 // aligned. nc is the column tile (128, 64, 32 or 16); each block takes
 // kspan k (a multiple of 64) of ksplits ranges, and jchunk j of jsplits
 // ranges. More than one split in all needs work [ksplits * jsplits, I, B*R].
-// Returns cudaGetLastError() after the launches, or the error that kept them
-// from launching.
+// pred is null, or a device int: where it holds 0 every block of both
+// launches returns at once and nothing is written. Returns
+// cudaGetLastError() after the launches, or the error that kept them from
+// launching.
 extern "C" int fused_mttkrp_tc_launch(const void* x, const float* u1, const float* u2,
                                       float* out, float* work, int J, int I, int K, int Kp,
                                       int B, int R, int high, int nc, int kspan, int ksplits,
-                                      int jsplits, int jchunk, void* stream) {
+                                      int jsplits, int jchunk, const int* pred, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int C = B * R;
   const int splits = ksplits * jsplits;
@@ -528,6 +533,6 @@ extern "C" int fused_mttkrp_tc_launch(const void* x, const float* u1, const floa
   }
   const int code = high ? launch_nc<true>(nc, LAUNCH_ARGS) : launch_nc<false>(nc, LAUNCH_ARGS);
   if (code != 0) return code;
-  if (!to_bir) launch_reduce_splits(work, out, splits, I, R, C, s);
+  if (!to_bir) launch_reduce_splits(work, out, splits, I, R, C, pred, s);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,9 @@ Each wrapper runs the plain version for tensors on the CPU and its kernel
 for tensors on the card; any other case raises. The kernels take float32,
 R up to ``MAX_R`` and 3-D tensors (two other-mode gramians per normal
 matrix); ``apply`` also needs H^-1 and G (then U) to fit one block's shared
-memory.
+memory. ``supports_fused_epilogue`` says which modes they take, so that the
+iteration sends every other mode to the unfused path, mode by mode, as the
+JAX iteration does (``cp_cals_tpu/solvers/iteration.py:288-290``).
 """
 
 from __future__ import annotations
@@ -149,7 +151,7 @@ def normal_inverse(grams, rank_mask: torch.Tensor, skip: int) -> torch.Tensor:
     if len(others) != 2:
         raise ValueError(
             f"normal_inverse: {len(others)} other-mode gramians; the kernel takes the "
-            "two of a 3-D tensor (N-D: ROADMAP queue 1 item 2)"
+            "two of a 3-D tensor (N-D: ROADMAP queue 1 item 5)"
         )
     g0, g1 = others
     b, r, r2 = shape = g0.shape
@@ -185,6 +187,30 @@ def _smem_optin(index: int) -> int:
     return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def supports_fused_epilogue(b: int, i_n: int, r: int, dtype, n_modes: int, device) -> bool:
+    """Whether the fused kernels take one mode of the iteration: [B, I_n, R]
+    factors of ``dtype`` in an ``n_modes``-D solve on ``device`` (the port's
+    counterpart of ``cp_cals_tpu/ops/pallas_epilogue.py:343``). True on the
+    CPU, where the plain versions take every shape. On the card: float32,
+    R <= MAX_R, a 3-D tensor, and the apply's shared memory (H^-1, G and
+    four R-vectors) within the card's opt-in limit per block."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return True
+    if dtype != torch.float32 or r > MAX_R or n_modes != 3:
+        return False
+    return _apply_fits(_device_index(dev), i_n, r)
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_fits(index: int, i_n: int, r: int) -> bool:
+    return _lib().apply_smem_bytes(i_n, r) <= _smem_optin(index)
+
+
 def epilogue_apply(
     g: torch.Tensor, hinv: torch.Tensor, iters: torch.Tensor,
     jk_fiber: torch.Tensor, zero_jk: bool, err_inputs=None,
@@ -202,7 +228,7 @@ def epilogue_apply(
         raise ValueError(f"epilogue_apply: unsupported device {dev}")
     b, i_n, r = g.shape
     _check_rank("epilogue_apply", r)
-    smem_max = _smem_optin(dev.index if dev.index is not None else torch.cuda.current_device())
+    smem_max = _smem_optin(_device_index(dev))
     smem = _lib().apply_smem_bytes(i_n, r)
     if smem > smem_max:
         raise ValueError(

@@ -34,6 +34,14 @@ and its VMEM gate are TPU artifacts and have no counterpart here.
 
 Each kernel's wrapper runs the plain version for a tensor on the CPU and its
 kernel for one on the card; any other case raises.
+
+Both kernels take an optional predicate: a device int32 tensor of one
+element. Where it holds 0, every block returns at once and the output is
+left unwritten, so a launch the iteration may not need (the mixed-tier
+check's full-precision MTTKRP, ``solvers/iteration.py``) costs one empty
+launch instead of a host sync to decide it. Such launches count on the
+wrapper's ``predicated`` counter, apart from ``launches``. On the CPU the
+plain version ignores the predicate and always computes.
 """
 
 from __future__ import annotations
@@ -237,10 +245,22 @@ def _split_work(dev, splits: int, i: int, c: int):
     return torch.empty((splits, i, c), dtype=torch.float32, device=dev) if splits > 1 else None
 
 
+def _check_pred(name, dev, pred):
+    if pred is not None and (pred.dtype != torch.int32 or pred.numel() != 1 or pred.device != dev):
+        raise ValueError(f"{name}: pred must be a one-element int32 tensor on {dev}")
+
+
+def _count(fn, pred) -> None:
+    if pred is None:
+        fn.launches += 1
+    else:
+        fn.predicated += 1
+
+
 def _lib_fp32():
     lib = _build.load("fused_mttkrp.cu")
     if lib.fused_mttkrp_launch.argtypes is None:
-        lib.fused_mttkrp_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.fused_mttkrp_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2
         lib.fused_mttkrp_launch.restype = ctypes.c_int
         lib.fused_mttkrp_fp32_tile.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.fused_mttkrp_fp32_tile.restype = ctypes.c_int
@@ -253,10 +273,12 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def fused_mttkrp_fp32(x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+def fused_mttkrp_fp32(
+    x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, pred: torch.Tensor | None = None
+) -> torch.Tensor:
     """The "highest" tier: x3 the held float32 [J, K, I] layout (rows of
     stride Ip, a multiple of 4), u1 [B, J, R], u2 [B, K, R] -> G [B, I, R],
-    on the CUDA cores."""
+    on the CUDA cores; ``pred`` as in the module docstring."""
     dev = x3.device
     if dev.type == "cpu":
         return fused_mttkrp_plain(x3, u1, u2, "highest")
@@ -274,6 +296,7 @@ def fused_mttkrp_fp32(x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> t
             f"shape {tuple(x3.shape)} strides {x3.stride()}"
         )
     _check_factors("fused_mttkrp", dev, u1, u2, j)
+    _check_pred("fused_mttkrp", dev, pred)
     b, _, r = u1.shape
     if u2.shape[1] != k:
         raise ValueError(f"fused_mttkrp: x3 {tuple(x3.shape)} and u2 {tuple(u2.shape)} do not agree")
@@ -285,20 +308,21 @@ def fused_mttkrp_fp32(x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> t
     code = _lib_fp32().fused_mttkrp_launch(
         x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),
         work.data_ptr() if work is not None else None,
-        j, i, ip, k, b, r, tile, kspan, ksplits, jsplits, jchunk, _build.stream_ptr(dev),
+        j, i, ip, k, b, r, tile, kspan, ksplits, jsplits, jchunk,
+        pred.data_ptr() if pred is not None else None, _build.stream_ptr(dev),
     )
     _build.check(code, "fused_mttkrp")
-    fused_mttkrp_fp32.launches += 1
+    _count(fused_mttkrp_fp32, pred)
     return out
 
 
-fused_mttkrp_fp32.launches = 0
+fused_mttkrp_fp32.launches = fused_mttkrp_fp32.predicated = 0
 
 
 def _lib_tc():
     lib = _build.load("fused_mttkrp_tc.cu")
     if lib.fused_mttkrp_tc_launch.argtypes is None:
-        lib.fused_mttkrp_tc_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        lib.fused_mttkrp_tc_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2
         lib.fused_mttkrp_tc_launch.restype = ctypes.c_int
         lib.fused_mttkrp_tc_smem.argtypes = [ctypes.c_int] * 3
         lib.fused_mttkrp_tc_smem.restype = ctypes.c_longlong
@@ -336,11 +360,12 @@ def tc_plan(index: int, j: int, i: int, kp: int, c: int, planes: int) -> tuple[i
 
 
 def fused_mttkrp_tc(
-    x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, precision: str
+    x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, precision: str,
+    pred: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The bf16 tiers: x3 the held layout (bf16 [J, I, Kp] at "default",
     [2, J, I, Kp] at "high"), u1 [B, J, R], u2 [B, K, R] -> G [B, I, R], on
-    the tensor cores."""
+    the tensor cores; ``pred`` as in the module docstring."""
     dev = x3.device
     if dev.type == "cpu":
         return fused_mttkrp_plain(x3, u1, u2, precision)
@@ -361,6 +386,7 @@ def fused_mttkrp_tc(
             f"{padded_k(k)}; got {x3.dtype} {tuple(x3.shape)}"
         )
     _check_factors("fused_mttkrp", dev, u1, u2, j)
+    _check_pred("fused_mttkrp_tc", dev, pred)
     i, kp = x3.shape[-2], x3.shape[-1]
     out = torch.empty((b, i, r), dtype=torch.float32, device=dev)
     if out.numel() == 0:
@@ -370,34 +396,36 @@ def fused_mttkrp_tc(
     code = _lib_tc().fused_mttkrp_tc_launch(
         x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),
         work.data_ptr() if work is not None else None,
-        j, i, k, kp, b, r, planes - 1, nc, kspan, ksplits, jsplits, jchunk, _build.stream_ptr(dev),
+        j, i, k, kp, b, r, planes - 1, nc, kspan, ksplits, jsplits, jchunk,
+        pred.data_ptr() if pred is not None else None, _build.stream_ptr(dev),
     )
     _build.check(code, "fused_mttkrp_tc")
-    fused_mttkrp_tc.launches += 1
+    _count(fused_mttkrp_tc, pred)
     return out
 
 
-fused_mttkrp_tc.launches = 0
+fused_mttkrp_tc.launches = fused_mttkrp_tc.predicated = 0
 
 
 def fused_mttkrp(
     x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,
-    precision: str = "highest",
+    precision: str = "highest", pred: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """x3 the tier's held layout (``prepare_mode_tensor``), u1 [B, J, R],
     u2 [B, K, R] -> G [B, I, R], through the tier's kernel."""
     if precision == "highest":
-        return fused_mttkrp_fp32(x3, u1, u2)
-    return fused_mttkrp_tc(x3, u1, u2, precision)
+        return fused_mttkrp_fp32(x3, u1, u2, pred)
+    return fused_mttkrp_tc(x3, u1, u2, precision, pred)
 
 
 def mttkrp_batched_fused(
     x: torch.Tensor, factors, mode: int,
     prepared: torch.Tensor | None = None, precision: str = "highest",
+    pred: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Batched fused MTTKRP. factors: per-mode [B, I_m, R]; returns
     [B, I_mode, R]. ``prepared`` is ``prepare_mode_tensor(x, mode,
     precision)``."""
     small, big = split_others(tuple(x.shape), mode)
     x3 = prepared if prepared is not None else prepare_mode_tensor(x, mode, precision)
-    return fused_mttkrp(x3, factors[small], factors[big], precision)
+    return fused_mttkrp(x3, factors[small], factors[big], precision, pred)

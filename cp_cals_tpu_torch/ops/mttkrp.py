@@ -3,7 +3,7 @@
 
 In this slice the fused kernel (method ``"pallas"``, kept under the JAX
 package's name) is the only method; ``krp_gemm`` and ``twostep`` raise
-``NotImplementedError`` (ROADMAP queue 1 item 2).
+``NotImplementedError`` (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -19,12 +19,12 @@ from .fused_mttkrp import mttkrp_batched_fused, prepare_mode_tensor
 def _resolve(method: str, x_ndim: int) -> str:
     if method not in ("pallas", "auto"):
         raise NotImplementedError(
-            f"mttkrp method {method!r} is not ported yet (ROADMAP queue 1 item 2)"
+            f"mttkrp method {method!r} is not ported yet (ROADMAP queue 1 item 5)"
         )
     if x_ndim != 3:
         raise NotImplementedError(
             f"the fused MTTKRP is 3-D; a {x_ndim}-D tensor needs the twostep "
-            "(ROADMAP queue 1 item 2)"
+            "(ROADMAP queue 1 item 5)"
         )
     return "pallas"
 
@@ -43,9 +43,11 @@ def prepare_batched(
 def mttkrp_batched(
     x: torch.Tensor, factors, mode: int, method: str = "pallas",
     precision: str = "highest", prepared: torch.Tensor | None = None,
+    pred: torch.Tensor | None = None,
 ) -> torch.Tensor:
+    """``pred``: the kernels' launch predicate (``ops/fused_mttkrp.py``)."""
     _resolve(method, x.ndim)
-    return mttkrp_batched_fused(x, factors, mode, prepared, precision)
+    return mttkrp_batched_fused(x, factors, mode, prepared, precision, pred)
 
 
 def mttkrp_flops(modes: Sequence[int], rank: int, mode: int, batch: int = 1) -> int:

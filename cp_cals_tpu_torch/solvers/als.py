@@ -7,8 +7,10 @@ trajectory is the one ``cp_als`` would give it. ``cp_als`` runs one model
 as a batch of one through the same batched iteration, so on the card it
 goes through the kernels (the JAX package uses its unbatched iteration
 there). Both loop on the host with one small fetch per iteration (the JAX
-package runs a device ``while_loop``), take 3-D tensors only until the
-N-D MTTKRPs land (ROADMAP queue 1 item 2), and return host NumPy Ktensors,
+package runs a device ``while_loop``; a captured ALS loop is ROADMAP queue
+1 item 3), stop per iteration or by the mixed-tier check
+(``tol_check_interval``), take 3-D tensors only until the
+N-D MTTKRPs land (ROADMAP queue 1 item 5), and return host NumPy Ktensors,
 fetched once at the end.
 """
 
@@ -48,7 +50,7 @@ def _run_batched(x, kt_b: Ktensor, params: AlsParams, dev, jk_fiber=None, x_norm
     x = torch.as_tensor(x).to(device=dev, dtype=dt).contiguous()
     if x.ndim != 3:
         raise NotImplementedError(
-            f"ALS on a {x.ndim}-D tensor is not ported yet (ROADMAP queue 1 item 2)"
+            f"ALS on a {x.ndim}-D tensor is not ported yet (ROADMAP queue 1 item 5)"
         )
     shapes = tuple(int(f.shape[-2]) for f in kt_b.factors)
     if shapes != tuple(x.shape):
@@ -59,7 +61,8 @@ def _run_batched(x, kt_b: Ktensor, params: AlsParams, dev, jk_fiber=None, x_norm
         torch.as_tensor(_to_numpy(kt_b.lam), device=dev, dtype=dt),
     )
     has_jk = jk_fiber is not None and int(jk_fiber) >= 0
-    state = init_state(kt, x_norm, jk_fiber=jk_fiber, x_norm_model=x_norm_model)
+    state = init_state(kt, x_norm, jk_fiber=jk_fiber, x_norm_model=x_norm_model,
+                       mixed_tol=params.tol_check_interval > 0)
     iteration = make_iteration(params, batched=True, has_jk=has_jk)
     prepared = iteration.prepare(x)
     while not bool(state.converged.all()):

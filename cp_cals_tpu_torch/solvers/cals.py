@@ -6,15 +6,22 @@ Models are padded to a rank bucket and packed into batched slots
 ``[B, I_n, R]``; one global padded-column budget (``buffer_size``) is split
 across buckets (``allocate_bucket_batches``). Each bucket runs lock-step
 ALS iterations until at least one live model converges, then the host
-evicts converged models (one packed gather of their true-rank columns),
-refills the vacated slots from the queue by a masked select, and repeats.
-Padded columns and vacant slots are inert, so concurrency is invisible to
-each model's trajectory.
+evicts converged models (one packed fetch of their true-rank columns, their
+lam and the eviction stats), refills the vacated slots from the queue by a
+masked select, and repeats. Padded columns and vacant slots are inert, so
+concurrency is invisible to each model's trajectory.
 
-Differences from the JAX engine in this slice (ROADMAP section 3):
-the run-until-evict loop is a host loop with one small stats fetch per
-iteration instead of a device while-loop; buckets run one after another
-(``bucket_threads`` is accepted and not used); results are fetched
+The bucket loop is ``graph_loop.ChunkLoop`` by default (``sync_mode=
+"evict"``): the run-until-evict loop in chunks of iterations, each chunk
+replays of a CUDA graph on the card, one stats fetch per chunk, and the
+polish sweeps at the end of each run-until-evict. ``sync_mode="iter"`` (and
+``always_evict_first``) runs ``graph_loop.IterLoop``, one eager iteration
+per host round, the JAX package's per-iteration mode and the eager
+reference on the card. Refills upload through pinned memory without
+blocking.
+
+Differences from the JAX engine (ROADMAP section 3): buckets run one after
+another (``bucket_threads`` is accepted and not used); results are fetched
 synchronously. Device-generated ``RandomKtensorSpec`` queues, meshes,
 checkpoints and traces raise ``NotImplementedError``.
 """
@@ -22,6 +29,8 @@ checkpoints and traces raise ``NotImplementedError``.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Sequence
@@ -32,8 +41,9 @@ import torch
 from ..config import CalsParams, check_supported, not_ported
 from ..device import resolve_device
 from ..ktensor import Ktensor, scale_jk_rows
+from .graph_loop import NP_DTYPES, ChunkLoop, Graphs, IterLoop, Pinned, pack_evict_stats
 from .iteration import make_iteration
-from .state import SolverState, init_state, tree_map, tree_where
+from .state import SolverState, init_state
 
 
 @dataclass
@@ -50,11 +60,16 @@ class CalsReport:
     n_ktensors: int = 0
     ktensor_comp_sum: int = 0
     # bucket rank -> engine iterations the bucket ran (every iteration of
-    # the host loop, so kernel launches per mode equal the sum of these).
+    # the loop, frozen models' included, so kernel launches per mode equal
+    # the sum of these plus the polish sweeps).
     engine_iterations: dict = field(default_factory=dict)
     models: list = field(default_factory=list)
     phase_times: dict = field(default_factory=dict)
     materialize_s: float = 0.0
+    # bucket rank -> the loop's counts: graph captures and replays, stats
+    # fetches (one per chunk, per polish check, per eviction round), and
+    # polish sweeps.
+    loop_counts: dict = field(default_factory=dict)
 
 
 # ------------------------------------------------------- bucketing and budget
@@ -138,27 +153,12 @@ def allocate_bucket_batches(
 # ------------------------------------------------------- eviction and stats
 
 
-def _pack_evict_stats(state: SolverState) -> torch.Tensor:
-    """Everything the host eviction scan reads, in ONE tensor (one fetch).
-    Rows: converged & alive, iters, fit, approx_error, alive & unconverged."""
-    dt = torch.promote_types(state.fit.dtype, torch.float32)
-    return torch.stack(
-        [
-            (state.converged & state.alive).to(dt),
-            state.iters.to(dt),
-            state.fit.to(dt),
-            state.approx_error.to(dt),
-            (state.alive & ~state.converged).to(dt),
-        ]
-    )
-
-
 _COL_QUANTUM = 128
 
 
 def _evict_col_indices(evicted, slot_meta):
-    """Packed-column index map for ``_gather_cols``: per evicted model its
-    true-rank columns, padded to a multiple of ``_COL_QUANTUM``."""
+    """Packed-column index map for ``_evicted_payload``: per evicted model
+    its true-rank columns, padded to a multiple of ``_COL_QUANTUM``."""
     slot_list: list[int] = []
     col_list: list[int] = []
     offs: dict[int, int] = {}
@@ -178,75 +178,56 @@ def _evict_col_indices(evicted, slot_meta):
 _WIRE = {"float16": torch.float16, "bfloat16": torch.bfloat16}
 
 
-def _gather_cols(kt: Ktensor, slot_idx, col_idx, wire_dtype: str | None = None):
-    """Evicted models' true rank columns as one packed [n_cols, I_n] block
-    per mode (+ lam [n_cols]), fetched to the host. ``wire_dtype`` rounds
-    the factor payload to a half-width type for the transfer; lam stays in
-    full precision."""
-    dev = kt.lam.device
-    si = torch.as_tensor(slot_idx, device=dev)
-    ci = torch.as_tensor(col_idx, device=dev)
-    factors = []
-    for f in kt.factors:
+def _evicted_payload(state: SolverState, idx: torch.Tensor, wire_dtype: str | None):
+    """The eviction stats, lam and every mode's columns of the evicted
+    models as ONE byte tensor on the device (one fetch), and the (dtype,
+    shape) of each piece. ``idx`` [2, n] holds the packed (slot, column)
+    pairs (``_evict_col_indices``); ``wire_dtype`` rounds the factor payload
+    to a half-width type for the transfer, lam stays in full precision."""
+    si, ci = idx
+    pieces = [pack_evict_stats(state), state.kt.lam[si, ci]]
+    for f in state.kt.factors:
         g = f[si, :, ci]
-        if wire_dtype is not None:
-            g = g.to(_WIRE[wire_dtype])
-        g = g.cpu()
-        if g.dtype == torch.bfloat16:  # numpy has no bfloat16
-            g = g.float()
-        factors.append(g.numpy())
-    return Ktensor(tuple(factors), kt.lam[si, ci].cpu().numpy())
+        pieces.append(g.to(_WIRE[wire_dtype]) if wire_dtype is not None else g)
+    flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in pieces])
+    return flat, [(p.dtype, tuple(p.shape)) for p in pieces]
 
 
-def _unpack_cols(kt_np: Ktensor, off: int, rank: int, np_dtype) -> Ktensor:
-    """One model out of a packed-column gather, in the queue dtype."""
+def _split_payload(raw: np.ndarray, layout) -> list[np.ndarray]:
+    """The host pieces of a fetched ``_evicted_payload`` (bfloat16 widened
+    to float32: numpy has no bfloat16)."""
+    out, off = [], 0
+    for dtype, shape in layout:
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        a = raw[off : off + n].view(NP_DTYPES[dtype]).reshape(shape)
+        if dtype == torch.bfloat16:
+            a = (a.astype(np.uint32) << 16).view(np.float32)
+        out.append(a)
+        off += n
+    return out
+
+
+def _unpack_cols(kt_np: Ktensor, off: int, rank: int) -> Ktensor:
+    """One model out of a packed-column gather (already in the queue
+    dtype)."""
     return Ktensor(
-        tuple(
-            np.ascontiguousarray(f[off : off + rank].T).astype(np_dtype, copy=False)
-            for f in kt_np.factors
-        ),
-        np.asarray(kt_np.lam[off : off + rank]).astype(np_dtype, copy=False),
+        tuple(np.ascontiguousarray(f[off : off + rank].T) for f in kt_np.factors),
+        kt_np.lam[off : off + rank].copy(),
     )
 
 
 def _norms(x: torch.Tensor, with_jk: bool):
     """(|X| on the device in x's dtype, leave-one-out norms per mode-0 fiber
-    on the host or None). |X| reduces in at least float32; the
+    on the host or None). |X| reduces in float64: a float32 sum of squares
+    over millions of entries on the CPU drifts by 1e-4 relative, which the
+    FastALS error's |X|^2 - ... cancellation turns into a wrong fit. The
     leave-one-out norms are ``jackknife_norms``."""
     from .jackknife import jackknife_norms
 
-    wide = torch.promote_types(x.dtype, torch.float32)
-    x_norm = torch.linalg.vector_norm(x.to(wide).reshape(-1)).to(x.dtype)
+    x_norm = torch.linalg.vector_norm(x.reshape(-1), dtype=torch.float64).to(x.dtype)
     if not with_jk:
         return x_norm, None
     return x_norm, jackknife_norms(x).cpu().numpy()
-
-
-def run_until_evict(iteration, x, state, x_norm, prepared, evict_batch: int = 1):
-    """Iterate the bucket until at least one live model has converged (or,
-    with ``evict_batch > 1``, until that many have or none is left
-    unconverged). With ``evict_batch > 1`` converged models are frozen by a
-    select, so their trajectories are bit-identical to immediate eviction.
-
-    The host reads one small stats tensor per iteration. On entry no live
-    model is converged (the caller has evicted them all), so the body runs
-    at least once, as the JAX package's device while-loop does.
-    Returns (state, host stats [5, B], iterations run).
-    """
-    n = 0
-    while True:
-        new = iteration(x, state, x_norm, prepared)
-        if evict_batch > 1:
-            new = tree_where(state.converged & state.alive, state, new)
-        state = new
-        n += 1
-        stats = _pack_evict_stats(state).cpu().numpy()
-        n_conv = int(np.count_nonzero(stats[0]))
-        if evict_batch <= 1:
-            if n_conv:
-                return state, stats, n
-        elif n_conv >= evict_batch or not np.count_nonzero(stats[4]):
-            return state, stats, n
 
 
 def _to_numpy(a) -> np.ndarray:
@@ -291,6 +272,8 @@ def cp_cals(
     model); leave-one-out norms are computed once unless ``x_norms_jk`` is
     given. device: None means the CUDA card (raises without one); pass
     "cpu" to run the plain PyTorch versions of the kernels.
+    max_rounds_per_bucket: stop each bucket after this many eviction
+    rounds; unfinished models are returned as None.
     """
     if mesh is not None or shard_mode0:
         raise not_ported("multi-device runs", "queue 1 item 10")
@@ -298,8 +281,6 @@ def cp_cals(
         raise not_ported("trace", "queue 1 item 8")
     if checkpoint_dir is not None or resume:
         raise not_ported("checkpoint/resume", "queue 1 item 8")
-    if max_rounds_per_bucket is not None:
-        raise not_ported("max_rounds_per_bucket", "queue 1 item 8")
     check_supported(params)
     dev = resolve_device(device)
     if not queue:
@@ -338,14 +319,29 @@ def cp_cals(
     waves = allocate_bucket_batches(
         {r: len(dq) for r, dq in buckets.items()}, params.buffer_size
     )
+    # always_evict_first needs per-iteration host control, as in JAX.
+    chunked = params.sync_mode == "evict" and not params.always_evict_first
     iteration = make_iteration(params, batched=True, has_jk=has_jk)
     prepared = iteration.prepare(x)  # loop-invariant layouts, once per solve
+    polish = None
+    if chunked and params.polish_iters > 0:
+        # The polish sweeps: full `precision`, no line search, no mixed-tier
+        # check (polish keeps converged and iters), on X held at that tier.
+        p_params = dataclasses.replace(
+            params, mttkrp_precision=None, line_search=False, tol_check_interval=0
+        )
+        p_iter = make_iteration(p_params, batched=True, has_jk=has_jk)
+        polish = (p_iter, prepared.hi, params.polish_iters, params.polish_tol)
     results: dict[int, Ktensor] = {}
+    mixed_tol = params.tol_check_interval > 0
 
-    def build_block_state(batch_slots, r: int, bb: int) -> SolverState:
-        """A [bb]-wide state from per-slot intake items ((id, ktensor, jk)
-        or None for a dead slot): one float and one int upload, then the
-        gramians of the initial guesses on the device."""
+    def build_block_state(uploader: Pinned, batch_slots, r: int) -> SolverState:
+        """A state of one row per intake item ((id, ktensor, jk), or None
+        for a dead slot): one upload through pinned memory (the factors,
+        lam and norms, then the int32 jackknife fibers, alive flags and
+        rank mask), then the gramians of the initial guesses on the
+        device."""
+        bb = len(batch_slots)
         parts = [np.zeros((bb, m, r), np_dtype) for m in modes]
         lam = np.zeros((bb, r), np_dtype)
         xnm = np.full((bb,), x_norm_f, np_dtype)
@@ -365,80 +361,105 @@ def cp_cals(
             jk_arr[slot] = jk
             if jk >= 0:
                 xnm[slot] = float(x_norms_jk[jk])
-        flat = torch.from_numpy(
-            np.concatenate([p.reshape(-1) for p in parts] + [lam.reshape(-1), xnm])
-        ).to(dev)
-        meta = torch.from_numpy(
-            np.concatenate([jk_arr, alive, rank_mask.reshape(-1)])
-        ).to(dev)
+        flat = np.concatenate([p.reshape(-1) for p in parts] + [lam.reshape(-1), xnm])
+        meta = np.concatenate([jk_arr, alive, rank_mask.reshape(-1)])
+        raw = uploader.upload(np.concatenate([flat.view(np.uint8), meta.view(np.uint8)]))
         sizes = [p.size for p in parts] + [lam.size, bb]
-        pieces = torch.split(flat, sizes)
+        pieces = torch.split(raw[: flat.nbytes].view(_DTYPES[np_dtype]), sizes)
         factors = [pc.view(bb, m, r) for pc, m in zip(pieces, modes)]
-        jk_d, alive_d, mask_d = torch.split(meta, [bb, bb, bb * r])
+        jk_d, alive_d, mask_d = torch.split(raw[flat.nbytes :].view(torch.int32), [bb, bb, bb * r])
         # Pre-zero each jackknife slot's left-out row (the solver re-zeroes
         # it after every mode-0 update).
         factors[0] = scale_jk_rows(factors[0], jk_d, 0.0)
         kt_b = Ktensor(tuple(factors), pieces[len(modes)].view(bb, r))
         return init_state(
             kt_b, x_norm, jk_fiber=jk_d, x_norm_model=pieces[-1],
-            rank_mask=mask_d.view(bb, r).bool(), alive=alive_d.bool(),
+            rank_mask=mask_d.view(bb, r).bool(), alive=alive_d.bool(), mixed_tol=mixed_tol,
         )
+
+    graphs = Graphs(dev) if chunked and dev.type == "cuda" else None  # freed when the call ends
+    uploader, fetcher = Pinned(dev), Pinned(dev)  # the call's pinned buffers, one each way
 
     def run_bucket(r: int, dq: collections.deque, b: int):
         models: list[CalsModelReport] = []
-        pt = {"setup": 0.0, "solve": 0.0, "evict": 0.0}
+        pt = {"setup": 0.0, "solve": 0.0, "evict": 0.0, "capture": 0.0}
+        counts = dict(captures=0, replays=0, stats_fetches=0, polish_sweeps=0, capture_s=0.0)
         t0 = time.perf_counter()
         slot_meta: list = [None] * b  # (id, rank, jk) per slot
         batch = [dq.popleft() for _ in range(min(b, len(dq)))]
         for slot, (i, kt, jk) in enumerate(batch):
             slot_meta[slot] = (i, kt.rank, jk)
-        state = build_block_state(batch + [None] * (b - len(batch)), r, b)
+        state = build_block_state(uploader, batch + [None] * (b - len(batch)), r)
+        occupied = np.array([m is not None for m in slot_meta])
+        if chunked:
+            loop = ChunkLoop(iteration, x, x_norm, prepared, state, np.zeros(b, np.int64), occupied,
+                             counts, uploader, fetcher, params, polish, graphs)
+        else:
+            loop = IterLoop(iteration, x, x_norm, prepared, state, np.zeros(b, np.int64), occupied,
+                            counts, uploader, fetcher)
         pt["setup"] = time.perf_counter() - t0
-        engine_iters = 0
-        n_compactions = 0
+        engine_iters = rounds = n_compactions = 0
+        unpack = None  # the last round's results, unpacked while the device runs the next
+
+        def unpack_results(kt_np, done):
+            for i, off, rank in done:
+                results[i] = _unpack_cols(kt_np, off, rank)
+
         while any(m is not None for m in slot_meta):
             t0 = time.perf_counter()
-            state, stats, k = run_until_evict(
-                iteration, x, state, x_norm, prepared, params.evict_batch
-            )
+            stats, k = loop.advance(params.evict_batch, unpack)
+            unpack = None
             engine_iters += k
+            conv = stats[0] != 0
+            if params.always_evict_first:
+                # Defrag-stress knob (reference cals.cpp:346-352): evict the
+                # leftmost occupied slot every iteration, converged or not.
+                conv = np.zeros(b, bool)
+                conv[next(s for s in range(b) if slot_meta[s] is not None)] = True
+            evicted = [s for s in range(b) if slot_meta[s] is not None and conv[s]]
+            if evicted and polish is not None:
+                loop.polish()  # the end of the run-until-evict, as in the JAX program
             pt["solve"] += time.perf_counter() - t0
             t0 = time.perf_counter()
-            conv = stats[0] != 0
             keep = np.ones(b, bool)
-            evicted = [s for s in range(b) if slot_meta[s] is not None and conv[s]]
             if evicted:
                 slot_idx, col_idx, offs = _evict_col_indices(evicted, slot_meta)
-                kt_np = _gather_cols(state.kt, slot_idx, col_idx, params.result_wire_dtype)
-                refills: list = []
+                idx = uploader.upload(np.stack([slot_idx, col_idx]))
+                flat, layout = _evicted_payload(loop.state, idx, params.result_wire_dtype)
+                counts["stats_fetches"] += 1
+                stats, lam, *factors = _split_payload(loop.fetcher.fetch(flat), layout)
+                kt_np = Ktensor(tuple(f.astype(np_dtype, copy=False) for f in factors),
+                                lam.astype(np_dtype, copy=False))
+                refill_slots: list = []
+                refill_items: list = []
+                done = []
                 for slot in evicted:
                     i, rank, _ = slot_meta[slot]
                     models.append(CalsModelReport(
                         id=i, rank=rank, iters=int(stats[1][slot]),
                         fit=float(stats[2][slot]), approx_error=float(stats[3][slot]),
                     ))
-                    results[i] = _unpack_cols(kt_np, offs[slot], rank, np_dtype)
+                    done.append((i, offs[slot], rank))
                     slot_meta[slot] = None
                     if dq:
                         item = dq.popleft()
                         slot_meta[slot] = (item[0], item[1].rank, item[2])
-                        refills.append((slot, item))
+                        refill_slots.append(slot)
+                        refill_items.append(item)
                     else:
                         keep[slot] = False
-                if refills:
-                    # Batched refill: one block build + one masked select.
-                    batch_slots: list = [None] * b
-                    mask = np.zeros((b,), bool)
-                    for slot, item in refills:
-                        batch_slots[slot] = item
-                        mask[slot] = True
-                    fresh = build_block_state(batch_slots, r, b)
-                    state = tree_where(torch.from_numpy(mask).to(dev), fresh, state)
+                unpack = functools.partial(unpack_results, kt_np, done)
+                if refill_slots:
+                    # Batched refill: one build of the fresh models' rows,
+                    # written into their slots.
+                    loop.refill(np.asarray(refill_slots), build_block_state(uploader, refill_items, r))
             if not keep.all():
-                state = state._replace(
-                    alive=state.alive & torch.from_numpy(keep).to(dev)
-                )
+                loop.kill(keep)
             pt["evict"] += time.perf_counter() - t0
+            if evicted:
+                rounds += 1
+                if max_rounds_per_bucket is not None and rounds >= max_rounds_per_bucket:
+                    break
             # Tail compaction: once the queue is drained and at most half the
             # slots are live, repack live slots into a half-size batch.
             n_live = sum(m is not None for m in slot_meta)
@@ -449,12 +470,15 @@ def cp_cals(
                 live_idx = [s for s in range(b) if slot_meta[s] is not None]
                 pad_idx = [s for s in range(b) if slot_meta[s] is None]
                 idx = live_idx + pad_idx[: b // 2 - len(live_idx)]
-                idx_t = torch.as_tensor(idx, device=dev)
-                state = tree_map(lambda leaf: leaf[idx_t], state)
+                loop = loop.compacted(idx)
                 slot_meta = [slot_meta[s] for s in idx]
                 b //= 2
                 n_compactions += 1
-        return models, pt, engine_iters
+        if unpack is not None:
+            unpack()
+        pt["capture"] = counts.pop("capture_s")
+        pt["solve"] -= pt["capture"]
+        return models, pt, engine_iters, counts
 
     for wave in waves:
         # Largest-work-first order, as in the JAX engine.
@@ -463,10 +487,12 @@ def cp_cals(
             key=lambda t: (-t[0] * t[2], t[0]),
         )
         for r, dq, b in items:
-            models, pt, engine_iters = run_bucket(r, dq, b)
+            models, pt, engine_iters, counts = run_bucket(r, dq, b)
             report.models.extend(models)
             report.phase_times[r] = pt
             report.engine_iterations[r] = report.engine_iterations.get(r, 0) + engine_iters
+            report.loop_counts[r] = counts
 
     report.models.sort(key=lambda m: m.id)
+    # Unfinished models (max_rounds_per_bucket) are None.
     return [results.get(i) for i in range(len(queue))], report

@@ -1,0 +1,398 @@
+"""The engine's two bucket loops (``sync_mode``): the device-paced
+run-until-evict loop, and the per-iteration host loop.
+
+``ChunkLoop`` (``sync_mode="evict"``) is the port of the JAX engine's
+device while-loop (``cp_cals_tpu/solvers/cals.py:630-707``,
+``make_run_until_evict``) with the polish sweeps that program carries
+(``:138-211``). The bucket's ``SolverState`` lives in buffers that stay in
+place for the whole bucket; the host runs the loop in chunks of iterations
+and reads the packed eviction stats once per chunk, with one copy into
+pinned memory. On the card one iteration (the iteration, the freeze
+select, the copy back into the buffers, the packed stats) is captured once
+per (bucket rank, batch) into a CUDA graph, after one eager iteration on a
+side stream has filled every cache the kernel wrappers keep (built
+libraries, shared-memory attributes, launch plans), and a chunk of n
+iterations is n replays. Capture has no fallback: a failure raises. On the
+CPU the same loop runs eagerly.
+
+Chunk length (``chunk_length``), from the slots' iteration counts, which
+the host knows from the last fetch:
+- with ``force_max_iter``: exactly up to the first forced convergence, so
+  the loop runs no iteration past it;
+- with ``tol_check_interval = K``: up to the oldest live model's next
+  multiple of K, its decision check (a model can stop only at a check or
+  at ``max_iterations``);
+- with a per-iteration tol: ``TOL_CHUNK`` iterations;
+- never past the first slot's ``max_iterations``.
+Models that converge inside a chunk are frozen by a select (as the JAX
+loop freezes them under ``evict_batch > 1``), so a chunk only delays the
+eviction. Under ``force_max_iter`` with ``evict_batch = 1`` no chunk runs
+past a convergence, so
+evictions, refills and compactions come at the per-iteration loop's
+iterations and every model's bits are that loop's (the bench's forced runs
+on the card). Otherwise the delay moves refills to other slots and tail
+compaction to other iterations, and a model keeps the bits of immediate
+eviction only where the MTTKRP gives it the same bits in any slot and
+batch (on the CPU, a product per model: the tests). Where it does not, as
+in the jackknife's tol-driven runs with compaction on the card, the last
+bits differ, and through them a stop may move.
+
+Polish (``polish_iters``) runs where the JAX program runs it: once at the
+end of each run-until-evict, on the converged live models, before the
+eviction stats are read. Each sweep is one more iteration at full
+``precision`` (no mixed-tier check) with the models outside the polish
+frozen; on the card one sweep is captured as its own graph. With
+``polish_tol > 0`` a model also freezes at its own fixed point, and the
+host reads whether all have every ``POLISH_CHECK`` sweeps, never running
+more than ``polish_iters``.
+
+Graphs bake in pointers: ``x``, the held layouts, the state buffers and
+the stats buffer stay alive and in place while a graph is replayed.
+Refills and evictions write into the buffers; tail compaction (a new
+batch) makes a new loop and a new capture. The kernel wrappers count their
+launches in Python, which a replay does not run: each replay adds the
+counts its graph's capture added (``Graph``, ``launches.py``).
+
+``IterLoop`` (``sync_mode="iter"``, and ``always_evict_first``) is the JAX
+engine's per-iteration mode: one eager iteration, then the host reads the
+stats, evicts and refills. It freezes nothing and does not polish, as the
+JAX step program does not.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .. import launches
+from .state import SolverState, tree_leaves, tree_map
+
+TOL_CHUNK = 4  # iterations per chunk under a per-iteration tol
+POLISH_CHECK = 4  # polish sweeps between host reads of the polish's done flags
+
+
+def pack_evict_stats(state: SolverState) -> torch.Tensor:
+    """Everything the host eviction scan reads, in ONE tensor (one fetch).
+    Rows: converged & alive, iters, fit, approx_error, alive & unconverged."""
+    dt = torch.promote_types(state.fit.dtype, torch.float32)
+    return torch.stack(
+        [
+            (state.converged & state.alive).to(dt),
+            state.iters.to(dt),
+            state.fit.to(dt),
+            state.approx_error.to(dt),
+            (state.alive & ~state.converged).to(dt),
+        ]
+    )
+
+
+def chunk_length(params, iters: np.ndarray, live: np.ndarray) -> int:
+    """Iterations of the next chunk (module docstring); ``iters`` and
+    ``live`` per slot, with at least one live slot."""
+    it = iters[live]
+    n = int((params.max_iterations - it).min())
+    if params.force_max_iter:
+        return max(n, 1)
+    k = params.tol_check_interval
+    step = k - int(it.max()) % k if k > 0 else TOL_CHUNK
+    return max(min(n, step), 1)
+
+
+class Graph:
+    """``fn`` captured once into a CUDA graph on a side stream, and what one
+    replay adds to the launch counts (``launches.py``: what the capture,
+    which launches nothing, added; the counts are put back). ``pool`` is a
+    memory pool the graph may share with others that are never replayed at
+    once and keep nothing between replays in it."""
+
+    def __init__(self, fn, device: torch.device, pool=None, stream=None):
+        before = launches.snapshot()
+        self.graph = torch.cuda.CUDAGraph()
+        stream = stream or torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=pool)
+            try:
+                fn()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.per_replay = launches.take_added(before)
+
+    def replay(self, n: int) -> None:
+        for _ in range(n):
+            self.graph.replay()
+        launches.add(self.per_replay, n)
+
+
+class Graphs:
+    """The CUDA graphs of one engine call, kept until the call ends, in one
+    memory pool: a graph's pool holds only the temporaries of one replay,
+    and no two graphs are replayed at once. (A pool is released with its
+    last graph, so the graphs are held here and not by their loops.) One
+    side stream serves every warm-up and capture of the call: the caching
+    allocator keeps its blocks per stream, and a new stream for each would
+    allocate anew."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        self.graphs: list[Graph] = []
+
+    def warm_up(self, fn) -> None:
+        """One eager call on the side stream, ordered after and before the
+        current stream's work (the warm-up before a capture)."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            fn()
+        cur.wait_stream(self.stream)
+
+    def capture(self, fn) -> Graph:
+        self.graphs.append(Graph(fn, self.device, self.pool, self.stream))
+        return self.graphs[-1]
+
+
+# ------------------------------------------------------------ host transfers
+
+
+class Pinned:
+    """A pinned host buffer for one direction of transfer. A fetch waits on
+    its copy's event; an upload first waits until the buffer's last copy
+    has finished, so the buffer is never written while a copy reads it. On
+    the CPU both are plain copies."""
+
+    def __init__(self, device: torch.device):
+        self.device, self.buf, self.event = device, None, None
+
+    def _host(self, n: int) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        if self.buf is None or self.buf.numel() < n:  # grown geometrically: pinning is slow
+            size = max(n, 2 * (self.buf.numel() if self.buf is not None else 0), 1 << 20)
+            self.buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        return self.buf[:n]
+
+    def fetch(self, t: torch.Tensor) -> np.ndarray:
+        """A host copy of the contiguous device tensor ``t``."""
+        if self.device.type != "cuda":
+            return t.numpy().copy()
+        raw = t.reshape(-1).view(torch.uint8)
+        host = self._host(raw.numel())
+        host.copy_(raw, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+        self.event.synchronize()
+        return host.numpy().view(NP_DTYPES[t.dtype]).reshape(t.shape).copy()
+
+    def upload(self, data: np.ndarray) -> torch.Tensor:
+        """``data`` (contiguous) on the device, copied without blocking."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(data))
+        raw = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+        host = self._host(raw.size)
+        host.numpy()[:] = raw
+        out = torch.empty(raw.size, dtype=torch.uint8, device=self.device)
+        out.copy_(host, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+        return out.view(_TORCH_DTYPES[data.dtype]).reshape(data.shape)
+
+
+# The host dtype of each device dtype that crosses (bfloat16 as its bits).
+NP_DTYPES = {torch.float16: np.float16, torch.float32: np.float32, torch.float64: np.float64,
+             torch.int32: np.int32, torch.int64: np.int64, torch.uint8: np.uint8,
+             torch.bfloat16: np.uint16}
+_TORCH_DTYPES = {np.dtype(v): k for k, v in NP_DTYPES.items() if k != torch.bfloat16}
+
+
+# ------------------------------------------------------------ the two loops
+
+
+def _assign(dst_state, src_state, frozen: torch.Tensor | None = None) -> None:
+    """Write ``src_state`` into ``dst_state``'s buffers in place, leaf by
+    leaf, keeping the old value of every slot where ``frozen``; leaves that
+    are the same tensor are left alone."""
+    for dst, src in zip(tree_leaves(dst_state), tree_leaves(src_state)):
+        if src is dst:
+            continue
+        if frozen is None:
+            dst.copy_(src)
+        else:  # the select writes the buffer itself: one kernel per leaf
+            torch.where(frozen.reshape(frozen.shape + (1,) * (dst.ndim - 1)), dst, src, out=dst)
+
+
+class _Loop:
+    """What both loops share: the bucket's state, the host's view of each
+    slot's iteration count and liveness, refills, kills and compaction,
+    and the counts the engine reports. ``uploader`` and ``fetcher`` carry
+    the host's transfers each way (``Pinned``)."""
+
+    def __init__(self, state: SolverState, iters_h: np.ndarray, live_h: np.ndarray, counts: dict,
+                 uploader: Pinned, fetcher: Pinned):
+        self.state = state
+        self.iters_h, self.live_h = iters_h, live_h
+        self.counts, self.uploader, self.fetcher = counts, uploader, fetcher
+        self.device = state.iters.device
+
+    def refill(self, slots: np.ndarray, fresh: SolverState) -> None:
+        """Rows ``slots`` take the fresh models' state (one row each, in
+        order)."""
+        self._write_rows(self.uploader.upload(slots.astype(np.int64)), fresh)
+        self.iters_h[slots] = 0
+        self.live_h[slots] = True
+
+    def kill(self, keep: np.ndarray) -> None:
+        """Slots outside ``keep`` are vacant from now on."""
+        keep_d = self.uploader.upload(keep.astype(np.uint8)).bool()
+        self._write_rows(None, self.state._replace(alive=self.state.alive & keep_d))
+        self.live_h &= keep
+
+    def fetch_stats(self, stats: torch.Tensor) -> np.ndarray:
+        self.counts["stats_fetches"] += 1
+        out = self.fetcher.fetch(stats)
+        self.iters_h = out[1].astype(np.int64)
+        self.live_h = out[4] != 0
+        return out
+
+
+class IterLoop(_Loop):
+    """One eager iteration per host round (``sync_mode="iter"``)."""
+
+    def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, counts, uploader, fetcher):
+        super().__init__(state, iters_h, live_h, counts, uploader, fetcher)
+        self.iteration, self.x, self.x_norm, self.prepared = iteration, x, x_norm, prepared
+
+    def _write_rows(self, rows, new):
+        self.state = new if rows is None else tree_map(
+            lambda old, fresh: old.index_copy(0, rows, fresh), self.state, new)
+
+    def advance(self, evict_batch: int, overlap=None) -> tuple[np.ndarray, int]:
+        """One iteration; ``overlap`` (host work) runs while it is on the
+        device."""
+        self.state = self.iteration(self.x, self.state, self.x_norm, self.prepared)
+        stats = pack_evict_stats(self.state)
+        if overlap is not None:
+            overlap()
+        return self.fetch_stats(stats), 1
+
+    def compacted(self, idx: list[int]) -> "IterLoop":
+        idx_t = torch.as_tensor(idx, device=self.device)
+        return IterLoop(self.iteration, self.x, self.x_norm, self.prepared,
+                        tree_map(lambda leaf: leaf[idx_t], self.state),
+                        self.iters_h[idx], self.live_h[idx], self.counts, self.uploader, self.fetcher)
+
+
+class ChunkLoop(_Loop):
+    """Run-until-evict in chunks (module docstring); on the card (``graphs``
+    given) each chunk is replays of one captured iteration. ``polish`` is
+    None, or (the polish iteration, its held layouts, polish_iters,
+    polish_tol)."""
+
+    def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, counts, uploader,
+                 fetcher, params, polish=None, graphs: Graphs | None = None):
+        state = tree_map(lambda t: t.clone(), state)  # the buffers the graphs read and write
+        super().__init__(state, iters_h, live_h, counts, uploader, fetcher)
+        self.iteration, self.x, self.x_norm, self.prepared = iteration, x, x_norm, prepared
+        self.params, self.polish_cfg, self.graphs = params, polish, graphs
+        self.stats = pack_evict_stats(state)
+        self.step_graph = self.sweep_graph = None
+        if polish is not None:
+            b = state.iters.shape[0]
+            self.done = torch.zeros(b, dtype=torch.bool, device=self.device)
+            self.conv0 = torch.zeros_like(self.done)
+            self.iters0 = torch.zeros_like(state.iters)
+
+    def _write_rows(self, rows, new):
+        if rows is None:
+            _assign(self.state, new)
+            return
+        for dst, src in zip(tree_leaves(self.state), tree_leaves(new)):
+            dst.index_copy_(0, rows, src)
+
+    def _step(self) -> None:
+        st = self.state
+        frozen = st.converged & st.alive
+        _assign(st, self.iteration(self.x, st, self.x_norm, self.prepared), frozen)
+        self.stats.copy_(pack_evict_stats(st))
+
+    def _sweep(self) -> None:
+        st = self.state
+        p_iter, p_prepared, _, tol = self.polish_cfg
+        new = p_iter(self.x, st, self.x_norm, p_prepared)
+        if tol > 0:
+            delta = torch.abs(new.fit - st.fit)
+        _assign(st, new, self.done)
+        if tol > 0:
+            torch.logical_or(self.done, delta < tol, out=self.done)
+
+    def _run(self, fn, graph_name: str, n: int) -> None:
+        """``fn`` n times: eagerly on the CPU; on the card by replays of its
+        graph, captured after a first eager call on a side stream."""
+        if self.graphs is None:
+            for _ in range(n):
+                fn()
+            return
+        if getattr(self, graph_name) is None:
+            self.graphs.warm_up(fn)
+            n -= 1
+            t0 = time.perf_counter()
+            setattr(self, graph_name, self.graphs.capture(fn))
+            self.counts["capture_s"] += time.perf_counter() - t0
+            self.counts["captures"] += 1
+        getattr(self, graph_name).replay(n)
+        self.counts["replays"] += n
+
+    def advance(self, evict_batch: int, overlap=None) -> tuple[np.ndarray, int]:
+        """Chunks until at least one live model has converged (or, with
+        ``evict_batch > 1``, that many have or none is left unconverged).
+        On entry no live model is converged. ``overlap`` (host work) runs
+        while the first chunk is on the device. Returns (host stats [5, B],
+        iterations run)."""
+        total = 0
+        while True:
+            n = chunk_length(self.params, self.iters_h, self.live_h)
+            self._run(self._step, "step_graph", n)
+            if overlap is not None:
+                overlap()
+                overlap = None
+            total += n
+            stats = self.fetch_stats(self.stats)
+            n_conv = int(np.count_nonzero(stats[0]))
+            if evict_batch <= 1:
+                if n_conv:
+                    return stats, total
+            elif n_conv >= evict_batch or not np.count_nonzero(stats[4]):
+                return stats, total
+
+    def polish(self) -> None:
+        """The polish sweeps on the converged live models (module
+        docstring), their converged flags and iteration counts kept."""
+        _, _, n_polish, tol = self.polish_cfg
+        st = self.state
+        self.conv0.copy_(st.converged)
+        self.iters0.copy_(st.iters)
+        torch.logical_not(st.converged & st.alive, out=self.done)
+        k = 0
+        while k < n_polish:
+            m = n_polish - k if tol <= 0 else min(POLISH_CHECK, n_polish - k)
+            self._run(self._sweep, "sweep_graph", m)
+            k += m
+            self.counts["polish_sweeps"] += m
+            if tol > 0 and k < n_polish:
+                self.counts["stats_fetches"] += 1
+                if bool(self.done.all()):
+                    break
+        st.converged.copy_(self.conv0)
+        st.iters.copy_(self.iters0)
+        self.stats.copy_(pack_evict_stats(st))
+
+    def compacted(self, idx: list[int]) -> "ChunkLoop":
+        idx_t = torch.as_tensor(idx, device=self.device)
+        return ChunkLoop(self.iteration, self.x, self.x_norm, self.prepared,
+                         tree_map(lambda leaf: leaf[idx_t], self.state),
+                         self.iters_h[idx], self.live_h[idx], self.counts, self.uploader, self.fetcher,
+                         self.params, self.polish_cfg, self.graphs)

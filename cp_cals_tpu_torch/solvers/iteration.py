@@ -1,13 +1,23 @@
 """One batched ALS iteration over a SolverState (port of the main-path
-subset of ``cp_cals_tpu/solvers/iteration.py:128-501``).
+subset of ``cp_cals_tpu/solvers/iteration.py:57-501``).
 
 Per mode: the fused MTTKRP, then either the fused epilogue kernels
 (``epilogue="fused"``, the default here) or the unfused PyTorch path
-(``epilogue="xla"``); after the last mode the FastALS error, the fit and
-the convergence flags. PyTorch runs eagerly, so ``make_iteration`` returns
-a plain function; its ``.prepare(x)`` builds the loop-invariant tensor
-layouts once per solve, outside the loop, held for the MTTKRP's precision
-tier (at the bf16 tiers X is rounded there, once).
+(``epilogue="xla"``). The fused path is taken mode by mode: a mode whose
+shape the kernels do not take (``ops/fused_epilogue.py:
+supports_fused_epilogue``) goes through the unfused path, as in the JAX
+iteration. After the last mode come the FastALS error, the fit and the
+convergence flags, with the mixed-tier stopping check where
+``tol_check_interval > 0``.
+
+PyTorch runs eagerly, so ``make_iteration`` returns a plain function. The
+same function runs eagerly in the per-iteration host loop and is captured
+into a CUDA graph by the engine's device-paced loop (``graph_loop.py``), so
+nothing in it reads a device value on the host. Its ``.prepare(x)`` builds
+the loop-invariant tensor layouts once per solve, held for the MTTKRP's
+precision tier (at the bf16 tiers X is rounded there, once), and also at
+``params.precision`` where the mixed-tier check or the polish sweeps run
+there (``Held.hi``).
 
 Dead and padded slots are inert (zero factors, zero lam, identity normal
 matrix), so nothing inside the iteration is gated on ``alive``.
@@ -28,11 +38,39 @@ from ..config import (
 )
 from ..ktensor import Ktensor, normalize_factor_fused, scale_jk_rows
 from ..ops.error import fast_error
-from ..ops.fused_epilogue import epilogue_apply, normal_inverse
+from ..ops.fused_epilogue import epilogue_apply, normal_inverse, supports_fused_epilogue
 from ..ops.gramians import hadamard_all, hadamard_but_one
 from ..ops.mttkrp import mttkrp_batched, prepare_batched
 from ..ops.update import padded_hadamard, update_factor_unconstrained
-from .state import SolverState
+from .state import HiState, SolverState, tree_where
+
+
+class Held(tuple):
+    """The per-mode held layouts of X at the MTTKRP's tier. ``hi`` holds
+    them at ``params.precision``, the tier of the mixed-tier check's
+    MTTKRP and of the polish sweeps: the same tuple where the two tiers
+    agree, None where neither runs."""
+
+    hi: "Held | None" = None
+
+
+def extrapolated_delta(rate: torch.Tensor, rate_prev: torch.Tensor, gap: torch.Tensor) -> torch.Tensor:
+    """The current per-iteration fit delta, estimated from two consecutive
+    window-average rates (``cp_cals_tpu/solvers/iteration.py:57``).
+
+    With geometrically decaying deltas d_i = d_k rho^(i-k), the two windows
+    give rate / rate_prev = rho^gap, and the newest delta is
+    rate * gap * (1 - rho) * rho^(gap-1) / (1 - rho^gap), in that bounded
+    form (rho^gap lies in [0, 1]). It is used where two positive rates are
+    on record and rho < 1; else the raw window rate. rho is clamped at 0.2.
+    """
+    have2 = (rate_prev > 0) & (rate > 0)
+    one = torch.ones_like(rate)
+    ratio = torch.where(have2, rate, one) / torch.where(have2, rate_prev, one)
+    rho = torch.clamp(ratio ** (1.0 / gap), 0.2, 1.0)
+    rho_g = rho**gap
+    d_k = rate * gap * (1.0 - rho) * (rho_g / rho) / torch.clamp(1.0 - rho_g, min=1e-30)
+    return torch.where(have2 & (rho < 1.0), d_k, rate)
 
 
 def make_iteration(
@@ -51,14 +89,64 @@ def make_iteration(
             "batch of one (ROADMAP section 3)"
         )
     check_supported(params)
-    mttkrp_prec = params.mttkrp_precision or params.precision
+    precision = params.precision
+    mttkrp_prec = params.mttkrp_precision or precision
     fused = resolve_epilogue(params) == "fused"
+    k_check = params.tol_check_interval
+    # The check's MTTKRP and the polish sweeps run at `precision`.
+    need_hi = k_check > 0 or getattr(params, "polish_iters", 0) > 0
 
     def methods_for(x) -> tuple[str, ...]:
         return tuple(resolve_mttkrp_method(params, x.ndim) for _ in range(x.ndim))
 
-    def prepare(x):
-        return prepare_batched(x, methods_for(x), mttkrp_prec)
+    def prepare(x) -> Held:
+        held = Held(prepare_batched(x, methods_for(x), mttkrp_prec))
+        if need_hi:
+            held.hi = held if precision == mttkrp_prec else Held(
+                prepare_batched(x, methods_for(x), precision)
+            )
+        return held
+
+    def check(x, state, kt, grams, iters, err, fit, x_norm_full, prepared, method):
+        """The mixed-tier stopping check (``cp_cals_tpu/solvers/iteration.py:
+        383-477``): at the batch's check iterations (adjacent pairs mK-1 and
+        mK of the oldest live model's count), one more last-mode MTTKRP at
+        full precision, whose fit and error replace the fast-tier ones and
+        decide convergence. `at_check` stays on the device: the MTTKRP
+        kernel takes it as its launch predicate, and the outputs are
+        selected by it, as the JAX lax.cond's false branch returns zeros
+        and the old values."""
+        hi = state.hi
+        live = state.alive & ~state.converged
+        oldest = torch.amax(torch.where(live, iters, 0))
+        phase = oldest % k_check
+        at_check = (phase == 0) | (phase == k_check - 1)
+        last = x.ndim - 1
+        g_hi = mttkrp_batched(x, kt.factors, last, method, precision, prepared.hi[last],
+                              pred=at_check.to(torch.int32).reshape(1))
+        err_hi = fast_error(state.x_norm_model, kt.lam, kt.factors[-1], g_hi, hadamard_all(grams))
+        fit_hi = 1.0 - torch.abs(err_hi) / x_norm_full
+        gap_i = torch.clamp(iters - hi.iters_prev, min=1)
+        gap = gap_i.to(fit_hi.dtype)
+        # The signed improvement rate; at gap 1 (the decision check after
+        # its adjacent pre-check) the exact high-tier delta.
+        rate = (fit_hi - hi.fit_prev) / gap
+        seen = hi.iters_prev > 0
+        rp = torch.where(gap_i == hi.gap_prev, hi.rate_prev, torch.zeros_like(hi.rate_prev))
+        d_k = torch.where(gap_i == 1, rate, extrapolated_delta(rate, rp, gap))
+        conv = seen & (d_k < params.tol)
+        checked = HiState(
+            fit_prev=fit_hi,
+            iters_prev=iters,
+            rate_prev=torch.where(seen, rate, torch.zeros_like(rate)),
+            gap_prev=torch.where(seen, gap_i, torch.zeros_like(gap_i)),
+        )
+        return (
+            conv & at_check,
+            tree_where(at_check, checked, hi),
+            torch.where(at_check, err_hi, err),
+            torch.where(at_check, fit_hi, fit),
+        )
 
     def iteration(x, state: SolverState, x_norm_full, prepared=None) -> SolverState:
         if prepared is None:
@@ -72,7 +160,7 @@ def make_iteration(
             g = mttkrp_batched(x, kt.factors, n, methods[n], mttkrp_prec, prepared[n])
             if n == n_modes - 1:
                 g_last = g
-            if fused:
+            if fused and supports_fused_epilogue(*g.shape, g.dtype, n_modes, g.device):
                 hinv = normal_inverse(grams, state.rank_mask, n)
                 # The last mode's apply also finishes the FastALS error, from
                 # the other modes' new gramians (hadamard_all's mode order).
@@ -97,15 +185,21 @@ def make_iteration(
         old_fit = state.fit
         # Fit uses the FULL tensor norm, even for jackknife models.
         fit = 1.0 - torch.abs(err) / x_norm_full
+        hi = state.hi
         if params.force_max_iter:
             converged = iters >= params.max_iterations
+        elif k_check > 0:
+            conv, hi, err, fit = check(
+                x, state, kt, grams, iters, err, fit, x_norm_full, prepared, methods[-1]
+            )
+            converged = conv | (iters >= params.max_iterations)
         else:
             converged = (torch.abs(fit - old_fit) < params.tol) | (
                 iters >= params.max_iterations
             )
         return state._replace(
             kt=kt, grams=grams, iters=iters, fit=fit, old_fit=old_fit,
-            approx_error=err, converged=converged,
+            approx_error=err, converged=converged, hi=hi,
         )
 
     iteration.prepare = prepare

@@ -125,6 +125,9 @@ def _pin_jk_fidelity(params: CalsParams, dev: torch.device) -> CalsParams:
     - epilogue "auto" -> "fused" on the card with the Gauss-Jordan solve
       only: a non-GJ solve_method must not be replaced by the kernels'
       Gauss-Jordan inverse. (The JAX package pins "fused" on the TPU only.)
+      The iteration still takes the fused kernels mode by mode, only where
+      ``ops/fused_epilogue.py:supports_fused_epilogue`` says they take the
+      mode's shape, as the JAX iteration does.
     """
     if params.dimtree == "auto":
         params = dataclasses.replace(params, dimtree="off")
@@ -201,6 +204,10 @@ def jk_cp_batched_als(x, fitted: list[Ktensor], params: AlsParams = AlsParams(),
         merged.models.extend(rep.models)
         for r, n in rep.engine_iterations.items():
             merged.engine_iterations[r] = merged.engine_iterations.get(r, 0) + n
+        for r, counts in rep.loop_counts.items():
+            into = merged.loop_counts.setdefault(r, dict.fromkeys(counts, 0))
+            for k, v in counts.items():
+                into[k] += v
         out = [_rescale_replicate(kt, f) for kt, f in zip(results, fibers)]
         report.results.append(jk_permutation_adjustment(kt_host, out))
     return report

@@ -1,9 +1,10 @@
 """Solver state shared by the iteration and the CALS engine (port of
-``cp_cals_tpu/solvers/state.py:70-167``).
+``cp_cals_tpu/solvers/state.py:45-167``).
 
 Every field carries the leading batch dim ``(B,)`` of a bucket. The
-line-search (``ls``) and mixed-tier (``hi``) carries are ``()`` in this
-slice of the port.
+mixed-tier carry ``hi`` is a ``HiState`` when ``tol_check_interval > 0``
+and ``()`` otherwise; the NNLS (``active``) and line-search (``ls``)
+carries are ``()`` until those are ported.
 """
 
 from __future__ import annotations
@@ -14,6 +15,19 @@ import torch
 
 from ..ktensor import Ktensor
 from ..ops.gramians import gramians
+
+
+class HiState(NamedTuple):
+    """Mixed-tier stopping carry (``tol_check_interval``): each model's
+    full-precision fit and iteration count at its last periodic check, and
+    the window rate and length measured there (0 until two checks are on
+    record), for the decay extrapolation of phase-shifted windows
+    (``iteration.extrapolated_delta``)."""
+
+    fit_prev: torch.Tensor  # [B], high-tier fit at the previous check
+    iters_prev: torch.Tensor  # [B] int32, the model's iters at that check
+    rate_prev: torch.Tensor  # [B], per-iteration rate of the previous window
+    gap_prev: torch.Tensor  # [B] int32, that window's length
 
 
 class SolverState(NamedTuple):
@@ -30,7 +44,7 @@ class SolverState(NamedTuple):
     x_norm_model: torch.Tensor  # [B], leave-one-out norm for JK models
     active: tuple = ()  # NNLS active sets (not ported yet)
     ls: tuple = ()  # line-search carry (not ported yet)
-    hi: tuple = ()  # mixed-tier carry (not ported yet)
+    hi: HiState | tuple = ()  # mixed-tier carry, () unless tol_check_interval > 0
 
 
 def tree_map(fn, *trees):
@@ -42,6 +56,13 @@ def tree_map(fn, *trees):
         out = [tree_map(fn, *parts) for parts in zip(*trees)]
         return type(first)(*out) if hasattr(first, "_fields") else tuple(out)
     raise TypeError(f"unsupported state leaf {type(first)}")
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of (named) tuples of tensors, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for part in tree for leaf in tree_leaves(part)]
 
 
 def tree_where(cond: torch.Tensor, a, b):
@@ -62,9 +83,11 @@ def init_state(
     x_norm_model=None,
     rank_mask=None,
     alive: bool | torch.Tensor = True,
+    mixed_tol: bool = False,
 ) -> SolverState:
     """Initial state of a batched Ktensor: gramians of the initial guess,
-    iteration counters at 0 (the first iteration makes them 1)."""
+    iteration counters at 0 (the first iteration makes them 1), and with
+    ``mixed_tol`` a zero ``HiState``."""
     batch_shape = tuple(kt.lam.shape[:-1])
     dev, dtype = kt.lam.device, kt.lam.dtype
     r = kt.rank
@@ -80,6 +103,10 @@ def init_state(
         x_norm_model = x_norm
     x_norm_model = torch.as_tensor(x_norm_model, dtype=dtype, device=dev)
     x_norm_model = x_norm_model.expand(batch_shape).contiguous()
+    hi = ()
+    if mixed_tol:
+        i0 = torch.zeros(batch_shape, dtype=torch.int32, device=dev)
+        hi = HiState(fit_prev=zeros.clone(), iters_prev=i0, rate_prev=zeros.clone(), gap_prev=i0.clone())
     return SolverState(
         kt=kt,
         grams=gramians(kt.factors),
@@ -92,4 +119,5 @@ def init_state(
         alive=torch.as_tensor(alive, device=dev).expand(batch_shape).clone(),
         jk_fiber=jk_fiber,
         x_norm_model=x_norm_model,
+        hi=hi,
     )

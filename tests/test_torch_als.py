@@ -116,7 +116,7 @@ def test_cp_als_takes_3d_tensors_only():
     rng = np.random.default_rng(0)
     modes = (4, 3, 3, 2)
     kt0 = random_ktensor_host(rng, modes, 2, dtype=np.float64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         cp_als(rng.normal(size=modes), kt0, AlsParams(), device="cpu")
 
 

@@ -16,6 +16,8 @@ versions round the same elimination, with FMAs at other places); the
 probe's copy kernel is exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,7 @@ from cp_cals_tpu_torch import (
     jk_cp_cals,
     random_ktensor_host,
 )
+from cp_cals_tpu_torch import launches
 from cp_cals_tpu_torch import probe_overhead as probe
 from cp_cals_tpu_torch.ops import fused_epilogue as fe
 from cp_cals_tpu_torch.ops import fused_mttkrp as fm
@@ -524,3 +527,168 @@ def test_jk_cp_cals_pallas_on_card_matches_cpu(dev):
             mask = np.isfinite(fa)
             assert (mask == np.isfinite(fb)).all()
             np.testing.assert_allclose(fa[mask], fb[mask], rtol=2e-3, atol=2e-3)
+
+
+# ------------------------------------------------------------ predicated MTTKRP
+
+
+def _raw_launch(x3, u1, u2, precision, pred, out):
+    """The wrapper's launch with a caller's output (prefilled), so that a
+    test sees what an off predicate leaves unwritten."""
+    from cp_cals_tpu_torch import _build
+
+    dev = x3.device
+    b, j, r = u1.shape
+    k = u2.shape[1]
+    index = torch.cuda.current_device()
+    stream = _build.stream_ptr(dev)
+    if precision == "highest":
+        jj, kk, i = x3.shape
+        plan = fm.fp32_plan(index, jj, i, kk, b * r)
+        work = torch.full((plan[2] * plan[3], i, b * r), float("nan"), device=dev)
+        code = fm._lib_fp32().fused_mttkrp_launch(
+            x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(), work.data_ptr(),
+            jj, i, x3.stride(1), kk, b, r, *plan, pred.data_ptr(), stream)
+    else:
+        planes = fm.PLANES[precision]
+        i, kp = x3.shape[-2], x3.shape[-1]
+        plan = fm.tc_plan(index, j, i, kp, b * r, planes)
+        work = torch.full((plan[2] * plan[3], i, b * r), float("nan"), device=dev)
+        code = fm._lib_tc().fused_mttkrp_tc_launch(
+            x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(), work.data_ptr(),
+            j, i, k, kp, b, r, planes - 1, *plan, pred.data_ptr(), stream)
+    _build.check(code, "predicated launch")
+    torch.cuda.synchronize()
+    return plan
+
+
+PRED_CASES = [("highest", c) for c in ((41, 301, 299, 12, 8), (299, 3001, 3, 6, 5), (20, 30, 1, 1, 3))] + [
+    (p, c) for p in ("default", "high") for c in ((41, 301, 299, 12, 8), (70, 3001, 3, 6, 5), (20, 30, 1, 1, 3))]
+
+
+@pytest.mark.parametrize("precision,case", PRED_CASES)
+def test_predicated_mttkrp(dev, precision, case):
+    """A predicate of 0 leaves the output (and the split workspace's sum)
+    unwritten and counts one predicated launch; a predicate of 1 gives the
+    unpredicated kernel's result bit for bit. The cases include j and k
+    splits, so the split reduction is predicated too."""
+    i, k, j, b, r = case
+    rng = np.random.default_rng(sum(case))
+    x = torch.from_numpy(rng.normal(size=(i, k, j)).astype(np.float32)).to(dev)
+    u1 = torch.from_numpy(rng.normal(size=(b, j, r)).astype(np.float32)).to(dev)
+    u2 = torch.from_numpy(rng.normal(size=(b, k, r)).astype(np.float32)).to(dev)
+    x3 = fm.prepare_mode_tensor(x, 0, precision)
+    want = fm.fused_mttkrp(x3, u1, u2, precision)
+    off = torch.zeros(1, dtype=torch.int32, device=dev)
+    on = torch.ones(1, dtype=torch.int32, device=dev)
+    out = torch.full((b, i, r), float("nan"), device=dev)
+    _raw_launch(x3, u1, u2, precision, off, out)
+    assert torch.isnan(out).all()
+    _raw_launch(x3, u1, u2, precision, on, out)
+    assert torch.equal(out, want)
+    kernel = fm.fused_mttkrp_fp32 if precision == "highest" else fm.fused_mttkrp_tc
+    before = (kernel.launches, kernel.predicated)
+    got = fm.fused_mttkrp(x3, u1, u2, precision, pred=on)
+    fm.fused_mttkrp(x3, u1, u2, precision, pred=off)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (kernel.launches, kernel.predicated) == (before[0], before[1] + 2)
+    with pytest.raises(ValueError):
+        fm.fused_mttkrp(x3, u1, u2, precision, pred=on.to(torch.int64))
+
+
+# ------------------------------------------------------------ the engine loops
+
+
+def _bench_problem(seed, per_rank):
+    """The bench tensor's shape (299 x 301 x 41), ranks 1-20 with a few
+    models each."""
+    rng = np.random.default_rng(seed)
+    modes = (299, 301, 41)
+    kt = random_ktensor_host(rng, modes, 5)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    x = (x + 0.05 * x.std() * rng.standard_normal(modes)).astype(np.float32)
+    return x, [random_ktensor_host(rng, modes, r) for r in range(1, 21) for _ in range(per_rank)]
+
+
+_counts, _zero = launches.read, launches.reset
+
+
+@pytest.mark.parametrize("tiers", [{}, dict(precision="high", mttkrp_precision="default")],
+                         ids=["highest", "bench_tiers"])
+def test_graph_loop_matches_the_iter_loop(dev, tiers):
+    """The captured loop against sync_mode="iter" at the bench shapes, cut
+    to 3 models per rank (buckets 4-20 of 12-16 slots, refills): every
+    model's fit, iterations and factors bit for bit, and the launch counts
+    exact with the replays."""
+    x, queue = _bench_problem(3, 3)
+    base = CalsParams(max_iterations=6, force_max_iter=True, bucket_ranks=(4, 8, 12, 16, 20), buffer_size=600,
+                      tail_compaction_depth=0, **tiers)
+    kernel = "fused_mttkrp_tc" if tiers else "fused_mttkrp_fp32"
+    runs = {}
+    for mode in ("iter", "evict"):
+        _zero()
+        runs[mode] = cp_cals(x, queue, dataclasses.replace(base, sync_mode=mode))
+        counts = _counts()
+        steps = sum(runs[mode][1].engine_iterations.values())
+        assert counts == {k: (3 * steps if k in (kernel, "normal_inverse", "epilogue_apply") else 0)
+                          for k in counts}
+    (res_i, rep_i), (res_g, rep_g) = runs["iter"], runs["evict"]
+    assert rep_g.engine_iterations == rep_i.engine_iterations
+    assert sum(c["captures"] for c in rep_g.loop_counts.values()) == len(rep_g.loop_counts)
+    assert sum(c["replays"] for c in rep_g.loop_counts.values()) > 0
+    for a, b, ma, mb in zip(res_i, res_g, rep_i.models, rep_g.models):
+        assert (ma.iters, ma.fit, ma.approx_error) == (mb.iters, mb.fit, mb.approx_error)
+        for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
+            np.testing.assert_array_equal(fa, fb)
+
+
+def test_graph_loop_with_checks_and_polish_matches_cpu(dev):
+    """The fast tier's mixed-tier check and polish through the graph loop
+    (tol-driven, refills): iterations within one check window of the CPU
+    run's and fits at 1e-4; one predicated launch per bucket-iteration."""
+    x, rng, modes = _als_problem(5, rank=4)
+    queue = [random_ktensor_host(rng, modes, r) for r in (2, 3, 4, 3, 2, 4, 3)]
+    params = CalsParams(tol=1e-6, max_iterations=60, bucket_ranks=(4,), buffer_size=12, precision="high",
+                        mttkrp_precision="default", tol_check_interval=3, polish_iters=6, polish_tol=1e-6,
+                        evict_batch=2)
+    _zero()
+    res_d, rep_d = cp_cals(x, queue, params)
+    counts = _counts()
+    steps = sum(rep_d.engine_iterations.values())
+    sweeps = sum(c["polish_sweeps"] for c in rep_d.loop_counts.values())
+    assert sweeps > 0
+    assert counts["fused_mttkrp_tc"] == counts["normal_inverse"] == 3 * (steps + sweeps)
+    assert counts["fused_mttkrp_tc.predicated"] == steps
+    res_c, rep_c = cp_cals(x, queue, params, device="cpu")
+    for a, b, ma, mb in zip(res_d, res_c, rep_d.models, rep_c.models):
+        assert abs(ma.iters - mb.iters) <= 3
+        assert abs(ma.fit - mb.fit) <= 1e-4
+
+
+@pytest.mark.parametrize("modes,rank,data_rank", [((3000, 64, 48), 20, 24), ((90, 80, 70), 65, 70)],
+                         ids=["I3000_R20", "R65"])
+def test_cp_cals_beyond_the_fused_epilogue(dev, modes, rank, data_rank):
+    """Modes the fused epilogue cannot take (shared memory at I = 3,000 and
+    R = 20; R = 65 above its MAX_R, bucket 128) go through the unfused path
+    mode by mode, where the default cp_cals used to raise; against the same
+    run on the CPU at this file's tolerances. The models fit data of a
+    higher rank (24, 70), so that their factors are determined and the
+    two summation orders stay within those tolerances."""
+    rng = np.random.default_rng(rank)
+    kt = random_ktensor_host(rng, modes, data_rank)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    x = (x + 0.01 * rng.standard_normal(modes)).astype(np.float32)
+    queue = [random_ktensor_host(rng, modes, r) for r in (rank, rank - 1, 3)]
+    params = CalsParams(max_iterations=5, force_max_iter=True)
+    _zero()
+    res_d, rep_d = cp_cals(x, queue, params)
+    res_c, rep_c = cp_cals(x, queue, params, device="cpu")
+    for a, b, ma, mb in zip(res_d, res_c, rep_d.models, rep_c.models):
+        assert ma.iters == mb.iters == 5
+        assert abs(ma.fit - mb.fit) <= 1e-4
+        for fa, fb in zip(a.factors, b.factors):
+            np.testing.assert_allclose(fa, fb, rtol=2e-3, atol=2e-3)
+    assert not fe.supports_fused_epilogue(1, 3000, 20, torch.float32, 3, dev)
+    assert not fe.supports_fused_epilogue(1, 90, 65, torch.float32, 3, dev)
+    assert fe.supports_fused_epilogue(1, 299, 20, torch.float32, 3, dev)

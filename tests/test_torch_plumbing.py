@@ -112,12 +112,8 @@ def test_result_wire_dtype(wire):
     [
         dict(update_method=pcfg.UpdateMethod.NNLS),
         dict(line_search=True),
-        dict(tol_check_interval=3),
-        dict(polish_iters=1),
         dict(dimtree="on"),
         dict(mode_layouts="recompute"),
-        dict(sync_mode="iter"),
-        dict(always_evict_first=True),
         dict(mttkrp_method=pcfg.MttkrpMethod.TWOSTEP),
         dict(mttkrp_method=pcfg.MttkrpMethod.KRP_GEMM),
     ],
@@ -129,7 +125,7 @@ def test_unported_settings_raise(change):
 
 
 @pytest.mark.parametrize(
-    "kwargs", [dict(checkpoint_dir="ckpt"), dict(max_rounds_per_bucket=1), dict(trace=[])]
+    "kwargs", [dict(checkpoint_dir="ckpt"), dict(trace=[])]
 )
 def test_unported_engine_options_raise(kwargs):
     x, queue = _problem()

@@ -101,7 +101,7 @@ def build(out_dir: str) -> dict:
                 kernels.setdefault(current, {})["registers"] = int(m.group(1))
                 current = None
         lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
-        lib.fused_mttkrp_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.fused_mttkrp_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2
         lib.fused_mttkrp_launch.restype = ctypes.c_int
         libs[name] = (lib, kernels)
     return libs
@@ -152,7 +152,7 @@ def main() -> int:
                     code = lib.fused_mttkrp_launch(
                         x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),
                         work.data_ptr() if work is not None else None, j, i, x3.stride(1), k, b, r,
-                        *p, torch.cuda.current_stream().cuda_stream)
+                        *p, None, torch.cuda.current_stream().cuda_stream)
                     if code != 0:
                         raise RuntimeError(f"{name}: CUDA error {code}")
 
