@@ -14,7 +14,7 @@ the result lines are printed):
    for the bench workload (299x301x41, buffer_size=2880) and every mode,
    each kernel is held against its plain PyTorch version on the card on the
    same inputs, and kernel, plain version and one PyTorch yardstick call are
-   timed with CUDA events. The MTTKRP runs at every tier on that tier's held
+   timed with CUDA events, and the port's twostep and krp_gemm beside them. The MTTKRP runs at every tier on that tier's held
    layout of X: "highest" through the fp32 kernel, "high" and "default"
    through the tensor-core kernel. The normal inverse is held on the engine's own
    normal matrices: a bucket of bench-workload models run through the
@@ -33,9 +33,30 @@ the result lines are printed):
    Each run starts with every launch count at 0, and each kernel of its
    path (the MTTKRP kernel of its tier) must have launched 3 x (the
    bucket-iterations the engine ran + its polish sweeps), replays
-   included, every other kernel not at all. In the graph-loop runs 20
-   models (one of each rank) are cross-checked against the port's own
-   float64 run on the CPU from the same inits.
+   included, every other kernel not at all, and the MTTKRP results by
+   route (``launches.routes``) as the run's path says. In the graph-loop
+   runs 20 models (one of each rank) are cross-checked against the port's
+   own float64 run on the CPU from the same inits. Then the other routes on
+   the bench tensor: explicit twostep and krp_gemm at "highest" (no MTTKRP
+   kernel), the bench-tier run with mode_layouts="recompute" (bit for bit
+   the held layouts' run), and dimtree="on" at "highest" (the fused kernel
+   on mode 0, modes 1 and 2 from one shared TTM), timed in turns with "off"
+   (off, on, on, off); the three cross-checked like "highest". A small
+   float64 problem on the card: the gates send it to the twostep and the
+   unfused path (no kernel launches), against the same run on the CPU.
+4b. N-D: the bench workload with a fourth mode of 8 (299x301x41x8, 29.5 M
+   entries; the same 400 models, buckets and budget; 10 forced
+   iterations) at "highest" and at the bench tiers. Every mode takes the
+   twostep (four route counts per bucket-iteration, no MTTKRP kernel),
+   every normal inverse multiplies K = 3 gramians and one apply per
+   bucket-iteration finishes the K = 3 error (both recorded by K, replays
+   included). One model per bucket is cross-checked against the port's
+   float64 CPU run (with the float32 CPU run's distance beside it); the
+   bench-tier run is traced with torch.profiler for the device's busy
+   share and time by kernel, and the twostep is timed at every (B, mode)
+   of it for its share of that time. Then the widened epilogue kernels at
+   K = 3 and 4 (a fifth mode of 5) against their plain versions at every
+   (B, R) of the engine and every mode, timed (K = 2 is phase 3's).
 5. Jackknife, at full width (the JAX bench's jackknife configuration): a
    rank-5 model of the bench tensor fitted by cp_als on the card, then its
    299 leave-one-out replicates in one bucket of rank 8 (B = 320), each
@@ -66,7 +87,9 @@ the result lines are printed):
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality.
 8. Result: the graph captures, replays and stats fetches of each run, one
-   {"kernels": [...]} line, then the last line
+   {"kernels": [...]} line (the normal inverse and the apply also at K = 3,
+   as "normal_inverse_k3" and "epilogue_apply_k3", at the 4-D run's launch
+   mix), then the last line
    {"ok": true, "device": {...}}. The per-shape measurements go to
    chiprun_out/chip_smoke.json, the probe's to
    chiprun_out/overhead_probe.json.
@@ -132,6 +155,13 @@ BENCH_TIERS = dict(precision="high", mttkrp_precision="default")
 # of each pivot): on J2's normal matrices (cond <= 1.1e4) and random batches
 # up to cond 1e4 it read at most 7.9e-8 on an H100.
 TOL = {"mttkrp": 2e-5, "hinv": 1e-6, "apply": 1e-5, "apply_err": 1e-5}
+# The N-D slice: the bench tensor with a fourth mode of 8 (29.5 M entries,
+# 118 MB in float32), the same queue and buckets; every mode takes the
+# twostep, and every normal matrix and FastALS error multiplies K = 3 other
+# gramians. The widened epilogue kernels are also held at K = 4 (a fifth
+# mode of 5), on the same tolerances as at K = 2.
+MODES4 = MODES + (8,)
+WIDE = {3: MODES4, 4: MODES4 + (5,)}
 # Engine against the port's float64 CPU run (20 models, 10 iterations from
 # the same inits): the largest |fit difference| and relative reconstruction
 # difference allowed, per run. Both runs are deterministic; on an H100 they
@@ -140,6 +170,30 @@ TOL = {"mttkrp": 2e-5, "hinv": 1e-6, "apply": 1e-5, "apply_err": 1e-5}
 # forced iterations, one polish sweep at "high", float16 wire) reads
 # 1.2e-5 / 1.0e-3.
 CROSS_TOL = {"highest": (5e-5, 5e-5), "bench-tiers": (1e-2, 1e-2), "headline": (1e-4, 5e-3)}
+# The 3-D runs through the other MTTKRP routes at "highest" are held to the
+# "highest" run's limits: each computes the same products in another order.
+CROSS_TOL.update({"twostep": CROSS_TOL["highest"], "krp_gemm": CROSS_TOL["highest"],
+                  "dimtree": CROSS_TOL["highest"]})
+# The 4-D runs against the port's float64 CPU run of the same settings (one
+# model per bucket, 10 iterations from the same inits): the largest
+# |difference of the fits from the dense reconstructions| and relative
+# reconstruction difference allowed, on the ranks held. "highest" reads
+# 2.7e-6 / 1.7e-4 on an H100, where the port's float32 CPU run reads
+# 2.3e-7 / 9.3e-5 against the same reference: float32 rounding moves these
+# rank-4 to -20 models of a rank-5 tensor along directions the fit barely
+# sees. At the bench tiers the twostep's bf16 products drive the models of
+# rank above the tensor's 5 into two-factor degeneracy within 10
+# iterations (negative dense fits on the card and in float64), where the
+# two runs part ways; only the rank-4 model is held there, and even it moves
+# by the bf16 roundings of the factors in every product and of both
+# intermediates: 1.9e-2 / 9.2e-2 against the float64 run of the same
+# tiers, whose fit (0.4865) the card's (0.5056) and "highest"'s (0.5140)
+# bracket. The limits give that reading 2.5x room.
+ND_CROSS_TOL = {"4-D highest": (5e-5, 1e-3), "4-D bench-tiers": (5e-2, 2.5e-1)}
+ND_HELD_RANKS = {"4-D highest": BUCKETS, "4-D bench-tiers": (4,)}
+# A float64 problem on the card against the same run on the CPU: the two
+# sum in other orders in float64.
+F64_TOL = (1e-10, 1e-9)
 HEADLINE = dict(max_iterations=50, polish_iters=1, result_wire_dtype="float16")
 HINV_SNAPSHOTS = (1, 4, ITERS)  # engine iterations whose grams are checked
 # The jackknife phase: the bench tensor's rank-5 model (fitted from this
@@ -230,13 +284,15 @@ def rel_err(got, want) -> tuple[float, float]:
     return err, want.abs().max().item()
 
 
-def bench_tensor():
-    """The bench workload's tensor: rank-5 model + 5% noise, seed 42."""
+def bench_tensor(modes=MODES):
+    """The bench workload's tensor: rank-5 model + 5% noise, seed 42
+    (bench.py: build_workload); ``MODES4`` gives it a fourth mode."""
     from cp_cals_tpu_torch import random_ktensor_host
 
     rng = np.random.default_rng(42)
-    kt = random_ktensor_host(rng, MODES, 5, dtype=np.float32)
-    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    kt = random_ktensor_host(rng, modes, 5, dtype=np.float32)
+    x = np.einsum(",".join("ijkl"[n] + "r" for n in range(len(modes))) + ",r->" + "ijkl"[:len(modes)],
+                  *kt.factors, kt.lam)
     x = x + 0.05 * x.std() * rng.standard_normal(x.shape)
     return x.astype(np.float32), rng
 
@@ -331,14 +387,18 @@ def hinv_reading(got, want, h) -> dict:
     )
 
 
-def cancelling_norms(g, hinv, iters, jk, zero_jk, gram_a, gram_b):
+def cancelling_norms(g, hinv, iters, jk, zero_jk, others):
     """Model norms for the apply's error check: |X|^2 = 2 term3 - term2 +
     0.035 (|term2| + 2 |term3|), the terms of the plain version's error in
-    float64, so that err^2 is 3.5 % of their size (0 for a dead slot)."""
+    float64 (``others`` the other modes' gramians), so that err^2 is 3.5 %
+    of their size (0 for a dead slot)."""
     from cp_cals_tpu_torch.ops import fused_epilogue as fe
 
     f, lam, gm, _ = fe.epilogue_apply_plain(g, hinv, iters, jk, zero_jk)
-    lam, h = lam.double(), (gram_a.double() * gram_b.double() * gm.double())
+    h = gm.double()
+    for o in others:
+        h = h * o.double()
+    lam = lam.double()
     t2 = torch.einsum("bi,bj,bij->b", lam, lam, h)
     t3 = torch.einsum("bc,bic,bic->b", lam, f.double(), g.double())
     xn2 = 2 * t3 - t2 + 0.035 * (t2.abs() + 2 * t3.abs())
@@ -405,6 +465,9 @@ def kernel_phase(x, dev):
                     library_ms=cuda_ms(library),
                     library_graph_ms=graph_ms(library),
                 )
+            # The port's twostep and krp_gemm at the same shapes, beside the
+            # fused kernels.
+            row["methods"] = mttkrp_methods_row(x, mode, factors)
             g = fm.fused_mttkrp(fm.prepare_mode_tensor(x, mode), u1, u2, "highest")
             checks = []
             for it, e_grams in snaps:
@@ -443,7 +506,7 @@ def kernel_phase(x, dev):
             for iters_val in (1, 4):
                 iters = torch.full((b,), iters_val, dtype=torch.int32, device=dev)
                 for zero_jk in (False, True):
-                    x_norm = cancelling_norms(g, hinv, iters, jk, zero_jk, grams[0], grams[1])
+                    x_norm = cancelling_norms(g, hinv, iters, jk, zero_jk, grams[:2])
                     for with_err in (False, True):
                         err_inputs = (x_norm, grams[0], grams[1]) if with_err else None
                         got = fe.epilogue_apply(g, hinv, iters, jk, zero_jk, err_inputs)
@@ -493,7 +556,8 @@ def kernel_phase(x, dev):
                   + f" hinv={row['hinv']['ms']:.4f}ms (graph {row['hinv']['graph_ms']:.4f}, "
                   f"{row['hinv']['path']} path, cond <= {row['hinv']['cond_max']:.3g}, "
                   f"err/(cond*max) {row['hinv']['ratio']:.3g}) apply={row['apply']['ms']:.4f}ms "
-                  f"(graph {row['apply']['graph_ms']:.4f}, error {with_err})",
+                  f"(graph {row['apply']['graph_ms']:.4f}, error {with_err}); "
+                  + ", ".join(f"{k} {v['ms']:.4f}ms (graph {v['graph_ms']:.4f})" for k, v in row["methods"].items()),
                   flush=True)
     return rows, worst
 
@@ -501,11 +565,11 @@ def kernel_phase(x, dev):
 # ------------------------------------------------------------ engine phase
 
 
-def engine_queue(rng):
+def engine_queue(rng, modes=MODES):
     from cp_cals_tpu_torch import random_ktensor_host
 
     return [
-        random_ktensor_host(rng, MODES, r, dtype=np.float32)
+        random_ktensor_host(rng, modes, r, dtype=np.float32)
         for r in range(1, 21) for _ in range(20)
     ]
 
@@ -528,31 +592,45 @@ def read_counts() -> dict:
 MTTKRP_KERNEL = {"highest": "fused_mttkrp_fp32", "high": "fused_mttkrp_tc", "default": "fused_mttkrp_tc"}
 
 
-def fused(tier: str) -> tuple:
-    """The kernels one bucket-iteration of the fused-epilogue path launches
-    per mode: the MTTKRP kernel of the MTTKRP's tier, then the epilogue."""
-    return (MTTKRP_KERNEL[tier], "normal_inverse", "epilogue_apply")
+def fused(tier: str, n_modes: int = 3, mttkrp_modes: int | None = None) -> dict:
+    """The kernels one bucket-iteration of the fused-epilogue path launches,
+    and how often: per mode the MTTKRP kernel of the MTTKRP's tier (on
+    ``mttkrp_modes`` of the modes: all by default; None of them where
+    the twostep computes every mode), then the epilogue."""
+    out = {"normal_inverse": n_modes, "epilogue_apply": n_modes}
+    m = n_modes if mttkrp_modes is None else mttkrp_modes
+    if m:
+        out[MTTKRP_KERNEL[tier]] = m
+    return out
 
 
-def unfused(tier: str) -> tuple:
+def unfused(tier: str) -> dict:
     """... of the unfused path through the SPD-inverse kernel."""
-    return (MTTKRP_KERNEL[tier], "spd_inverse")
+    return {MTTKRP_KERNEL[tier]: 3, "spd_inverse": 3}
 
 
-def check_launches(name: str, counts: dict, per_step: tuple, steps: int, checked: str | None = None,
+def check_launches(name: str, counts: dict, per_step: dict, steps: int, checked: str | None = None,
                    checks: int = 0) -> None:
-    """The kernels in ``per_step`` launched 3 x ``steps`` times (once per
-    mode of each bucket-iteration or polish sweep), every other kernel not
-    at all; the predicated launches of the mixed-tier check's MTTKRP
-    (kernel ``checked``) ``checks`` times, once per bucket-iteration."""
+    """Each kernel of ``per_step`` launched its count x ``steps`` times
+    (bucket-iterations and polish sweeps), every other kernel not at all;
+    the predicated launches of the mixed-tier check's MTTKRP (kernel
+    ``checked``) ``checks`` times, once per bucket-iteration."""
     for k, v in counts.items():
         if k.endswith(".predicated"):
             want = checks if k == f"{checked}.predicated" else 0
         else:
-            want = 3 * steps if k in per_step else 0
+            want = per_step.get(k, 0) * steps
         if v != want or (k in per_step and v == 0):
-            raise AssertionError(f"{name}: {k} launched {v} times, expected {want} (3 x {steps}, "
+            raise AssertionError(f"{name}: {k} launched {v} times, expected {want} ({per_step} x {steps}, "
                                  f"{checks} checks)")
+
+
+def check_routes(name: str, routes: dict, per_step: dict, steps: int) -> None:
+    """The MTTKRP results by route (``launches.routes``): each route of
+    ``per_step`` its count x ``steps``, every other none."""
+    want = {k: per_step.get(k, 0) * steps for k in routes}
+    if routes != want:
+        raise AssertionError(f"{name}: MTTKRP routes {routes}, expected {want}")
 
 
 def loop_totals(rep) -> dict:
@@ -575,8 +653,13 @@ def bench_params(**kw):
     return CalsParams(**{**base, **kw})
 
 
-def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, **kw):
-    from cp_cals_tpu_torch import cp_cals
+def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, per_step: dict | None = None,
+               routes: dict | None = None, **kw):
+    """One cp_cals run from counts at 0: ``per_step`` the kernels of its
+    path and their launches per bucket-iteration (default: the 3-D fused
+    path), ``routes`` its MTTKRP results by route (default: the fused
+    kernels on all three modes)."""
+    from cp_cals_tpu_torch import cp_cals, launches
 
     params = bench_params(**tiers, **kw)
     torch.cuda.synchronize()
@@ -588,8 +671,10 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, **kw):
     counts = read_counts()
     bucket_iters = sum(rep.engine_iterations.values())
     loop = loop_totals(rep)
-    check_launches(name, counts, fused(params.mttkrp_precision or params.precision),
-                   bucket_iters + loop["polish_sweeps"])
+    steps = bucket_iters + loop["polish_sweeps"]
+    check_launches(name, counts, per_step or fused(params.mttkrp_precision or params.precision), steps)
+    route_counts = launches.routes()
+    check_routes(name, route_counts, routes or {"fused": 3}, steps)
     if len(results) != len(queue) or any(kt is None for kt in results):
         raise AssertionError(f"{name}: missing results")
     for kt, q in zip(results, queue):
@@ -605,12 +690,12 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, **kw):
     out = dict(
         wall_s=wall, models_per_s=len(queue) / wall, mean_fit=float(fits.mean()),
         mean_iters=float(iters.mean()), bucket_iterations=rep.engine_iterations,
-        launches=counts, phase_times={str(k): v for k, v in rep.phase_times.items()}, loop=loop,
-        sync_mode=params.sync_mode,
+        launches=counts, routes=route_counts, phase_times={str(k): v for k, v in rep.phase_times.items()},
+        loop=loop, sync_mode=params.sync_mode,
     )
     print(f"engine {name}: wall {wall:.3f}s, {out['models_per_s']:.1f} models/s, "
           f"mean fit {out['mean_fit']:.6f}, mean iters {out['mean_iters']}, "
-          f"bucket-iterations {bucket_iters}, launches {counts}", flush=True)
+          f"bucket-iterations {bucket_iters}, launches {counts}, MTTKRP routes {route_counts}", flush=True)
     print(f"engine {name} loop ({params.sync_mode}): {loop['captures']} graph captures, "
           f"{loop['replays']} replays, {loop['stats_fetches']} stats fetches, "
           f"{loop['polish_sweeps']} polish sweeps", flush=True)
@@ -707,7 +792,7 @@ class Recorder:
     iteration eagerly first, as its warm-up); ``keep`` says which
     arguments stay by reference (ones nothing writes to)."""
 
-    module, attr, keep = None, None, ()
+    module, attr, keep, n_first = None, None, (), 3
 
     def key(self, *args):
         raise NotImplementedError
@@ -726,16 +811,16 @@ class Recorder:
         self.tallies = [self.shapes]
         launches.TALLIES.extend(self.tallies)
 
-        def record(*args):
-            key = self.key(*args)
+        def record(*args, **kw):
+            key = self.key(*args, **kw)
             if key is not None:
                 captured = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
                 self.shapes[key] = self.shapes.get(key, 0) + 1
                 if key not in self.first and not captured:
-                    self.first[key] = tuple(a if i in self.keep else a.clone() for i, a in enumerate(args[:3]))
+                    self.first[key] = tuple(a if i in self.keep else a.clone() for i, a in enumerate(args[:self.n_first]))
                 self.seen(self.n, captured, args)
                 self.n += 1
-            return self.real(*args)
+            return self.real(*args, **kw)
 
         setattr(self.mod, self.attr, record)
         return self
@@ -807,7 +892,7 @@ class MttkrpRecorder(Recorder):
         return None if pred is not None else (u1.shape[0], MODES.index(i), precision)
 
 
-def jk_run(name: str, run, per_step: tuple, checked: str | None = None) -> tuple:
+def jk_run(name: str, run, per_step: dict, checked: str | None = None) -> tuple:
     """One jackknife run from counts at 0: launches (with ``checked``, the
     mixed-tier check's MTTKRP kernel, one predicated launch per
     bucket-iteration), 299 well-formed replicates (factor 0 NaN exactly on
@@ -896,8 +981,8 @@ def jk_phase(x_np, kt5):
     _, runs["J3"] = jk_run(
         "J3", lambda: jk_cp_batched_als(x_np, [kt5], AlsParams(**shared, solve_method="pallas")), unfused("high"))
     # J4: the fast MTTKRP at "default"; the check's and the polish's at "high".
-    _, runs["J4"] = jk_run("J4", lambda: jk_cp_cals(x_np, [kt5], jk_params(**J4)),
-                           ("fused_mttkrp_tc", "normal_inverse", "epilogue_apply"), checked="fused_mttkrp_tc")
+    _, runs["J4"] = jk_run("J4", lambda: jk_cp_cals(x_np, [kt5], jk_params(**J4)), fused("default"),
+                           checked="fused_mttkrp_tc")
     return runs, rec, j1_rec
 
 
@@ -1082,6 +1167,334 @@ def probe_phase(dev) -> dict:
     return dict(result=res, launches=counts["probe_copy"], shapes=shapes)
 
 
+# ------------------------------------------------------------ N-D phase
+
+
+def union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -1.0
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def profiled(fn) -> dict:
+    """``fn`` once under torch.profiler: its wall, the device's busy time
+    (the union of the CUDA kernels' intervals) and share of the wall, and
+    the device time of the largest kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    intervals, by_name = [], collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "Memcpy" not in e.name and "Memset" not in e.name:
+            d, start = e.time_range.elapsed_us(), e.time_range.start
+            intervals.append((start, start + d))
+            by_name[e.name] += d
+    busy = union_us(intervals) / 1e3
+    return dict(wall_s=wall, busy_ms=busy, busy_share=busy / 1e3 / wall, kernels=len(intervals),
+                kernel_ms={n[:100]: us / 1e3 for n, us in by_name.most_common(15)})
+
+
+class GramsRecorder(Recorder):
+    """The iteration's calls of the normal inverse or the apply by (B, K):
+    K the other-mode gramians the call multiplies (for the apply, those of
+    the FastALS error it finishes; 0 without). Counts only."""
+
+    module, keep, n_first = "cp_cals_tpu_torch.solvers.iteration", (), 0
+
+
+class HinvRecorder(GramsRecorder):
+    attr = "normal_inverse"
+
+    def key(self, grams, rank_mask, skip):
+        return (rank_mask.shape[0], len(grams) - 1)
+
+
+class ApplyRecorder(GramsRecorder):
+    attr = "epilogue_apply"
+
+    def key(self, g, hinv, iters, jk_fiber, zero_jk=False, err_inputs=None):
+        return (g.shape[0], 0 if err_inputs is None else len(err_inputs) - 1)
+
+
+def by_k(rec) -> dict:
+    out = collections.Counter()
+    for (_, k), n in rec.shapes.items():
+        out[k] += n
+    return dict(out)
+
+
+def dense(kt, dtype=np.float64) -> np.ndarray:
+    """The full tensor of a host Ktensor of any order."""
+    idx = "ijklm"[: len(kt.factors)]
+    expr = ",".join(c + "r" for c in idx) + ",r->" + idx
+    return np.einsum(expr, *(f.astype(dtype) for f in kt.factors), kt.lam.astype(dtype))
+
+
+def nd_phase(dev) -> dict:
+    """The bench workload with a fourth mode at full width: 400 models, 10
+    forced iterations, at "highest" and at the bench tiers, through the
+    graph loop. Every mode takes the twostep (four route counts per
+    bucket-iteration) and every epilogue the fused kernels with K = 3 other
+    gramians (four normal inverses, all K = 3, and four applies, one with
+    the K = 3 error, per bucket-iteration). Then one model per bucket
+    against the port's float64 CPU run, the bench-tier run profiled for
+    the device's busy share, and the twostep timed at every (B, mode) of the
+    run for its share of the device time."""
+    from cp_cals_tpu_torch import cp_cals
+    from cp_cals_tpu_torch.ops import mttkrp as mt
+    from cp_cals_tpu_torch.solvers.cals import allocate_bucket_batches
+
+    x_np, rng = bench_tensor(MODES4)
+    queue = engine_queue(rng, MODES4)
+    per_step, routes = fused("highest", n_modes=4, mttkrp_modes=0), {"twostep": 4}
+    engine_run(x_np, queue[::80], BENCH_TIERS, "4-D warm-up", check_fit=False, per_step=per_step, routes=routes)
+    out, results = {}, {}
+    for name, tiers in (("4-D highest", {}), ("4-D bench-tiers", BENCH_TIERS)):
+        with HinvRecorder() as hrec, ApplyRecorder() as arec:
+            # The bench tiers' reported fit is the FastALS error of a bf16
+            # MTTKRP, whose noise the 4-D tensor's fits do not survive; the
+            # cross-check below holds the models' dense fits instead.
+            res, rep, run = engine_run(x_np, queue, tiers, name, check_fit=not tiers, per_step=per_step,
+                                       routes=routes)
+        hrec.check_total(f"{name} normal inverses", run["launches"]["normal_inverse"])
+        arec.check_total(f"{name} applies", run["launches"]["epilogue_apply"])
+        steps = sum(rep.engine_iterations.values())
+        if by_k(hrec) != {3: 4 * steps} or by_k(arec) != {0: 3 * steps, 3: steps}:
+            raise AssertionError(f"{name}: normal inverses by K {by_k(hrec)}, applies by K {by_k(arec)}")
+        run.update(normal_inverse_by_k=by_k(hrec), apply_by_k=by_k(arec))
+        out[name], results[name] = run, (res, rep)
+    out["cross_check"] = nd_cross_check(x_np, queue, results)
+    x = torch.from_numpy(x_np).to(dev)
+    params = bench_params(**BENCH_TIERS)
+    prof = profiled(lambda: cp_cals(x_np, queue, params))
+    # The twostep alone at every (B, R) and mode of the runs, at each run's
+    # MTTKRP tier, on its held layout.
+    (alloc,) = allocate_bucket_batches({r: 80 for r in BUCKETS}, BUFFER)
+    held = mt.prepare_batched(x, ["twostep"] * 4)
+    gen = torch.Generator().manual_seed(21)
+    mix = []
+    for r, b in sorted(alloc.items()):
+        factors = [torch.rand(b, m, r, generator=gen).to(dev) for m in MODES4]
+        for mode in range(4):
+            row = dict(B=b, R=r, mode=mode)
+            for tier in ("default", "highest"):
+                row[tier] = graph_ms(lambda: mt.mttkrp_batched_twostep(x, factors, mode, tier, held[mode]))
+            mix.append(row)
+    w = results["4-D bench-tiers"][1].engine_iterations
+    ts_ms = sum(w.get(m["R"], 0) * m["default"] for m in mix)
+    prof.update(twostep_ms=ts_ms, twostep_share=ts_ms / prof["busy_ms"])
+    out.update(profile=prof, twostep_mix=mix)
+    print(f"4-D bench-tiers profiled: wall {prof['wall_s']:.3f}s, device busy {prof['busy_ms']:.2f} ms = "
+          f"{prof['busy_share']:.3f} of the wall, {prof['kernels']} kernels; the twostep alone {ts_ms:.2f} ms "
+          f"= {prof['twostep_share']:.3f} of the busy time", flush=True)
+    for n, ms in prof["kernel_ms"].items():
+        print(f"  {ms:9.3f} ms  {n}", flush=True)
+    for m in mix:
+        print(f"twostep 4-D B={m['B']} R={m['R']} mode={m['mode']}: default {m['default']:.4f}ms, "
+              f"highest {m['highest']:.4f}ms (graph-replayed)", flush=True)
+    return out
+
+
+def nd_cross_check(x_np, queue, runs: dict) -> dict:
+    """One model per bucket (ranks 4, 8, 12, 16, 20) of each 4-D run
+    against the port's float64 CPU run of the same settings from the same
+    inits: the relative reconstruction difference and the difference of
+    the fits from the dense reconstructions (the bench tiers' reported fit
+    is the fast tier's), held to ND_CROSS_TOL on the ranks ND_HELD_RANKS
+    names, reported for all. The port's float32 CPU run at "highest" is
+    measured the same way beside them: what float32 rounding alone moves."""
+    from cp_cals_tpu_torch import Ktensor, cp_cals
+
+    pick = [20 * (r - 1) for r in BUCKETS]
+    q64 = [Ktensor(tuple(f.astype(np.float64) for f in queue[i].factors), queue[i].lam.astype(np.float64))
+           for i in pick]
+    x64 = x_np.astype(np.float64)
+    xn = np.linalg.norm(x64)
+
+    def dense_fit(kt):
+        d = dense(kt)
+        return d, 1 - np.linalg.norm(x64 - d) / xn
+
+    def diffs(results, reference, index):
+        out = []
+        for n, i in enumerate(index):
+            (d, f), (d_ref, f_ref) = dense_fit(results[i]), reference[n]
+            out.append(dict(rank=BUCKETS[n], rel_recon=float(np.linalg.norm(d - d_ref) / np.linalg.norm(d_ref)),
+                            dense_fit=float(abs(f - f_ref)), fit=float(f), reference_fit=float(f_ref)))
+        return out
+
+    out, refs = dict(cpu_s={}), {}
+    for name, tiers in (("highest", {}), ("bench-tiers", BENCH_TIERS)):
+        t0 = time.perf_counter()
+        res64, _ = cp_cals(x64, q64, bench_params(mode_layouts="materialized", **tiers), device="cpu")
+        out["cpu_s"][name] = time.perf_counter() - t0
+        refs[name] = [dense_fit(k) for k in res64]
+    res32, _ = cp_cals(x_np, [queue[i] for i in pick], bench_params(mode_layouts="materialized"), device="cpu")
+    out["cpu_float32"] = diffs(res32, refs["highest"], range(len(pick)))
+    print("cross-check 4-D: the port's float32 CPU run vs its float64 run at 'highest', by rank (fit/recon): "
+          + ", ".join(f"R={d['rank']} {d['dense_fit']:.2e}/{d['rel_recon']:.2e}" for d in out["cpu_float32"]),
+          flush=True)
+    for name, (results, rep) in runs.items():
+        per = diffs(results, refs[name.removeprefix("4-D ")], pick)
+        held = [d for d in per if d["rank"] in ND_HELD_RANKS[name]]
+        fit, rec = max(d["dense_fit"] for d in held), max(d["rel_recon"] for d in held)
+        fit_tol, rec_tol = ND_CROSS_TOL[name]
+        print(f"cross-check {name} vs CPU float64 (5 models, {out['cpu_s']}s on the CPU): held ranks "
+              f"{ND_HELD_RANKS[name]}: max |dense fit diff| {fit:.3e}, max relative reconstruction diff {rec:.3e}; "
+              "by rank (fit, reference fit, fit diff/recon diff) "
+              + ", ".join(f"R={d['rank']} {d['fit']:.4f} {d['reference_fit']:.4f} {d['dense_fit']:.2e}/"
+                          f"{d['rel_recon']:.2e}" for d in per), flush=True)
+        if not (fit <= fit_tol and rec <= rec_tol):
+            raise AssertionError(f"cross-check of {name} against the CPU float64 run failed")
+        out[name] = dict(max_dense_fit_diff=fit, max_rel_recon_diff=rec, by_rank=per)
+    return out
+
+
+def widened_phase(dev) -> dict:
+    """The normal inverse and the apply with K = 3 and 4 other gramians, at
+    every (B, R) the engine allocates and every mode of ``WIDE[K]``, held
+    against their plain versions on the card as the K = 2 kernel phase
+    holds them (random normalized factors with masked columns and a dead
+    slot; the inverse per live model at TOL["hinv"] * cond(H) * max|H^-1|,
+    where 2I - H must fail), and timed: the apply as the iteration calls it, with the error
+    on the last mode. K = 2 keeps the kernel phase's checks."""
+    from cp_cals_tpu_torch.ops import fused_epilogue as fe
+    from cp_cals_tpu_torch.ops.gramians import gramians, hadamard_but_one
+    from cp_cals_tpu_torch.ops.update import padded_hadamard
+    from cp_cals_tpu_torch.solvers.cals import allocate_bucket_batches
+
+    (alloc,) = allocate_bucket_batches({r: 80 for r in BUCKETS}, BUFFER)
+    gen = torch.Generator().manual_seed(29)
+    rows, worst = {}, {"hinv": 0.0, "apply": 0.0, "apply_err": 0.0}
+    for k, modes in WIDE.items():
+        rows[k] = []
+        n = len(modes)
+        for r, b in sorted(alloc.items()):
+            true = torch.tensor([max(1, r - (s % 4)) for s in range(b)])
+            true[-1] = 0
+            mask = (torch.arange(r)[None, :] < true[:, None]).to(dev)
+            # Uniform [0, 1) factors: their columns correlate, so the
+            # product of K gramians is far from the identity (cond up to
+            # ~1e2), and the first-order inverse 2I - H fails the check.
+            factors = []
+            for m in modes:
+                f = torch.rand(b, m, r, generator=gen).to(dev) * mask[:, None, :]
+                factors.append((f / torch.clamp(torch.linalg.vector_norm(f, dim=1, keepdim=True), min=1e-30)))
+            grams = gramians(factors)
+            jk = torch.full((b,), -1, dtype=torch.int32, device=dev)
+            iters = torch.full((b,), 4, dtype=torch.int32, device=dev)
+            for mode in range(n):
+                got = fe.normal_inverse(grams, mask, mode)
+                want = fe.normal_inverse_plain(grams, mask, mode)
+                h = padded_hadamard(hadamard_but_one(grams, mode), mask)
+                live = mask.any(1)
+                reading = hinv_reading(got[live], want[live], h[live])
+                eye = torch.eye(r, device=dev).expand_as(h)
+                if not reading["ratio"] <= TOL["hinv"] or hinv_reading(
+                        (2 * eye - h)[live], want[live], h[live])["ratio"] <= TOL["hinv"]:
+                    raise AssertionError(f"normal_inverse K={k} B={b} R={r} mode={mode}: {reading}")
+                i = modes[mode]
+                g = torch.rand(b, i, r, generator=gen).to(dev) * mask[:, None, :]
+                with_err = mode == n - 1
+                x_norm = cancelling_norms(g, got, iters, jk, False, grams[:-1]) if with_err else None
+                err_inputs = (x_norm, *grams[:-1]) if with_err else None
+                a_got = fe.epilogue_apply(g, got, iters, jk, False, err_inputs)
+                a_want = fe.epilogue_apply_plain(g, got, iters, jk, False, err_inputs)
+                torch.cuda.synchronize()
+                errs = [rel_err(a, w_) for a, w_ in zip(a_got[:3], a_want[:3])]
+                if any(not e <= TOL["apply"] * max(sc, 1e-30) for e, sc in errs):
+                    raise AssertionError(f"epilogue_apply K={k} B={b} R={r} mode={mode}: {errs}")
+                e_rel = 0.0
+                if with_err:
+                    e_rel = ((a_got[3].double() - a_want[3].double()).abs()
+                             / a_want[3].double().abs().clamp(min=1e-30)).max().item()
+                    if not e_rel <= TOL["apply_err"]:
+                        raise AssertionError(f"epilogue_apply error K={k} B={b} R={r}: relative {e_rel}")
+                worst["hinv"] = max(worst["hinv"], reading["max_abs_err"])
+                worst["apply"] = max(worst["apply"], max(e for e, _ in errs))
+                worst["apply_err"] = max(worst["apply_err"], e_rel)
+                a_flops = b * (4 * i * r * r + i * r + (12 * i * r + (18 + k) * r * r if with_err else 0))
+                a_bytes = (4 * (2 * b * i * r + 2 * b * r * r + b * r + 2 * b)
+                           + (4 * (k * b * r * r + 2 * b) if with_err else 0))
+                rows[k].append(dict(
+                    K=k, B=b, R=r, mode=mode, I=i, with_err=with_err, path=inverse_path(b, r),
+                    hinv=dict(**bound(b * (4 * r**3 + (k + 3) * r * r), PEAK_FP32, 4 * (k + 1) * b * r * r + b * r),
+                              max_abs_err=reading["max_abs_err"], ratio=reading["ratio"],
+                              ms=cuda_ms(lambda: fe.normal_inverse(grams, mask, mode)),
+                              graph_ms=graph_ms(lambda: fe.normal_inverse(grams, mask, mode)),
+                              plain_ms=cuda_ms(lambda: fe.normal_inverse_plain(grams, mask, mode)),
+                              library_ms=cuda_ms(lambda: torch.linalg.inv(h)), library_graph_ms=None),
+                    apply=dict(**bound(a_flops, PEAK_FP32, a_bytes), max_abs_err=max(e for e, _ in errs),
+                               max_err_rel=e_rel,
+                               ms=cuda_ms(lambda: fe.epilogue_apply(g, got, iters, jk, False, err_inputs)),
+                               graph_ms=graph_ms(lambda: fe.epilogue_apply(g, got, iters, jk, False, err_inputs)),
+                               plain_ms=cuda_ms(lambda: fe.epilogue_apply_plain(g, got, iters, jk, False, err_inputs)),
+                               library_ms=None, library_graph_ms=None),
+                ))
+                row = rows[k][-1]
+                print(f"widened K={k} B={b:3d} R={r:2d} mode={mode}: hinv {row['hinv']['ms']:.4f}ms (graph "
+                      f"{row['hinv']['graph_ms']:.4f}, err/(cond*max) {reading['ratio']:.3g}), apply "
+                      f"{row['apply']['ms']:.4f}ms (graph {row['apply']['graph_ms']:.4f}, error {with_err})",
+                      flush=True)
+    return dict(rows=rows, worst=worst)
+
+
+def f64_phase() -> dict:
+    """A small float64 problem on the card: the gates send every mode to
+    the twostep and every epilogue to the unfused path (no kernel launches),
+    held to the port's float64 CPU run of the same settings."""
+    from cp_cals_tpu_torch import CalsParams, cp_cals, launches, random_ktensor_host
+
+    rng = np.random.default_rng(31)
+    modes = (30, 25, 20)
+    kt = random_ktensor_host(rng, modes, 3, dtype=np.float64)
+    x = dense(kt) + 1e-3 * rng.standard_normal(modes)
+    queue = [random_ktensor_host(rng, modes, r, dtype=np.float64) for r in (1, 2, 3, 4, 5, 6)]
+    params = CalsParams(max_iterations=10, force_max_iter=True, bucket_ranks=(2, 4, 8), buffer_size=24)
+    torch.cuda.synchronize()
+    reset_counts()
+    res_d, rep_d = cp_cals(x, queue, params)
+    counts, routes = read_counts(), launches.routes()
+    steps = sum(rep_d.engine_iterations.values())
+    check_launches("float64 on the card", counts, {}, steps)
+    check_routes("float64 on the card", routes, {"twostep": 3}, steps)
+    res_c, rep_c = cp_cals(x, queue, params, device="cpu")
+    fit = max(abs(a.fit - b.fit) for a, b in zip(rep_d.models, rep_c.models))
+    rec = max(float(np.linalg.norm(dense(a) - dense(b)) / np.linalg.norm(dense(b))) for a, b in zip(res_d, res_c))
+    print(f"float64 on the card ({steps} bucket-iterations, routes {routes}, no kernel launched) vs the CPU: "
+          f"max |fit diff| {fit:.3e}, max relative reconstruction diff {rec:.3e}", flush=True)
+    if not (fit <= F64_TOL[0] and rec <= F64_TOL[1]):
+        raise AssertionError("float64 on the card differs from the CPU run")
+    return dict(max_fit_diff=fit, max_rel_recon_diff=rec, routes=routes, bucket_iterations=steps)
+
+
+def mttkrp_methods_row(x, mode, u_factors) -> dict:
+    """The port's twostep and krp_gemm at one bucket's shapes and mode,
+    each on its held layout, graph-replayed (and eager), at "highest" and
+    the bench's MTTKRP tier."""
+    from cp_cals_tpu_torch.ops import mttkrp as mt
+
+    out = {}
+    for method, fn in (("twostep", mt.mttkrp_batched_twostep), ("krp_gemm", mt.mttkrp_batched_krp)):
+        held = mt.prepare_batched(x, [method] * 3)[mode]
+        for tier in ("highest", "default"):
+            out[f"{method} {tier}"] = dict(ms=cuda_ms(lambda: fn(x, u_factors, mode, tier, held)),
+                                           graph_ms=graph_ms(lambda: fn(x, u_factors, mode, tier, held)))
+    return out
+
+
 def mean_or_none(rows, bucket_iters, key, field, tier=None):
     """``weighted``, or None where a row has no reading."""
     if any((row[key][tier] if tier else row[key])[field] is None for row in rows):
@@ -1129,6 +1542,30 @@ def main() -> int:
     res_h, rep_h, run_h = engine_run(x_np, queue, BENCH_TIERS, "headline", **HEADLINE)
     check = cross_check(x_np, queue, {"highest": (res_a, rep_a), "bench-tiers": (res_b, rep_b)})
     check.update(cross_check(x_np, queue, {"headline": (res_h, rep_h)}, **HEADLINE))
+
+    # The other MTTKRP routes, the layout policies and the dimension tree on
+    # the bench tensor (3-D), each checked.
+    from cp_cals_tpu_torch import MttkrpMethod
+
+    res_t, rep_t, run_t = engine_run(x_np, queue, {}, "twostep", per_step=fused("highest", mttkrp_modes=0),
+                                     routes={"twostep": 3}, mttkrp_method=MttkrpMethod.TWOSTEP)
+    res_k, rep_k, run_k = engine_run(x_np, queue, {}, "krp_gemm", per_step=fused("highest", mttkrp_modes=0),
+                                     routes={"krp_gemm": 3}, mttkrp_method=MttkrpMethod.KRP_GEMM)
+    res_r, rep_r, run_r = engine_run(x_np, queue, BENCH_TIERS, "bench-tiers recompute", mode_layouts="recompute")
+    assert_bit_identical("bench-tiers mode_layouts='recompute' vs 'materialized'", (res_b, rep_b), (res_r, rep_r))
+    # dimtree="on" at "highest" beside "off", in turns: off, on, on, off.
+    dimtree = dict(per_step=fused("highest", mttkrp_modes=1), routes={"fused": 1, "dimtree": 2}, dimtree="on")
+    res_d, rep_d, run_d = engine_run(x_np, queue, {}, "dimtree", **dimtree)
+    run_d2 = engine_run(x_np, queue, {}, "dimtree again", **dimtree)[2]
+    run_a2 = engine_run(x_np, queue, {}, "highest again")[2]
+    dimtree_walls = dict(off=[run_a["wall_s"], run_a2["wall_s"]], on=[run_d["wall_s"], run_d2["wall_s"]])
+    print(f"dimtree at 'highest': walls off {dimtree_walls['off']}, on {dimtree_walls['on']} (s, in the order "
+          f"off, on, on, off)", flush=True)
+    check.update(cross_check(x_np, queue, {"twostep": (res_t, rep_t), "krp_gemm": (res_k, rep_k),
+                                           "dimtree": (res_d, rep_d)}))
+    f64 = f64_phase()
+    nd = nd_phase(dev)
+    wide = widened_phase(dev)
 
     kt5, fit5 = fit_jk_model(x_np)
     jk_runs, rec, j1_rec = jk_phase(x_np, kt5)
@@ -1184,6 +1621,25 @@ def main() -> int:
                 f: sum(m["launches"] * m[f] for m in j1_mix) / n
                 for f in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")})
         kernels.append(entry)
+    # The widened epilogue kernels at K = 3 (the 4-D run's normal matrices
+    # and FastALS error), at that run's launch mix.
+    run4 = nd["4-D bench-tiers"]
+    w4 = run4["bucket_iterations"]
+    for name, key, replaces in (
+            ("normal_inverse_k3", "hinv", "cp_cals_tpu/ops/pallas_epilogue.py:63"),
+            ("epilogue_apply_k3", "apply", "cp_cals_tpu/ops/pallas_epilogue.py:186")):
+        k3 = wide["rows"][3]
+
+        def mean(field, key=key, k3=k3):
+            return weighted(k3, w4, key, field)
+
+        kernels.append(dict(
+            name=name, route="cuda", source="cp_cals_tpu_torch/csrc/fused_epilogue.cu", replaces=replaces,
+            launches=run4["launches"][name[:-3]], max_abs_err=max(row[key]["max_abs_err"] for row in k3),
+            ms=mean("ms"), graph_ms=mean("graph_ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+            bound_by="operations" if mean("bound_ops_ms") >= mean("bound_bytes_ms") else "bytes",
+            library_ms=mean("library_ms") if key == "hinv" else None, library_graph_ms=None, k=3,
+        ))
     for name, mix, source, replaces, launches, err in (
         ("spd_inverse", spd["mix"], "cp_cals_tpu_torch/csrc/spd_inverse.cu",
          "cp_cals_tpu/ops/pallas_solve.py:37", jk_runs["J2"]["launches"]["spd_inverse"], spd["max_abs_err"]),
@@ -1210,6 +1666,9 @@ def main() -> int:
                        build_s=build_s, shapes=rows,
                        engine={"highest": run_a, "bench_tiers": run_b, "bench_tiers_iter": run_i,
                                "headline": run_h},
+                       other_routes={"twostep": run_t, "krp_gemm": run_k, "bench_tiers_recompute": run_r,
+                                     "dimtree": run_d, "dimtree_walls": dimtree_walls},
+                       float64_on_card=f64, nd=nd, widened=wide,
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
                        mttkrp_j1_mix=j1_mix,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)

@@ -3,12 +3,14 @@
 Field for field the same names and defaults as ``cp_cals_tpu/config.py``,
 so a configuration carries over between the two packages unchanged
 (``convert.params_from_dict``). The port runs unconstrained updates without
-line search, per-iteration and mixed-tier stopping (``tol_check_interval``),
-polish sweeps (``polish_iters``, ``polish_tol``), both engine loops
-(``sync_mode``), the fused MTTKRP, the fused epilogue, and the unfused
-epilogue with any of the three solves (``"gj"``, ``"chol"``, ``"pallas"``).
-Other values of features not yet ported raise ``NotImplementedError``
-naming their ROADMAP item (``check_supported``).
+line search on tensors of any order >= 3, per-iteration and mixed-tier
+stopping (``tol_check_interval``), polish sweeps (``polish_iters``,
+``polish_tol``), both engine loops (``sync_mode``), every MTTKRP method
+(fused, twostep, krp_gemm; the dimension tree; held or recomputed layouts),
+the fused epilogue, and the unfused epilogue with any of the three solves
+(``"gj"``, ``"chol"``, ``"pallas"``). Other values of features not yet
+ported raise ``NotImplementedError`` naming their ROADMAP item
+(``check_supported``).
 """
 
 from __future__ import annotations
@@ -121,17 +123,9 @@ def check_supported(params: AlsParams | CalsParams) -> None:
         raise not_ported("line_search", "queue 1 item 6")
     if params.debug:
         raise not_ported("debug (monotonicity hook)", "queue 1 item 6")
-    if params.mttkrp_method in (MttkrpMethod.KRP_GEMM, MttkrpMethod.TWOSTEP):
-        raise not_ported(
-            f"mttkrp_method={params.mttkrp_method.value}", "queue 1 item 5"
-        )
-    if params.dimtree not in ("auto", "off"):
-        if params.dimtree == "on":
-            raise not_ported("dimtree='on'", "queue 1 item 5")
+    if params.dimtree not in ("auto", "on", "off"):
         raise ValueError(f"dimtree={params.dimtree!r}")
-    if params.mode_layouts not in ("auto", "materialized"):
-        if params.mode_layouts == "recompute":
-            raise not_ported("mode_layouts='recompute'", "queue 1 item 5")
+    if params.mode_layouts not in ("auto", "materialized", "recompute"):
         raise ValueError(f"mode_layouts={params.mode_layouts!r}")
     if params.solve_method not in ("gj", "chol", "pallas"):
         raise ValueError(f"solve_method={params.solve_method!r}")
@@ -168,9 +162,38 @@ def resolve_epilogue(params: AlsParams | CalsParams) -> str:
     return "xla"
 
 
-def resolve_mttkrp_method(params: AlsParams | CalsParams, ndim: int) -> str:
-    """``AUTO`` resolves to the fused kernel on 3-D tensors until the CUDA
-    lookup table lands (ROADMAP queue 1 item 9)."""
-    if ndim != 3:
-        raise not_ported(f"a {ndim}-D tensor (twostep MTTKRP)", "queue 1 item 5")
-    return "pallas"
+def resolve_mttkrp_method(params: AlsParams | CalsParams, shape, dtype, device) -> tuple[str, ...]:
+    """The MTTKRP method of each mode of a tensor of ``shape``. ``AUTO``
+    takes the fused kernels (``"pallas"``) where their static gate
+    (``ops/fused_mttkrp.py:fused_mttkrp_supported``) takes the mode, and the
+    twostep elsewhere, every mode of an N-D tensor included (the CUDA lookup
+    table is ROADMAP queue 1 item 9). An explicit method is honoured; the
+    batched dispatch still sends a mode the fused gate refuses to the
+    twostep, as the JAX package does."""
+    from .ops.mttkrp import resolve_batched_method
+
+    method = params.mttkrp_method.value
+    if method == "auto":
+        method = "pallas"
+    return tuple(resolve_batched_method(method, shape, n, dtype, device) for n in range(len(shape)))
+
+
+def resolve_dimtree(params: AlsParams | CalsParams, ndim: int) -> bool:
+    """Whether the sweep takes modes 1 and 2 from one shared TTM: ``"on"``
+    on 3-D tensors, as in the JAX package. ``"auto"`` is off in the port:
+    the JAX package's rule (on at the non-bf16 tiers) was measured on a TPU
+    (ROADMAP section 3)."""
+    return params.dimtree == "on" and ndim == 3
+
+
+LAYOUT_RECOMPUTE_BYTES = 128 * 1024 * 1024
+
+
+def resolve_layouts(params: AlsParams | CalsParams, x) -> str:
+    """``mode_layouts``: ``"auto"`` derives the layouts inside the iteration
+    for tensors above 128 MB and holds them otherwise (the JAX package's
+    rule, ``cp_cals_tpu/solvers/iteration.py:195-202``)."""
+    if params.mode_layouts != "auto":
+        return params.mode_layouts
+    big = x.numel() * x.element_size() > LAYOUT_RECOMPUTE_BYTES
+    return "recompute" if big else "materialized"

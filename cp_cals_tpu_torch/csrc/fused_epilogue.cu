@@ -2,8 +2,9 @@
 //
 // hinv (gj_elim.cuh's elimination behind HadamardLoad, launched by
 //   hinv_launch) replaces cp_cals_tpu/ops/pallas_epilogue.py:_hinv_kernel:
-//   H^-1 of padded_hadamard(grams[a] * grams[b], rank_mask) per model, a and
-//   b the two other modes of a 3-D tensor.
+//   H^-1 of padded_hadamard(prod_{k != n} grams[k], rank_mask) per model,
+//   the K = N - 1 other modes' gramians of an N-mode tensor (2 <= K <= 7)
+//   multiplied in mode order.
 // apply_kernel replaces cp_cals_tpu/ops/pallas_epilogue.py:_apply_kernel,
 //   together with the two steps the JAX iteration runs right after it
 //   (cp_cals_tpu/solvers/iteration.py: the gramian rescale and
@@ -13,8 +14,10 @@
 //   gm = (U^T U) / (safe_r * safe_s), and on the last mode the FastALS error
 //   err = sqrt(max(0, |X|^2 + term2 - 2 term3)) per model, all in
 //   double-float: term3 = sum_j lam_j sum_i F[i,j] G[i,j] and
-//   term2 = sum_rs lam_r lam_s H_rs with H = (gram_a * gram_b) * gm, the
-//   hadamard of all three rescaled gramians in mode order.
+//   term2 = sum_rs lam_r lam_s H_rs with H = (g_0 * ... * g_{K-1}) * gm, the
+//   hadamard of all N rescaled gramians in mode order. The K other gramians
+//   come in a GramSet by value (gj_elim.cuh) and are read from global
+//   memory, so shared memory does not depend on K.
 //
 // What bounds them: neither bytes nor arithmetic. Each call moves well under
 // 1 MB and does under 0.2 GFLOP at the engine's shapes, so both sit at the
@@ -148,8 +151,7 @@ int gram_slices(int I, int R, int optin) {
 __global__ void __launch_bounds__(APPLY_THREADS)
 apply_kernel(const float* __restrict__ g, const float* __restrict__ hinv,
              const int32_t* __restrict__ iters, const int32_t* __restrict__ jk,
-             const float* __restrict__ x_norm, const float* __restrict__ gram_a,
-             const float* __restrict__ gram_b, float* __restrict__ f,
+             const float* __restrict__ x_norm, const GramSet others, float* __restrict__ f,
              float* __restrict__ lam, float* __restrict__ gm,
              float* __restrict__ err, int I, int R, int NS, int zero_jk) {
   extern __shared__ __align__(16) float sm[];
@@ -331,12 +333,12 @@ apply_kernel(const float* __restrict__ g, const float* __restrict__ hinv,
   }
   block_df_sum(hi, lo, red);
   const float t3_hi = hi, t3_lo = lo;
-  // term2 = sum_rs lam_r lam_s H_rs, H = (gram_a * gram_b) * gm.
+  // term2 = sum_rs lam_r lam_s H_rs, H = (others in mode order) * gm.
   hi = lo = 0.f;
   for (int e = tid; e < RR; e += APPLY_THREADS) {
     const int r = e / R, s = e % R;
     const size_t o = (size_t)b * RR + e;
-    const float h = __fmul_rn(__fmul_rn(gram_a[o], gram_b[o]), part[e]);
+    const float h = __fmul_rn(hadamard_of<0>(others, o), part[e]);
     float llh, lll, qh, ql;
     two_prod(lams[r], lams[s], llh, lll);
     two_prod(llh, h, qh, ql);
@@ -371,14 +373,20 @@ int smem_optin() {
 
 }  // namespace
 
-// The two other modes' grams g0, g1 [B, R, R], mask [B, R] (1 byte each)
-// -> out [B, R, R] (gj_elim.cuh: warp path for R <= 32, block path above).
-extern "C" int hinv_launch(const float* g0, const float* g1,
+// The K other modes' grams (a host array of K pointers to [B, R, R], in
+// mode order), mask [B, R] (1 byte each) -> out [B, R, R] (gj_elim.cuh:
+// warp path for R <= 32, block path above).
+extern "C" int hinv_launch(const float* const* grams, int k,
                            const uint8_t* mask, float* out, int B, int R,
                            void* stream) {
-  return gj_launch<DividePivot>(HadamardLoad{g0, g1, mask, R}, out, B, R,
-                                static_cast<cudaStream_t>(stream));
+  if (k < 2 || k > MAX_GRAMS) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k == 2) return gj_launch<DividePivot>(HadamardLoad<2>{gram_set(grams, k), mask, R}, out, B, R, s);
+  return gj_launch<DividePivot>(HadamardLoad<0>{gram_set(grams, k), mask, R}, out, B, R, s);
 }
+
+// The most other-mode gramians hinv_launch and apply_launch take.
+extern "C" int hinv_max_grams() { return MAX_GRAMS; }
 
 // The least shared memory of one apply block at (I, R), in bytes (one
 // gramian slice); the wrapper holds it against the card's limit.
@@ -388,15 +396,16 @@ extern "C" long long apply_smem_bytes(int I, int R) {
 
 // g [B, I, R], hinv [B, R, R], iters/jk [B] int32 -> f [B, I, R],
 // lam [B, R], gm [B, R, R] (rescaled). With err non-null (the last mode),
-// also err [B] from x_norm [B] and the two other modes' rescaled gramians
-// gram_a, gram_b [B, R, R] in mode order.
+// also err [B] from x_norm [B] and the K other modes' rescaled gramians (a
+// host array of K pointers to [B, R, R], in mode order).
 extern "C" int apply_launch(const float* g, const float* hinv,
                             const int32_t* iters, const int32_t* jk,
-                            const float* x_norm, const float* gram_a,
-                            const float* gram_b, float* f, float* lam,
-                            float* gm, float* err, int B, int I, int R,
-                            int zero_jk, void* stream) {
+                            const float* x_norm, const float* const* grams, int k,
+                            float* f, float* lam, float* gm, float* err, int B, int I,
+                            int R, int zero_jk, void* stream) {
   if (R < 1 || R > MAX_R || I < 0) return (int)cudaErrorInvalidValue;
+  if (err != nullptr && (k < 2 || k > MAX_GRAMS)) return (int)cudaErrorInvalidValue;
+  const GramSet others = err != nullptr ? gram_set(grams, k) : GramSet{};
   const int optin = smem_optin();
   const int ns = gram_slices(I, R, optin);
   const size_t smem = (size_t)apply_smem_floats(I, R, ns) * sizeof(float);
@@ -405,7 +414,7 @@ extern "C" int apply_launch(const float* g, const float* hinv,
   int code = allow_smem((const void*)apply_kernel, smem, smem_set);
   if (code) return code;
   apply_kernel<<<B, APPLY_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      g, hinv, iters, jk, x_norm, gram_a, gram_b, f, lam, gm, err, I, R, ns,
+      g, hinv, iters, jk, x_norm, others, f, lam, gm, err, I, R, ns,
       zero_jk);
   return (int)cudaGetLastError();
 }

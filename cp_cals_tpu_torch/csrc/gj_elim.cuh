@@ -10,8 +10,9 @@
 // nothing is pivoted. Two things differ between the callers and come in as
 // template arguments:
 // - the front end (Loader): the element (r, c) of model b's matrix, the
-//   masked hadamard of two gramians (HadamardLoad, padded_hadamard) or a
-//   plain load (PlainLoad);
+//   masked hadamard of the K = N - 1 other modes' gramians of an N-mode
+//   tensor (HadamardLoad, padded_hadamard; 2 <= K <= MAX_GRAMS; K = 2 has
+//   its own instantiation) or a plain load (PlainLoad);
 // - the pivot arithmetic (Pivot): gj_inverse divides the row by the pivot
 //   (__fdiv_rn, with zero numerators kept off its slow path: div_rn),
 //   spd_inverse_plain takes one reciprocal and multiplies (__frcp_rn,
@@ -70,6 +71,39 @@ constexpr int ROW_GROUPS = 8;        // block path: row groups
 constexpr int BLOCK_THREADS = BLOCK_COLS * ROW_GROUPS;
 constexpr int BLOCK_ROWS = GJ_MAX_R / ROW_GROUPS;  // rows a block-path thread holds
 constexpr unsigned FULL_WARP = 0xffffffffu;
+constexpr int MAX_GRAMS = 7;  // other-mode gramians of a normal matrix: tensors of up to 8 modes
+
+// K gramian pointers, passed by value in a kernel's arguments: a CUDA graph
+// that captures the launch keeps them, and no launch uploads anything.
+struct GramSet {
+  const float* g[MAX_GRAMS];
+  int k;
+};
+
+// GramSet of the K pointers in the host array `grams` (the rest null).
+inline GramSet gram_set(const float* const* grams, int k) {
+  GramSet s = {};
+  for (int q = 0; q < k && q < MAX_GRAMS; ++q) s.g[q] = grams[q];
+  s.k = k;
+  return s;
+}
+
+// Element e of the hadamard of the set's gramians, multiplied in mode order
+// (hadamard_but_one): K = 2 is __fmul_rn(g0, g1). The loop is unrolled, so
+// every pointer is read from the argument at a constant index. K > 0: the
+// set holds exactly K gramians, known at compile time; K = 0: s.k of them.
+// The 3-D normal inverse (K = 2) has its own instantiation, which loads as
+// the two-pointer kernel did: through the K = 0 loop, with its test of s.k
+// per element, it took 160 registers against 128 and read 0.0040 against
+// 0.0032 ms at the bench-tier mix on an H100 (tools/probe_gj_elim.py).
+template <int K>
+__device__ __forceinline__ float hadamard_of(const GramSet& s, size_t e) {
+  float h = __ldg(s.g[0] + e);
+#pragma unroll
+  for (int q = 1; q < (K > 0 ? K : MAX_GRAMS); ++q)
+    if (K > 0 || q < s.k) h = __fmul_rn(h, __ldg(s.g[q] + e));
+  return h;
+}
 
 enum GjPath { GJ_WARP = 0, GJ_BLOCK = 1 };
 
@@ -114,17 +148,17 @@ struct ReciprocalPivot {
   }
 };
 
-// The normal inverse's front end: padded_hadamard(g0 * g1, mask), element
-// (r, c) of model b. With the mask bits 0 or 1 this is the masked product
-// or the identity entry exactly.
+// The normal inverse's front end: padded_hadamard(g_0 * ... * g_{K-1}, mask),
+// element (r, c) of model b (K as in hadamard_of). With the mask bits 0 or 1
+// this is the masked product or the identity entry exactly.
+template <int K>
 struct HadamardLoad {
-  const float* g0;
-  const float* g1;
+  GramSet grams;
   const uint8_t* mask;
   int R;
   __device__ float operator()(int b, int r, int c) const {
     const size_t e = ((size_t)b * R + r) * R + c;
-    const float h = __fmul_rn(__ldg(g0 + e), __ldg(g1 + e));
+    const float h = hadamard_of<K>(grams, e);
     const float mr = __ldg(mask + (size_t)b * R + r) ? 1.f : 0.f;
     const float mc = __ldg(mask + (size_t)b * R + c) ? 1.f : 0.f;
     const float eye = r == c ? 1.f : 0.f;

@@ -3,9 +3,11 @@
 Each wrapper that launches a kernel adds one to its own ``launches``
 attribute per launch, and nowhere else; the two MTTKRP wrappers count a
 launch under a device predicate (``ops/fused_mttkrp.py``) on their
-``predicated`` attribute instead. ``TALLIES`` holds further counts by key
-that observers of the wrappers keep while they watch a run (a dict each,
-e.g. launches by shape).
+``predicated`` attribute instead. ``ops/mttkrp.py:ROUTES`` counts the
+batched MTTKRP results by route (fused, twostep, krp_gemm, dimtree), so a
+run shows which route each mode took. ``TALLIES`` holds further counts by
+key that observers of the wrappers keep while they watch a run (a dict
+each, e.g. launches by shape).
 
 A launch captured into a CUDA graph runs at every replay with no Python
 call, so the engine's graph loop (``solvers/graph_loop.Graph``) takes what
@@ -45,20 +47,34 @@ def read() -> dict:
     return out
 
 
+def _routes() -> dict:
+    from .ops.mttkrp import ROUTES
+
+    return ROUTES
+
+
+def routes() -> dict:
+    """``{route: MTTKRP results}`` (fused, twostep, krp_gemm, dimtree)."""
+    return dict(_routes())
+
+
 def reset() -> None:
-    """Every wrapper's counts to 0."""
+    """Every wrapper's counts and the route counts to 0."""
     for fn in counted().values():
         for attr in COUNTERS:
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
+    routes_ = _routes()
+    for key in routes_:
+        routes_[key] = 0
 
 
 def _cells() -> list:
-    """(owner, key, count) of every count kept now: the wrappers' counters
-    and the tallies' keys."""
+    """(owner, key, count) of every count kept now: the wrappers' counters,
+    the route counts and the tallies' keys."""
     cells = [(fn, attr, getattr(fn, attr)) for fn in counted().values() for attr in COUNTERS
              if hasattr(fn, attr)]
-    return cells + [(t, key, n) for t in TALLIES for key, n in t.items()]
+    return cells + [(t, key, n) for t in [_routes(), *TALLIES] for key, n in t.items()]
 
 
 def _set(owner, key, n: int) -> None:

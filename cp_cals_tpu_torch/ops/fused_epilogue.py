@@ -6,14 +6,15 @@ Replace ``cp_cals_tpu/ops/pallas_epilogue.py:_hinv_kernel`` and
 right after it (the gramian rescale and ``ops/error.py:
 fast_error_from_cols``). After mode n's MTTKRP G:
 
-    H^-1          = inverse(padded_hadamard(prod_{k != n} grams[k], mask))
+    H^-1          = inverse(padded_hadamard(prod_{k != n} grams[k], mask)),
+                    the K = N - 1 other gramians multiplied in mode order
     U             = G H^-1, jackknife row zero (mode 0)
     lam           = L2 (iteration 1, from diag(U^T U)) or signed max after
     F             = U / safe(lam)
     gm            = U^T U / (safe(lam) outer safe(lam)), the new gramian
     err (last mode) = the FastALS error from x_norm, lam, the double-float
                     column sums sum_i F[i, j] G[i, j] and the hadamard of
-                    the other modes' gramians and gm
+                    the N - 1 other modes' gramians and gm, in mode order
 
 The kernels (``csrc/fused_epilogue.cu``) say what bounds them and what
 their design does about that. Dead slots (rank mask all False, zero
@@ -21,9 +22,11 @@ factors) stay inert: identity H^-1, lam = 0, F = 0.
 
 Each wrapper runs the plain version for tensors on the CPU and its kernel
 for tensors on the card; any other case raises. The kernels take float32,
-R up to ``MAX_R`` and 3-D tensors (two other-mode gramians per normal
-matrix); ``apply`` also needs H^-1 and G (then U) to fit one block's shared
-memory. ``supports_fused_epilogue`` says which modes they take, so that the
+R up to ``MAX_R`` and tensors of 3 to ``MAX_MODES`` modes (2 to
+``MAX_MODES - 1`` other-mode gramians, passed by value in a fixed-size
+kernel argument, so a captured CUDA graph keeps them and no launch uploads
+anything); ``apply`` also needs H^-1 and G (then U) to fit one block's
+shared memory. ``supports_fused_epilogue`` says which modes they take, so that the
 iteration sends every other mode to the unfused path, mode by mode, as the
 JAX iteration does (``cp_cals_tpu/solvers/iteration.py:288-290``).
 """
@@ -42,6 +45,7 @@ from .gramians import gramian, hadamard_all, hadamard_but_one
 from .update import gj_inverse, padded_hadamard
 
 MAX_R = 64  # csrc/fused_epilogue.cu: MAX_R
+MAX_MODES = 8  # csrc/gj_elim.cuh: MAX_GRAMS = MAX_MODES - 1 other gramians
 
 
 # ------------------------------------------------------------ plain versions
@@ -100,8 +104,8 @@ def epilogue_apply_plain(g, hinv, iters, jk_fiber, zero_jk: bool, err_inputs=Non
     gm = gm_raw / (safe[..., :, None] * safe[..., None, :])
     err = None
     if err_inputs is not None:
-        x_norm, gram_a, gram_b = err_inputs
-        err = fast_error_from_cols(x_norm, lam, t3[0], t3[1], hadamard_all((gram_a, gram_b, gm)))
+        x_norm, *others = err_inputs
+        err = fast_error_from_cols(x_norm, lam, t3[0], t3[1], hadamard_all((*others, gm)))
     return f, lam, gm, err
 
 
@@ -111,10 +115,12 @@ def epilogue_apply_plain(g, hinv, iters, jk_fiber, zero_jk: bool, err_inputs=Non
 def _lib():
     lib = _build.load("fused_epilogue.cu")
     if lib.hinv_launch.argtypes is None:
-        lib.hinv_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.hinv_launch.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+            ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.hinv_launch.restype = ctypes.c_int
         lib.apply_launch.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p]
         )
         lib.apply_launch.restype = ctypes.c_int
         lib.apply_smem_bytes.argtypes = [ctypes.c_int] * 2
@@ -148,12 +154,12 @@ def normal_inverse(grams, rank_mask: torch.Tensor, skip: int) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"normal_inverse: unsupported device {dev}")
     others = [g for n, g in enumerate(grams) if n != skip]
-    if len(others) != 2:
+    if not 2 <= len(others) < MAX_MODES:
         raise ValueError(
-            f"normal_inverse: {len(others)} other-mode gramians; the kernel takes the "
-            "two of a 3-D tensor (N-D: ROADMAP queue 1 item 5)"
+            f"normal_inverse: {len(others)} other-mode gramians; the kernel takes 2 to "
+            f"{MAX_MODES - 1} (tensors of 3 to {MAX_MODES} modes)"
         )
-    g0, g1 = others
+    g0 = others[0]
     b, r, r2 = shape = g0.shape
     _check_rank("normal_inverse", r)
     for g in others:
@@ -171,7 +177,7 @@ def normal_inverse(grams, rank_mask: torch.Tensor, skip: int) -> torch.Tensor:
     if b == 0:
         return out
     code = _lib().hinv_launch(
-        g0.data_ptr(), g1.data_ptr(), rank_mask.data_ptr(), out.data_ptr(), b, r,
+        _pointers(others), len(others), rank_mask.data_ptr(), out.data_ptr(), b, r,
         _build.stream_ptr(dev),
     )
     _build.check(code, "normal_inverse")
@@ -180,6 +186,13 @@ def normal_inverse(grams, rank_mask: torch.Tensor, skip: int) -> torch.Tensor:
 
 
 normal_inverse.launches = 0
+
+
+def _pointers(tensors):
+    """The tensors' device pointers as a host array of ``MAX_MODES - 1``
+    (unused ones null): the C entry points copy them into the kernels'
+    by-value argument."""
+    return (ctypes.c_void_p * (MAX_MODES - 1))(*(t.data_ptr() for t in tensors))
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,12 +209,12 @@ def supports_fused_epilogue(b: int, i_n: int, r: int, dtype, n_modes: int, devic
     factors of ``dtype`` in an ``n_modes``-D solve on ``device`` (the port's
     counterpart of ``cp_cals_tpu/ops/pallas_epilogue.py:343``). True on the
     CPU, where the plain versions take every shape. On the card: float32,
-    R <= MAX_R, a 3-D tensor, and the apply's shared memory (H^-1, G and
+    R <= MAX_R, 3 to MAX_MODES modes, and the apply's shared memory (H^-1, G and
     four R-vectors) within the card's opt-in limit per block."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return True
-    if dtype != torch.float32 or r > MAX_R or n_modes != 3:
+    if dtype != torch.float32 or r > MAX_R or not 3 <= n_modes <= MAX_MODES:
         return False
     return _apply_fits(_device_index(dev), i_n, r)
 
@@ -218,8 +231,8 @@ def epilogue_apply(
     """Fused U = G H^-1 -> JK zero -> normalize -> rescaled gramian, and on
     the error mode the FastALS error. g [B, I, R], hinv [B, R, R],
     iters/jk_fiber [B] int32; err_inputs None, or on the error mode
-    (x_norm [B], gram_a [B, R, R], gram_b [B, R, R]): the model norms and
-    the other two modes' rescaled gramians in mode order. Returns (f
+    (x_norm [B], *other_grams): the model norms and the N - 1 other modes'
+    rescaled gramians [B, R, R] in mode order. Returns (f
     [B, I, R], lam [B, R], gm [B, R, R], err [B] or None)."""
     dev = g.device
     if dev.type == "cpu":
@@ -244,15 +257,19 @@ def epilogue_apply(
             raise ValueError(f"epilogue_apply: {name} must be int32 [{b}]")
     tensors = dict(g=g, hinv=hinv, iters=iters, jk_fiber=jk_fiber)
     if err_inputs is not None:
-        x_norm, gram_a, gram_b = err_inputs
+        x_norm, *others = err_inputs
         if x_norm.dtype != torch.float32 or tuple(x_norm.shape) != (b,):
             raise ValueError(f"epilogue_apply: x_norm must be float32 [{b}], got {x_norm.dtype} "
                              f"{tuple(x_norm.shape)}")
-        for name, t in (("gram_a", gram_a), ("gram_b", gram_b)):
+        if not 2 <= len(others) < MAX_MODES:
+            raise ValueError(f"epilogue_apply: {len(others)} other-mode gramians; the kernel takes 2 "
+                             f"to {MAX_MODES - 1}")
+        for q, t in enumerate(others):
             if t.dtype != torch.float32 or tuple(t.shape) != (b, r, r):
-                raise ValueError(f"epilogue_apply: {name} must be float32 [{b}, {r}, {r}], got "
+                raise ValueError(f"epilogue_apply: gramian {q} must be float32 [{b}, {r}, {r}], got "
                                  f"{t.dtype} {tuple(t.shape)}")
-        tensors.update(x_norm=x_norm, gram_a=gram_a, gram_b=gram_b)
+            tensors[f"gram_{q}"] = t
+        tensors.update(x_norm=x_norm)
     _check_cuda("epilogue_apply", dev, **tensors)
     f = torch.empty_like(g)
     lam = torch.empty((b, r), dtype=torch.float32, device=dev)
@@ -260,11 +277,12 @@ def epilogue_apply(
     err = torch.empty((b,), dtype=torch.float32, device=dev) if err_inputs is not None else None
     if b == 0:
         return f, lam, gm, err
-    extra = [t.data_ptr() for t in err_inputs] if err_inputs is not None else [None] * 3
+    x_norm_p, others_p, k = (None, None, 0) if err_inputs is None else (
+        err_inputs[0].data_ptr(), _pointers(err_inputs[1:]), len(err_inputs) - 1)
     code = _lib().apply_launch(
-        g.data_ptr(), hinv.data_ptr(), iters.data_ptr(), jk_fiber.data_ptr(), *extra,
-        f.data_ptr(), lam.data_ptr(), gm.data_ptr(), err.data_ptr() if err is not None else None,
-        b, i_n, r, int(zero_jk), _build.stream_ptr(dev),
+        g.data_ptr(), hinv.data_ptr(), iters.data_ptr(), jk_fiber.data_ptr(), x_norm_p,
+        others_p, k, f.data_ptr(), lam.data_ptr(), gm.data_ptr(),
+        err.data_ptr() if err is not None else None, b, i_n, r, int(zero_jk), _build.stream_ptr(dev),
     )
     _build.check(code, "epilogue_apply")
     epilogue_apply.launches += 1

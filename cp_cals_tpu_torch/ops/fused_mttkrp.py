@@ -407,6 +407,49 @@ def fused_mttkrp_tc(
 fused_mttkrp_tc.launches = fused_mttkrp_tc.predicated = 0
 
 
+_GRID_YZ = 65535  # the largest grid y and z of a launch (row tiles; k and j splits)
+
+
+def fused_mttkrp_supported(shape, mode: int, b: int, r: int, dtype, device) -> bool:
+    """Whether the fused kernels take mode ``mode`` of a tensor of ``shape``
+    with ``b`` models of rank ``r`` (the port's counterpart of
+    ``cp_cals_tpu/ops/pallas_mttkrp.py:62 pallas_mttkrp_supported``),
+    decided from shapes and dtype before any launch. On the CPU, where the
+    plain version takes every 3-D shape: 3-D. On the card: 3-D, float32,
+    and both kernels (the tier is not an argument) plan the mode: one k
+    range of U2 fits a block's shared memory (where ``plan_fp32`` and
+    ``tc_plan`` would raise otherwise) and the grid's row tiles and splits
+    stay within its y and z limits. ``mttkrp_batched`` sends a mode it
+    refuses to the twostep."""
+    dev = torch.device(device)
+    if len(shape) != 3:
+        return False
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda" or dtype != torch.float32:
+        return False
+    return _card_takes(tuple(int(n) for n in shape), mode, int(b), int(r), _device_index(dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_takes(shape: tuple, mode: int, b: int, r: int, index: int) -> bool:
+    small, big = split_others(shape, mode)
+    j, i, k = shape[small], shape[mode], shape[big]
+    if min(j, i, k, b, r) < 1:
+        return True  # an empty output: the wrappers launch nothing
+    optin = torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+    tiles = fp32_tiles_built()
+    tile = min(tiles, key=lambda t: (-(-i // tiles[t][0]) * tiles[t][0], -tiles[t][0]))
+    tc_smem = _lib_tc().fused_mttkrp_tc_smem
+    if (_lib_fp32().fused_mttkrp_fp32_smem(tile, _FP32_TK) > optin
+            or not any(tc_smem(nc, 1, _TC_KS) <= optin for nc in _TC_NC)):
+        return False
+    _, _, ks, js, _ = fp32_plan(index, j, i, k, b * r)
+    _, _, ks2, js2, _ = tc_plan(index, j, i, padded_k(k), b * r, 2)
+    return (max(-(-i // tiles[tile][0]), -(-i // _TC_TM)) <= _GRID_YZ
+            and max(ks * js, ks2 * js2) <= _GRID_YZ)
+
+
 def fused_mttkrp(
     x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,
     precision: str = "highest", pred: torch.Tensor | None = None,

@@ -9,9 +9,8 @@ goes through the kernels (the JAX package uses its unbatched iteration
 there). Both loop on the host with one small fetch per iteration (the JAX
 package runs a device ``while_loop``; a captured ALS loop is ROADMAP queue
 1 item 3), stop per iteration or by the mixed-tier check
-(``tol_check_interval``), take 3-D tensors only until the
-N-D MTTKRPs land (ROADMAP queue 1 item 5), and return host NumPy Ktensors,
-fetched once at the end.
+(``tol_check_interval``), take tensors of any order, and return host NumPy
+Ktensors, fetched once at the end.
 """
 
 from __future__ import annotations
@@ -48,10 +47,6 @@ def _run_batched(x, kt_b: Ktensor, params: AlsParams, dev, jk_fiber=None, x_norm
     np_dtype = _queue_dtype([kt_b])
     dt = _DTYPES[np_dtype]
     x = torch.as_tensor(x).to(device=dev, dtype=dt).contiguous()
-    if x.ndim != 3:
-        raise NotImplementedError(
-            f"ALS on a {x.ndim}-D tensor is not ported yet (ROADMAP queue 1 item 5)"
-        )
     shapes = tuple(int(f.shape[-2]) for f in kt_b.factors)
     if shapes != tuple(x.shape):
         raise ValueError(f"model factor leading dims {shapes} do not match tensor shape {tuple(x.shape)}")

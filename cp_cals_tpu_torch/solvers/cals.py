@@ -266,7 +266,8 @@ def cp_cals(
     """Fit every model in ``queue`` concurrently. Returns the fitted models
     (host NumPy Ktensors) in input order plus a report.
 
-    x: dense 3-D tensor (NumPy or torch); it is cast to the queue's dtype.
+    x: dense tensor of 3 or more modes (NumPy or torch); it is cast to the
+    queue's dtype.
     queue: Ktensors with NumPy or torch factors [I_n, R] and lam [R].
     jk_fibers: optional per-model jackknifed mode-0 fiber (-1 = regular
     model); leave-one-out norms are computed once unless ``x_norms_jk`` is

@@ -20,8 +20,10 @@ the host knows from the last fetch:
 - with ``force_max_iter``: exactly up to the first forced convergence, so
   the loop runs no iteration past it;
 - with ``tol_check_interval = K``: up to the oldest live model's next
-  multiple of K, its decision check (a model can stop only at a check or
-  at ``max_iterations``);
+  check, its pre-check mK-1 or its decision check mK (a model can stop
+  only at a check or at ``max_iterations``; the JAX loop evicts at either
+  check, so a chunk that ran on past a pre-check would refill a slot an
+  iteration late);
 - with a per-iteration tol: ``TOL_CHUNK`` iterations;
 - never past the first slot's ``max_iterations``.
 Models that converge inside a chunk are frozen by a select (as the JAX
@@ -46,8 +48,13 @@ frozen; on the card one sweep is captured as its own graph. With
 host reads whether all have every ``POLISH_CHECK`` sweeps, never running
 more than ``polish_iters``.
 
-Graphs bake in pointers: ``x``, the held layouts, the state buffers and
-the stats buffer stay alive and in place while a graph is replayed.
+Graphs bake in pointers: ``x``, the held layouts (the dimension tree's
+shared-TTM layout in their last slot), the state buffers and the stats
+buffer stay alive and in place while a graph is replayed. Under
+``mode_layouts="recompute"`` nothing is held: each captured MTTKRP derives
+its layout from ``x`` inside the graph, in the graph's memory pool, where
+each copy is freed after its mode, so a replay needs about one layout
+beside X.
 Refills and evictions write into the buffers; tail compaction (a new
 batch) makes a new loop and a new capture. The kernel wrappers count their
 launches in Python, which a replay does not run: each replay adds the
@@ -96,7 +103,11 @@ def chunk_length(params, iters: np.ndarray, live: np.ndarray) -> int:
     if params.force_max_iter:
         return max(n, 1)
     k = params.tol_check_interval
-    step = k - int(it.max()) % k if k > 0 else TOL_CHUNK
+    if k > 0:  # to the next iteration whose phase is K-1 or 0
+        top = int(it.max())
+        step = next(s for s in range(1, k + 1) if (top + s) % k in (0, k - 1))
+    else:
+        step = TOL_CHUNK
     return max(min(n, step), 1)
 
 

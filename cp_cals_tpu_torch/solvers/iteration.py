@@ -1,23 +1,30 @@
 """One batched ALS iteration over a SolverState (port of the main-path
 subset of ``cp_cals_tpu/solvers/iteration.py:57-501``).
 
-Per mode: the fused MTTKRP, then either the fused epilogue kernels
-(``epilogue="fused"``, the default here) or the unfused PyTorch path
-(``epilogue="xla"``). The fused path is taken mode by mode: a mode whose
-shape the kernels do not take (``ops/fused_epilogue.py:
-supports_fused_epilogue``) goes through the unfused path, as in the JAX
-iteration. After the last mode come the FastALS error, the fit and the
-convergence flags, with the mixed-tier stopping check where
-``tol_check_interval > 0``.
+Per mode: the MTTKRP by the mode's method (``config.resolve_mttkrp_method``:
+the fused kernels where their gate takes the mode, the twostep elsewhere,
+every mode of an N-D tensor included; or the method asked for), or under
+``dimtree="on"`` (3-D) modes 1 and 2 from one shared TTM after the mode-0
+update; then either the fused epilogue kernels (``epilogue="fused"``, the
+default here) or the unfused PyTorch path (``epilogue="xla"``). The fused
+path is taken mode by mode: a mode whose shape the kernels do not take
+(``ops/fused_epilogue.py:supports_fused_epilogue``) goes through the
+unfused path, as in the JAX iteration. After the last mode come the FastALS
+error, the fit and the convergence flags, with the mixed-tier stopping
+check where ``tol_check_interval > 0``.
 
 PyTorch runs eagerly, so ``make_iteration`` returns a plain function. The
 same function runs eagerly in the per-iteration host loop and is captured
 into a CUDA graph by the engine's device-paced loop (``graph_loop.py``), so
-nothing in it reads a device value on the host. Its ``.prepare(x)`` builds
-the loop-invariant tensor layouts once per solve, held for the MTTKRP's
-precision tier (at the bf16 tiers X is rounded there, once), and also at
-``params.precision`` where the mixed-tier check or the polish sweeps run
-there (``Held.hi``).
+nothing in it reads a device value on the host. Its ``.prepare(x)`` resolves
+the per-mode methods and builds the loop-invariant tensor layouts once per
+solve, held for the MTTKRP's precision tier (the fused kernels' layouts at
+the bf16 tiers hold X rounded, once), and also at ``params.precision``
+where the mixed-tier check or the polish sweeps run there (``Held.hi``).
+Under ``mode_layouts="recompute"`` (``"auto"``: tensors above 128 MB)
+nothing is held: each MTTKRP derives its layout inside the iteration, and
+in a captured CUDA graph the copies come from the graph's pool, so the
+peak is about X plus one layout.
 
 Dead and padded slots are inert (zero factors, zero lam, identity normal
 matrix), so nothing inside the iteration is gated on ``alive``.
@@ -33,25 +40,39 @@ from ..config import (
     AlsParams,
     CalsParams,
     check_supported,
+    resolve_dimtree,
     resolve_epilogue,
+    resolve_layouts,
     resolve_mttkrp_method,
 )
 from ..ktensor import Ktensor, normalize_factor_fused, scale_jk_rows
 from ..ops.error import fast_error
 from ..ops.fused_epilogue import epilogue_apply, normal_inverse, supports_fused_epilogue
 from ..ops.gramians import hadamard_all, hadamard_but_one
-from ..ops.mttkrp import mttkrp_batched, prepare_batched
+from ..ops.fused_mttkrp import prepare_mode_tensor
+from ..ops.mttkrp import (
+    dimtree_layout,
+    dimtree_ttm,
+    dimtree_ttv,
+    mttkrp_batched,
+    prepare_batched,
+)
 from ..ops.update import padded_hadamard, update_factor_unconstrained
 from .state import HiState, SolverState, tree_where
 
 
 class Held(tuple):
-    """The per-mode held layouts of X at the MTTKRP's tier. ``hi`` holds
-    them at ``params.precision``, the tier of the mixed-tier check's
-    MTTKRP and of the polish sweeps: the same tuple where the two tiers
-    agree, None where neither runs."""
+    """The per-mode held layouts of X at the MTTKRP's tier (None for a
+    layout derived inside the iteration), and under the dimension tree one
+    more slot, the shared TTM's layout (``[n_modes]``, as in the JAX
+    package). ``methods`` holds each mode's resolved MTTKRP method. ``hi``
+    holds the layouts at ``params.precision``, the tier of the mixed-tier
+    check's MTTKRP and of the polish sweeps: the same tuple where the two
+    tiers agree, None where neither runs; only the fused kernels' layouts
+    depend on the tier, the others are shared."""
 
     hi: "Held | None" = None
+    methods: tuple = ()
 
 
 def extrapolated_delta(rate: torch.Tensor, rate_prev: torch.Tensor, gap: torch.Tensor) -> torch.Tensor:
@@ -96,15 +117,21 @@ def make_iteration(
     # The check's MTTKRP and the polish sweeps run at `precision`.
     need_hi = k_check > 0 or getattr(params, "polish_iters", 0) > 0
 
-    def methods_for(x) -> tuple[str, ...]:
-        return tuple(resolve_mttkrp_method(params, x.ndim) for _ in range(x.ndim))
-
     def prepare(x) -> Held:
-        held = Held(prepare_batched(x, methods_for(x), mttkrp_prec))
+        n_modes = x.ndim
+        methods = resolve_mttkrp_method(params, tuple(x.shape), x.dtype, x.device)
+        dimtree = resolve_dimtree(params, n_modes)
+        if resolve_layouts(params, x) == "recompute":
+            held = Held((None,) * (n_modes + dimtree))
+        else:
+            held = Held(prepare_batched(x, methods, mttkrp_prec)
+                        + ((dimtree_layout(x).contiguous(),) if dimtree else ()))
+        held.methods = methods
         if need_hi:
-            held.hi = held if precision == mttkrp_prec else Held(
-                prepare_batched(x, methods_for(x), precision)
-            )
+            held.hi = held if precision == mttkrp_prec or held[0] is None else Held(tuple(
+                prepare_mode_tensor(x, n, precision) if methods[n] == "pallas" else held[n]
+                for n in range(n_modes)) + held[n_modes:])
+            held.hi.methods = methods
         return held
 
     def check(x, state, kt, grams, iters, err, fit, x_norm_full, prepared, method):
@@ -122,6 +149,8 @@ def make_iteration(
         phase = oldest % k_check
         at_check = (phase == 0) | (phase == k_check - 1)
         last = x.ndim - 1
+        # A twostep or krp_gemm last mode has no device predicate: it runs
+        # every iteration and its result is selected below.
         g_hi = mttkrp_batched(x, kt.factors, last, method, precision, prepared.hi[last],
                               pred=at_check.to(torch.int32).reshape(1))
         err_hi = fast_error(state.x_norm_model, kt.lam, kt.factors[-1], g_hi, hadamard_all(grams))
@@ -151,13 +180,21 @@ def make_iteration(
     def iteration(x, state: SolverState, x_norm_full, prepared=None) -> SolverState:
         if prepared is None:
             prepared = prepare(x)
-        methods = methods_for(x)
+        methods = prepared.methods
         n_modes = x.ndim
+        dimtree = resolve_dimtree(params, n_modes)
         iters = state.iters + 1
         kt, grams = state.kt, state.grams
-        g_last = err = None
+        g_last = err = shared = None
         for n in range(n_modes):
-            g = mttkrp_batched(x, kt.factors, n, methods[n], mttkrp_prec, prepared[n])
+            if dimtree and n >= 1:
+                # Modes 1 and 2 from one TTM with the just-updated (and
+                # jackknife-zeroed) mode-0 factor.
+                if shared is None:
+                    shared = dimtree_ttm(x, kt.factors[0], mttkrp_prec, prepared[n_modes])
+                g = dimtree_ttv(shared, kt.factors, n, mttkrp_prec)
+            else:
+                g = mttkrp_batched(x, kt.factors, n, methods[n], mttkrp_prec, prepared[n])
             if n == n_modes - 1:
                 g_last = g
             if fused and supports_fused_epilogue(*g.shape, g.dtype, n_modes, g.device):

@@ -112,14 +112,6 @@ def test_cp_als_float32_and_torch_inputs():
     assert abs(rp.fit - r64.fit) < 1e-4
 
 
-def test_cp_als_takes_3d_tensors_only():
-    rng = np.random.default_rng(0)
-    modes = (4, 3, 3, 2)
-    kt0 = random_ktensor_host(rng, modes, 2, dtype=np.float64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        cp_als(rng.normal(size=modes), kt0, AlsParams(), device="cpu")
-
-
 def test_unbatched_iteration_is_not_ported():
     with pytest.raises(NotImplementedError, match="batch of one"):
         make_iteration(AlsParams(), batched=False)

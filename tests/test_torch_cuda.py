@@ -25,6 +25,7 @@ import torch
 from cp_cals_tpu_torch import (
     AlsParams,
     CalsParams,
+    MttkrpMethod,
     cp_als,
     cp_batched_als,
     cp_cals,
@@ -35,6 +36,7 @@ from cp_cals_tpu_torch import launches
 from cp_cals_tpu_torch import probe_overhead as probe
 from cp_cals_tpu_torch.ops import fused_epilogue as fe
 from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+from cp_cals_tpu_torch.ops import mttkrp as mt
 from cp_cals_tpu_torch.ops import spd_inverse as si
 from cp_cals_tpu_torch.ops.gramians import gramians
 
@@ -396,8 +398,9 @@ def test_kernels_reject_what_they_do_not_take(dev):
         fe.epilogue_apply(torch.zeros(2, 4, fe.MAX_R + 1, device=dev),
                           torch.zeros(2, fe.MAX_R + 1, fe.MAX_R + 1, device=dev), i32, i32, False, None)
     eye = torch.eye(3, device=dev).expand(2, 3, 3).contiguous()
-    with pytest.raises(ValueError):  # the kernel takes a 3-D tensor's two other gramians
-        fe.normal_inverse((eye,) * 4, torch.ones(2, 3, dtype=torch.bool, device=dev), 0)
+    for n in (2, fe.MAX_MODES + 1):  # the kernel takes 2 to MAX_MODES - 1 other gramians
+        with pytest.raises(ValueError):
+            fe.normal_inverse((eye,) * n, torch.ones(2, 3, dtype=torch.bool, device=dev), 0)
     x3 = torch.zeros(3, 4, 5, device=dev)
     with pytest.raises(ValueError):
         fm.fused_mttkrp(x3.double(), torch.zeros(2, 3, 2, device=dev).double(),
@@ -692,3 +695,147 @@ def test_cp_cals_beyond_the_fused_epilogue(dev, modes, rank, data_rank):
     assert not fe.supports_fused_epilogue(1, 3000, 20, torch.float32, 3, dev)
     assert not fe.supports_fused_epilogue(1, 90, 65, torch.float32, 3, dev)
     assert fe.supports_fused_epilogue(1, 299, 20, torch.float32, 3, dev)
+
+
+# ------------------------------------- N-D tensors and the widened epilogue
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 7])
+@pytest.mark.parametrize("r", [1, 5, 20, 33])
+def test_epilogue_kernels_with_k_gramians_match_plain(dev, r, k):
+    """The normal inverse and the apply's FastALS error with K = N - 1
+    other-mode gramians (the pointers passed by value), against their plain
+    versions; K = 2 is the 3-D case."""
+    rng = np.random.default_rng(10 * k + r)
+    b, n = 7, k + 1
+    modes = tuple(2 * r + 3 + q for q in range(n))
+    mask = np.broadcast_to(np.arange(r) < max(1, r - 1), (b, r)).copy()
+    mask[-1] = False
+    m = torch.from_numpy(mask).to(dev)
+    factors = [torch.from_numpy(rng.normal(size=(b, i, r)).astype(np.float32)).to(dev) * m[:, None, :]
+               for i in modes]
+    factors = [f / f.norm(dim=1, keepdim=True).clamp(min=1e-30) for f in factors]
+    grams = gramians(factors)
+    for skip in (0, n - 1):
+        got = fe.normal_inverse(grams, m, skip)
+        want = fe.normal_inverse_plain(grams, m, skip)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    hinv = fe.normal_inverse(grams, m, n - 1)
+    g = torch.from_numpy(rng.normal(size=(b, modes[-1], r)).astype(np.float32)).to(dev) * m[:, None, :]
+    jk = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    iters = torch.full((b,), 3, dtype=torch.int32, device=dev)
+    err_inputs = (torch.linspace(20.0, 30.0, b, device=dev), *grams[:-1])
+    got = fe.epilogue_apply(g, hinv, iters, jk, False, err_inputs)
+    want = fe.epilogue_apply_plain(g, hinv, iters, jk, False, err_inputs)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+
+
+def test_widened_kernels_take_the_gramians_the_python_side_allows(dev):
+    assert fe._lib().hinv_max_grams() == fe.MAX_MODES - 1
+    assert fe.supports_fused_epilogue(8, 299, 20, torch.float32, fe.MAX_MODES, dev)
+    assert not fe.supports_fused_epilogue(8, 299, 20, torch.float32, fe.MAX_MODES + 1, dev)
+    assert not fe.supports_fused_epilogue(8, 299, 20, torch.float32, 2, dev)
+
+
+def test_fused_mttkrp_gate_on_the_card(dev):
+    assert all(fm.fused_mttkrp_supported((299, 301, 41), n, 80, 20, torch.float32, dev) for n in range(3))
+    assert not fm.fused_mttkrp_supported((299, 301, 41), 0, 80, 20, torch.float64, dev)
+    assert not fm.fused_mttkrp_supported((30, 20, 10, 8), 0, 8, 4, torch.float32, dev)
+    assert not fm.fused_mttkrp_supported((5_000_000, 3, 2), 0, 1, 4, torch.float32, dev)  # row tiles > 65535
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_tier_matmul_on_the_card_matches_the_emulation(dev, precision):
+    """cuBLAS bf16 GEMMs with float32 output against the CPU's exact
+    products of the rounded values: summation order only."""
+    rng = np.random.default_rng(4)
+    for sa, sb in (((300, 301), (301, 96)), ((96, 41, 29), (96, 29, 1))):
+        a = torch.from_numpy(rng.normal(size=sa).astype(np.float32))
+        b = torch.from_numpy(rng.normal(size=sb).astype(np.float32))
+        want = mt.tier_matmul(a.double(), b.double(), precision)
+        got = mt.tier_matmul(a.to(dev), b.to(dev), precision)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got.double().cpu(), want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+        if precision == "default":
+            c = mt.tier_matmul(a.to(dev), b.to(dev), precision, torch.bfloat16)
+            assert c.dtype == torch.bfloat16
+            torch.testing.assert_close(c.double().cpu(), want, rtol=2 ** -7, atol=2 ** -7 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("method", ["twostep", "krp_gemm"])
+@pytest.mark.parametrize("modes", [(30, 20, 10), (12, 10, 6, 5)])
+def test_mttkrp_methods_on_the_card_match_cpu(dev, modes, method):
+    rng = np.random.default_rng(len(modes))
+    x = torch.from_numpy(rng.normal(size=modes).astype(np.float32))
+    factors = [torch.from_numpy(rng.normal(size=(4, m, 3)).astype(np.float32)) for m in modes]
+    for tier in ("highest", "high", "default"):
+        for n in range(len(modes)):
+            want = mt.mttkrp_batched(x.double(), [f.double() for f in factors], n, method, tier)
+            got = mt.mttkrp_batched(x.to(dev), [f.to(dev) for f in factors], n, method, tier)
+            torch.testing.assert_close(got.double().cpu(), want, rtol=2e-2 if tier == "default" else 1e-5,
+                                       atol=(2e-2 if tier == "default" else 1e-5) * want.abs().max().item())
+
+
+def test_cp_cals_4d_on_card_matches_cpu(dev):
+    """A 4-D queue on the card: every mode through the twostep and every
+    epilogue through the widened kernels (K = 3), against the CPU run."""
+    rng = np.random.default_rng(8)
+    modes = (20, 17, 9, 6)
+    kt = random_ktensor_host(rng, modes, 3)
+    x = np.einsum("ir,jr,kr,lr,r->ijkl", *kt.factors, kt.lam)
+    x = (x + 0.01 * rng.standard_normal(modes)).astype(np.float32)
+    queue = [random_ktensor_host(rng, modes, r) for r in (1, 2, 3, 4, 5, 3, 2)]
+    jk = [-1, 3, -1, 0, -1, 7, -1]
+    params = CalsParams(max_iterations=8, force_max_iter=True, buffer_size=12, bucket_ranks=(2, 4, 8))
+    _zero()
+    res_d, rep_d = cp_cals(x, queue, params, jk_fibers=jk)
+    steps = sum(rep_d.engine_iterations.values())
+    counts, routes = _counts(), launches.routes()
+    assert counts["normal_inverse"] == counts["epilogue_apply"] == 4 * steps
+    assert counts["fused_mttkrp_fp32"] == counts["fused_mttkrp_tc"] == 0
+    assert routes == {"fused": 0, "twostep": 4 * steps, "krp_gemm": 0, "dimtree": 0}
+    res_c, rep_c = cp_cals(x, queue, params, jk_fibers=jk, device="cpu")
+    for a, b, ma, mb in zip(res_d, res_c, rep_d.models, rep_c.models):
+        assert ma.iters == mb.iters
+        assert abs(ma.fit - mb.fit) <= 1e-4
+        for fa, fb in zip(a.factors, b.factors):
+            np.testing.assert_allclose(fa, fb, rtol=2e-3, atol=2e-3)
+
+
+def test_float64_on_the_card_takes_the_twostep_and_the_unfused_path(dev):
+    """The gates send float64 to the twostep and the unfused epilogue (no
+    kernel launches) and the run equals the CPU's at float64 rounding."""
+    rng = np.random.default_rng(9)
+    modes = (14, 11, 9)
+    kt = random_ktensor_host(rng, modes, 3, dtype=np.float64)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam) + 1e-3 * rng.standard_normal(modes)
+    queue = [random_ktensor_host(rng, modes, r, dtype=np.float64) for r in (1, 2, 3, 2)]
+    params = CalsParams(max_iterations=10, force_max_iter=True, buffer_size=8, bucket_ranks=(2, 4))
+    _zero()
+    res_d, rep_d = cp_cals(x, queue, params)
+    assert all(v == 0 for v in _counts().values())
+    assert launches.routes()["twostep"] == 3 * sum(rep_d.engine_iterations.values())
+    res_c, rep_c = cp_cals(x, queue, params, device="cpu")
+    for a, b, ma, mb in zip(res_d, res_c, rep_d.models, rep_c.models):
+        assert ma.iters == mb.iters and abs(ma.fit - mb.fit) <= 1e-10
+        for fa, fb in zip(a.factors, b.factors):
+            np.testing.assert_allclose(fa, fb, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("kw", [dict(mttkrp_method=MttkrpMethod.TWOSTEP), dict(dimtree="on"),
+                                dict(precision="high", mttkrp_precision="default", tol_check_interval=3,
+                                     polish_iters=2)], ids=["twostep", "dimtree", "checks_polish"])
+def test_recompute_equals_materialized_on_the_card(dev, kw):
+    """Layouts derived inside the captured iteration give the held layouts'
+    bits."""
+    x, queue = _bench_problem(5, 1)
+    base = dict(max_iterations=5, tol=1e-6, bucket_ranks=(4, 8, 12, 16, 20), buffer_size=200, **kw)
+    if "tol_check_interval" not in kw:
+        base["force_max_iter"] = True
+    runs = [cp_cals(x, queue, CalsParams(mode_layouts=lay, **base)) for lay in ("materialized", "recompute")]
+    (res_a, rep_a), (res_b, rep_b) = runs
+    for a, b, ma, mb in zip(res_a, res_b, rep_a.models, rep_b.models):
+        assert (ma.iters, ma.fit, ma.approx_error) == (mb.iters, mb.fit, mb.approx_error)
+        for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
+            np.testing.assert_array_equal(fa, fb)

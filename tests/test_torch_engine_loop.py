@@ -117,9 +117,12 @@ def test_chunk_policy():
     live = np.array([True, True, False])
     assert graph_loop.chunk_length(p, np.array([3, 6, 9]), live) == 4
     p = CalsParams(max_iterations=10, tol_check_interval=5)
-    assert graph_loop.chunk_length(p, np.array([3, 1, 0]), live) == 2  # to the oldest's check at 5
-    assert graph_loop.chunk_length(p, np.array([5, 1, 0]), live) == 5
-    assert graph_loop.chunk_length(p, np.array([8, 1, 0]), live) == 2  # capped at max_iterations
+    assert graph_loop.chunk_length(p, np.array([3, 1, 0]), live) == 1  # to the oldest's pre-check at 4
+    assert graph_loop.chunk_length(p, np.array([4, 1, 0]), live) == 1  # then its decision check at 5
+    assert graph_loop.chunk_length(p, np.array([5, 1, 0]), live) == 4
+    p = CalsParams(max_iterations=10, tol_check_interval=3)
+    assert graph_loop.chunk_length(p, np.array([9, 1, 0]), live) == 1  # capped at max_iterations
+    assert graph_loop.chunk_length(dataclasses.replace(p, max_iterations=20), np.array([9, 1, 0]), live) == 2
     p = CalsParams(max_iterations=100)
     assert graph_loop.chunk_length(p, np.array([3, 1, 0]), live) == graph_loop.TOL_CHUNK
 

@@ -112,15 +112,12 @@ def test_result_wire_dtype(wire):
     [
         dict(update_method=pcfg.UpdateMethod.NNLS),
         dict(line_search=True),
-        dict(dimtree="on"),
-        dict(mode_layouts="recompute"),
-        dict(mttkrp_method=pcfg.MttkrpMethod.TWOSTEP),
-        dict(mttkrp_method=pcfg.MttkrpMethod.KRP_GEMM),
+        dict(debug=True),
     ],
 )
 def test_unported_settings_raise(change):
     x, queue = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         cp_cals(x, queue, pcfg.CalsParams(**change), device="cpu")
 
 

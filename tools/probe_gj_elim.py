@@ -35,7 +35,10 @@ fused_epilogue.so and spd_inverse.so, built by running anything of it
 that launches them) on the same inputs, at B = 37 and every R from 1 to 64
 (gramians of random factors, masked columns, a dead slot), and the
 differing elements are counted: 0 at every R says the two compute the
-same bits. Needs a CUDA card and nvcc.
+same bits. The epilogue's apply is held the same way, on the last mode
+with the FastALS error it finishes (the two other gramians of a 3-D
+tensor), so a checkout whose apply takes any number of gramians can be
+held to one whose apply took exactly two. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ HEADER = _build.CSRC / "gj_elim.cuh"
 LAUNCHER = """#include "gj_elim.cuh"
 extern "C" int probe_hinv(const float* g0, const float* g1, const uint8_t* mask, float* out,
                           int B, int R, void* s) {
-  return gj_launch<DividePivot>(HadamardLoad{g0, g1, mask, R}, out, B, R, (cudaStream_t)s);
+  const float* grams[2] = {g0, g1};
+  return gj_launch<DividePivot>(HadamardLoad<2>{gram_set(grams, 2), mask, R}, out, B, R, (cudaStream_t)s);
 }
 extern "C" int probe_spd(const float* h, float* out, int B, int R, void* s) {
   return gj_launch<ReciprocalPivot>(PlainLoad{h, R}, out, B, R, (cudaStream_t)s);
@@ -220,7 +224,15 @@ def against(root: str, dev) -> dict:
             raise RuntimeError(f"{root} has no built {name}.so")
         libs[name] = ctypes.CDLL(found[-1])
     hinv, spd_inv = libs["fused_epilogue"].hinv_launch, libs["spd_inverse"].spd_inverse_launch
-    hinv.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    # Since the normal inverse takes K gramians, hinv_launch reads a host
+    # array of pointers and its K (the library then exports hinv_max_grams);
+    # before, the two pointers themselves.
+    widened = hasattr(libs["fused_epilogue"], "hinv_max_grams")
+    hinv.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2 if widened
+                     else [ctypes.c_void_p] * 4) + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    apply = libs["fused_epilogue"].apply_launch
+    apply.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 4 if widened
+                      else [ctypes.c_void_p] * 11) + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     spd_inv.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     out = {}
     b = 37
@@ -231,11 +243,23 @@ def against(root: str, dev) -> dict:
         got_n, got_s = fe.normal_inverse(grams, mask, 0), si.spd_inverse(grams[1])
         ref_n, ref_s = torch.empty_like(got_n), torch.empty_like(got_s)
         stream = _build.stream_ptr(dev)
-        _build.check(hinv(grams[1].data_ptr(), grams[2].data_ptr(), mask.data_ptr(), ref_n.data_ptr(),
-                          b, r, stream), "hinv_launch")
+        pair = (fe._pointers(grams[1:]), 2) if widened else (grams[1].data_ptr(), grams[2].data_ptr())
+        _build.check(hinv(*pair, mask.data_ptr(), ref_n.data_ptr(), b, r, stream), "hinv_launch")
         _build.check(spd_inv(grams[1].data_ptr(), ref_s.data_ptr(), b, r, stream), "spd_inverse_launch")
+        # The apply on the last mode of the gramians' 3-D shape, with the error.
+        i = 2 * r + 7
+        g = torch.randn((b, i, r), generator=torch.Generator().manual_seed(r)).to(dev) * mask[:, None, :]
+        iters = torch.full((b,), 3, dtype=torch.int32, device=dev)
+        jk = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        x_norm = torch.linspace(20.0, 30.0, b, device=dev)
+        got_a = fe.epilogue_apply(g, got_n, iters, jk, False, (x_norm, grams[1], grams[2]))
+        ref_a = [torch.empty_like(t) for t in got_a]
+        grams_arg = (fe._pointers(grams[1:]), 2) if widened else (grams[1].data_ptr(), grams[2].data_ptr())
+        _build.check(apply(g.data_ptr(), got_n.data_ptr(), iters.data_ptr(), jk.data_ptr(), x_norm.data_ptr(),
+                           *grams_arg, *(t.data_ptr() for t in ref_a), b, i, r, 0, stream), "apply_launch")
         torch.cuda.synchronize()
         out[r] = dict(normal_differing=int((got_n != ref_n).sum()), spd_differing=int((got_s != ref_s).sum()),
+                      apply_differing=sum(int((a != w).sum()) for a, w in zip(got_a, ref_a)),
                       normal_max_abs=(got_n - ref_n).abs().max().item(), spd_max_abs=(got_s - ref_s).abs().max().item())
     return out
 
@@ -292,10 +316,10 @@ def main() -> int:
     if args.against:
         result["against"] = dict(checkout=args.against, by_rank=against(args.against, dev))
         for r, d in result["against"]["by_rank"].items():
-            same = same and d["normal_differing"] == 0 and d["spd_differing"] == 0
+            same = same and d["normal_differing"] == d["spd_differing"] == d["apply_differing"] == 0
             print(f"against {args.against} R={r}: normal inverse {d['normal_differing']} elements differ "
-                  f"(max {d['normal_max_abs']:.3g}), SPD inverse {d['spd_differing']} (max {d['spd_max_abs']:.3g})",
-                  flush=True)
+                  f"(max {d['normal_max_abs']:.3g}), SPD inverse {d['spd_differing']} (max {d['spd_max_abs']:.3g}), "
+                  f"apply with the error {d['apply_differing']}", flush=True)
     with open(os.path.join(args.out, "probe_gj_elim.json"), "w") as fh:
         json.dump(result, fh, indent=1)
     return 0 if same and all(result["variants"][n]["exact"] for n in EXACT) else 1

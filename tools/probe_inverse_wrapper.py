@@ -79,7 +79,7 @@ def steps(grams, mask, dev, skip: int = 0) -> dict:
     out = torch.empty((b, r, r), dtype=torch.float32, device=dev)
     launch = fe._lib().hinv_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (others[0].data_ptr(), others[1].data_ptr(), mask.data_ptr(), out.data_ptr(), b, r, stream)
+    args = (fe._pointers(others), len(others), mask.data_ptr(), out.data_ptr(), b, r, stream)
 
     def shape_checks():  # as the wrapper had them (tuple() of every shape)
         for g in others:
@@ -100,7 +100,7 @@ def steps(grams, mask, dev, skip: int = 0) -> dict:
         current_stream=lambda: torch.cuda.current_stream(dev).cuda_stream,
         stream_ptr=lambda: _build.stream_ptr(dev),
         lib_lookup=lambda: fe._lib().hinv_launch,
-        data_ptrs=lambda: (others[0].data_ptr(), others[1].data_ptr(), mask.data_ptr(), out.data_ptr()),
+        data_ptrs=lambda: (fe._pointers(others), mask.data_ptr(), out.data_ptr()),
         bare_launch=lambda: launch(*args),
         raw_stream=lambda: torch._C._cuda_getCurrentRawStream(dev.index),
     )

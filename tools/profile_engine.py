@@ -56,18 +56,6 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchr
               "cudaStreamWaitEvent")
 
 
-def union_us(intervals) -> float:
-    total, end = 0.0, -1.0
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def trace(x, queue, params, out_dir: str, label: str) -> dict:
     """One profiled run of ``params`` after a warm-up; the summary."""
     from torch.profiler import ProfilerActivity, profile
@@ -101,7 +89,7 @@ def trace(x, queue, params, out_dir: str, label: str) -> dict:
             count[e.name] += 1
         elif e.name in LAUNCH_CALLS or e.name in SYNC_CALLS:
             host[e.name] += d
-    busy_us = union_us(intervals)
+    busy_us = chip_smoke.union_us(intervals)
     bucket_iters = sum(rep.engine_iterations.values())
     loop = chip_smoke.loop_totals(rep)
     elementwise = [n for n in by_name if "elementwise" in n]
