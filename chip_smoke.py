@@ -57,6 +57,28 @@ the result lines are printed):
    of it for its share of that time. Then the widened epilogue kernels at
    K = 3 and 4 (a fifth mode of 5) against their plain versions at every
    (B, R) of the engine and every mode, timed (K = 2 is phase 3's).
+4c. NNLS at full width (the JAX package's NNLS experiment,
+   cp_cals_tpu/experiments.py:442-483, without --quick): the absolute
+   values of a seeded rank-5 Ktensor as a 100x100x100 float32 target
+   (NumPy's draw: JAX's threefry keys are not reproduced), 100 models of
+   ranks 1-10 x 10, buckets 4/8/12, 50 forced iterations at "high", block
+   principal pivoting, through the graph loop: only the tensor-core MTTKRP
+   launches (three per bucket-iteration; the epilogue kernels none), every
+   factor entry >= 0 exactly. The run's MTTKRP calls are recorded, replays
+   included, and the tensor-core kernel is held against its plain version
+   and timed on the run's own inputs at each (B, R, mode) of its launch
+   mix. CALS against each model's ALS on the card (cp_batched_als per
+   rank) by fit, the models furthest apart again in float64 and in float32
+   on the CPU, and 10 fits against the port's float64 CPU run;
+   Lawson-Hanson and BPP on the rank-8 bucket on the card, each against
+   the port's float64 CPU run of that bucket (where the two algorithms
+   agree), with both walls; the NNLS update's device time per
+   bucket-iteration at each bucket, both algorithms, eager and replayed.
+4d. Line search at full width: the bench workload at "highest", 20 forced
+   iterations, interval 5, NO_ERROR_CHECKING and ERROR_CHECKING, each in
+   the graph loop and in sync_mode="iter" (bit for bit), ERROR_CHECKING's
+   candidate MTTKRP predicated once per bucket-iteration, 20 models
+   against the port's float64 CPU run.
 5. Jackknife, at full width (the JAX bench's jackknife configuration): a
    rank-5 model of the bench tensor fitted by cp_als on the card, then its
    299 leave-one-out replicates in one bucket of rank 8 (B = 320), each
@@ -78,6 +100,10 @@ the result lines are printed):
    with float32 results, and 10 fibers are cross-checked against the
    port's float64 CPU run of the same settings (J4's stops within one
    check window).
+5b. J1 with NEC line search (tol-driven), then at 10 forced iterations
+   against the port's float64 CPU run of 10 fibers; a debug=True run
+   (eager, no graph) with an injected rise of the error at each model's
+   6th iteration, its recorded entries against the same run on the CPU.
 6. SPD inverse: the kernel against its plain version on the normal
    matrices J2 inverted (each eager call's, and each captured call's
    last replay), and on random SPD batches (R = 4, 20, 32, 33, 64,
@@ -85,7 +111,8 @@ the result lines are printed):
    inverses record which path of their shared elimination (warp or block)
    each shape took.
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
-   eager and graph-captured; its copy kernel is held to exact equality.
+   eager and graph-captured; its copy kernel is held to exact equality and
+   timed beside torch.mul, eager and replayed.
 8. Result: the graph captures, replays and stats fetches of each run, one
    {"kernels": [...]} line (the normal inverse and the apply also at K = 3,
    as "normal_inverse_k3" and "epilogue_apply_k3", at the 4-D run's launch
@@ -103,7 +130,8 @@ shapes for the copy kernel. "ms" is a launch's share of 20 eager launches
 back to back (for a small kernel mostly the host's cost of issuing it),
 "graph_ms" its share of 20 launches replayed from one CUDA graph (the
 device's time); "library_graph_ms" the same for the PyTorch yardstick
-(None for torch.linalg.inv, which tools/profile_engine.py replays).
+(for the inverses torch.linalg.inv_ex at R <= 16, the mean over those
+(B, R) only: INV_EX_CAPTURE_R).
 """
 
 from __future__ import annotations
@@ -269,6 +297,18 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+# torch.linalg.inv_ex, the inverses' yardstick, can be captured into a CUDA
+# graph at R <= 16 only: above, the card's PyTorch (2.11) takes an LU path
+# that is not capturable (R = 20 raised cudaErrorStreamCaptureUnsupported),
+# so its replayed time is not measured there. torch.linalg.inv reads its
+# error flags on the host and is timed eagerly.
+INV_EX_CAPTURE_R = 16
+
+
+def inv_ex_graph_ms(h) -> float | None:
+    return graph_ms(lambda: torch.linalg.inv_ex(h)) if h.shape[-1] <= INV_EX_CAPTURE_R else None
 
 
 def bound(flops: float, peak: float, nbytes: float) -> dict:
@@ -493,7 +533,7 @@ def kernel_phase(x, dev):
                 graph_ms=graph_ms(lambda: fe.normal_inverse(e_grams, e_mask, mode)),
                 plain_ms=cuda_ms(lambda: fe.normal_inverse_plain(e_grams, e_mask, mode)),
                 library_ms=cuda_ms(lambda: torch.linalg.inv(h)),
-                library_graph_ms=None,  # tools/profile_engine.py replays torch.linalg.inv_ex
+                library_graph_ms=inv_ex_graph_ms(h),
             )
             # The apply on every mode, with and without the error it finishes
             # on the last mode (the bucket's other gramians), at iterations 1
@@ -654,11 +694,12 @@ def bench_params(**kw):
 
 
 def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, per_step: dict | None = None,
-               routes: dict | None = None, **kw):
+               routes: dict | None = None, checked: str | None = None, **kw):
     """One cp_cals run from counts at 0: ``per_step`` the kernels of its
     path and their launches per bucket-iteration (default: the 3-D fused
     path), ``routes`` its MTTKRP results by route (default: the fused
-    kernels on all three modes)."""
+    kernels on all three modes), ``checked`` the MTTKRP kernel launched
+    under a device predicate once per bucket-iteration (none by default)."""
     from cp_cals_tpu_torch import cp_cals, launches
 
     params = bench_params(**tiers, **kw)
@@ -672,7 +713,8 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, per_ste
     bucket_iters = sum(rep.engine_iterations.values())
     loop = loop_totals(rep)
     steps = bucket_iters + loop["polish_sweeps"]
-    check_launches(name, counts, per_step or fused(params.mttkrp_precision or params.precision), steps)
+    check_launches(name, counts, per_step or fused(params.mttkrp_precision or params.precision), steps, checked,
+                   bucket_iters if checked else 0)
     route_counts = launches.routes()
     check_routes(name, route_counts, routes or {"fused": 3}, steps)
     if len(results) != len(queue) or any(kt is None for kt in results):
@@ -881,15 +923,26 @@ class SpdRecorder(Recorder):
 
 class MttkrpRecorder(Recorder):
     """The unpredicated MTTKRP calls through the tier dispatcher
-    ``fused_mttkrp`` by (B, target mode, tier); the held layout X stays by
-    reference."""
+    ``fused_mttkrp`` on the bench tensor by (B, R, target mode, tier); the
+    held layout X stays by reference."""
 
     module, attr, keep = "cp_cals_tpu_torch.ops.fused_mttkrp", "fused_mttkrp", (0,)
 
     def key(self, x3, u1, u2, precision="highest", pred=None):
         # the target mode's I: [.., J, I, Kp] at the bf16 tiers, [J, K, I] at "highest"
         i = x3.shape[-1] if precision == "highest" else x3.shape[-2]
-        return None if pred is not None else (u1.shape[0], MODES.index(i), precision)
+        return None if pred is not None else (u1.shape[0], u1.shape[2], MODES.index(i), precision)
+
+
+class CubeMttkrpRecorder(MttkrpRecorder):
+    """The same on a cube, whose modes have one length: the target mode is
+    the call's place in its iteration (a run with no predicated call makes
+    three per iteration, the modes in turn)."""
+
+    def key(self, x3, u1, u2, precision="highest", pred=None):
+        if pred is not None:
+            raise AssertionError("a predicated MTTKRP call in a run recorded by its calls' order")
+        return (u1.shape[0], u1.shape[2], self.n % 3, precision)
 
 
 def jk_run(name: str, run, per_step: dict, checked: str | None = None) -> tuple:
@@ -931,22 +984,25 @@ def jk_run(name: str, run, per_step: dict, checked: str | None = None) -> tuple:
     return rep, out
 
 
-def mttkrp_mix(rec, x) -> list:
-    """The MTTKRP kernel at every (B, mode, tier) of a recorded run, on that
-    run's own inputs: held against its plain version at TOL["mttkrp"] and
-    timed, with the torch twostep at the same tier beside it."""
+def mttkrp_mix(rec, x, label="J1") -> list:
+    """The MTTKRP kernel at every (B, R, mode, tier) of a recorded run on
+    ``x``, on that run's own inputs: held against its plain version at
+    TOL["mttkrp"] and timed, with the torch twostep at the same tier beside
+    it."""
     from cp_cals_tpu_torch.ops import fused_mttkrp as fm
 
+    modes = tuple(x.shape)
     mix = []
-    for (b, mode, tier), n in sorted(rec.shapes.items(), reverse=True):
-        x3, u1, u2 = rec.first[(b, mode, tier)]
+    for (b, r, mode, tier), n in sorted(rec.shapes.items(), reverse=True):
+        x3, u1, u2 = rec.first[(b, r, mode, tier)]
         got, want = fm.fused_mttkrp(x3, u1, u2, tier), fm.fused_mttkrp_plain(x3, u1, u2, tier)
         torch.cuda.synchronize()
         err, scale = rel_err(got, want)
         if not err <= TOL["mttkrp"] * scale:
-            raise AssertionError(f"fused_mttkrp {tier} B={b} mode={mode} (recorded inputs): {err} vs {scale}")
-        small, big = fm.split_others(MODES, mode)
-        j, i, k, r = MODES[small], MODES[mode], MODES[big], u1.shape[2]
+            raise AssertionError(f"fused_mttkrp {tier} B={b} R={r} mode={mode} ({label}'s recorded inputs): "
+                                 f"{err} vs {scale}")
+        small, big = fm.split_others(modes, mode)
+        j, i, k = modes[small], modes[mode], modes[big]
         x_ts = x.permute(mode, small, big).reshape(-1, k)
         flops = (2 * j * i * k * b * r + 2 * j * i * b * r) * (3 if tier == "high" else 1)
         mix.append(dict(
@@ -958,7 +1014,7 @@ def mttkrp_mix(rec, x) -> list:
             library_ms=cuda_ms(lambda: twostep(x_ts, u1, u2, tier)),
         ))
         m = mix[-1]
-        print(f"mttkrp J1 mix {tier} B={b} R={r} mode={mode} ({n} launches): {m['ms']:.4f}ms "
+        print(f"mttkrp {label} mix {tier} B={b} R={r} mode={mode} ({n} launches): {m['ms']:.4f}ms "
               f"(graph {m['graph_ms']:.4f}), plain {m['plain_ms']:.4f}ms, twostep {m['library_ms']:.4f}ms, "
               f"bound {m['bound_ms']:.4f}ms, err/max {err / scale:.2e}", flush=True)
     return mix
@@ -1121,7 +1177,7 @@ def spd_phase(rec, dev) -> dict:
                         ms=cuda_ms(lambda: si.spd_inverse(h)),
                         graph_ms=graph_ms(lambda: si.spd_inverse(h)),
                         plain_ms=cuda_ms(lambda: si.spd_inverse_plain(h)),
-                        library_ms=cuda_ms(lambda: torch.linalg.inv(h)), library_graph_ms=None))
+                        library_ms=cuda_ms(lambda: torch.linalg.inv(h)), library_graph_ms=inv_ex_graph_ms(h)))
     for c in checks:
         print(f"spd_inverse {c['case']}: B={c['B']} R={c['R']} ({c['path']} path) cond <= {c['cond_max']:.3g}, "
               f"err/(cond*max) {c['ratio']:.3g}", flush=True)
@@ -1162,8 +1218,10 @@ def probe_phase(dev) -> dict:
                            plain_ms=cuda_ms(lambda: probe.probe_copy_plain(x)),
                            library_ms=cuda_ms(lambda: torch.mul(x, 0.999)),
                            library_graph_ms=graph_ms(lambda: torch.mul(x, 0.999))))
-        print(f"probe_copy {shape}: exact; {shapes[-1]['ms']:.4f}ms (graph {shapes[-1]['graph_ms']:.4f}), "
-              f"plain {shapes[-1]['plain_ms']:.4f}ms, torch.mul {shapes[-1]['library_ms']:.4f}ms", flush=True)
+        m = shapes[-1]
+        print(f"probe_copy {shape}: exact; {m['ms']:.4f}ms (graph {m['graph_ms']:.4f}), plain {m['plain_ms']:.4f}ms, "
+              f"torch.mul {m['library_ms']:.4f}ms (graph {m['library_graph_ms']:.4f}), bound {m['bound_ms']:.4f}ms",
+              flush=True)
     return dict(result=res, launches=counts["probe_copy"], shapes=shapes)
 
 
@@ -1435,7 +1493,7 @@ def widened_phase(dev) -> dict:
                               ms=cuda_ms(lambda: fe.normal_inverse(grams, mask, mode)),
                               graph_ms=graph_ms(lambda: fe.normal_inverse(grams, mask, mode)),
                               plain_ms=cuda_ms(lambda: fe.normal_inverse_plain(grams, mask, mode)),
-                              library_ms=cuda_ms(lambda: torch.linalg.inv(h)), library_graph_ms=None),
+                              library_ms=cuda_ms(lambda: torch.linalg.inv(h)), library_graph_ms=inv_ex_graph_ms(h)),
                     apply=dict(**bound(a_flops, PEAK_FP32, a_bytes), max_abs_err=max(e for e, _ in errs),
                                max_err_rel=e_rel,
                                ms=cuda_ms(lambda: fe.epilogue_apply(g, got, iters, jk, False, err_inputs)),
@@ -1493,6 +1551,354 @@ def mttkrp_methods_row(x, mode, u_factors) -> dict:
             out[f"{method} {tier}"] = dict(ms=cuda_ms(lambda: fn(x, u_factors, mode, tier, held)),
                                            graph_ms=graph_ms(lambda: fn(x, u_factors, mode, tier, held)))
     return out
+
+
+# ------------------------------------------------------------ NNLS, line search and debug phases
+
+# NNLS at full width: the JAX package's NNLS experiment without --quick
+# (cp_cals_tpu/experiments.py:442-483): a non-negative 100x100x100 target,
+# the absolute values of a seeded rank-5 Ktensor (drawn with NumPy: JAX's
+# threefry draw is not reproducible here), 100 models of ranks 1-10 x 10,
+# buckets 4/8/12, 50 forced iterations at "high", block principal pivoting.
+NN_MODES, NN_RANK, NN_ITERS, NN_SEED = (100, 100, 100), 5, 50, 1
+NN_BUCKETS = (4, 8, 12)
+# CALS against each model's ALS (cp_batched_als per rank: each model's
+# cp_als trajectory) on the card, every model's |fit difference| <=
+# NN_FIT_TOL. The JAX experiment's check (experiments.py:compare_als_cals,
+# |e_cals - e_als| <= 1e-1 * max(1, |e_als|)) is reported beside it and not
+# held: the target is exactly rank 5, so some models of rank 10 fit it to
+# the FastALS error's float32 floor (err^2 is a difference of terms of
+# |X|^2 = 4.95e5, carried through an MTTKRP rounded at about 2^-16, so
+# err is noise below about 2.7), where their errors read 0 to 1.7 and the
+# two packings of the MTTKRP (B*R columns of padded buckets against
+# batches of one rank) send them along different paths: on an H100 up to
+# 0.41 apart (a fit difference of 5.8e-4). The NN_F64_WORST models
+# furthest apart on the card are run again on the CPU, CALS and ALS, in
+# float32 at "high" (the same packings and tier rule: a gap of the same
+# order, 0.41 on the same model) and in float64, where CALS and ALS must
+# agree to NN_F64_TOL (the JAX check's relative form; it read 0).
+NN_FIT_TOL, NN_F64_WORST, NN_F64_TOL = 1e-3, 5, 1e-9
+# Fits of NN_HELD models (one per rank) against the port's float64 CPU run
+# at "highest" from the same inits: |fit difference| <= NN_HELD_TOL (read
+# 4.1e-5 on an H100).
+NN_HELD, NN_HELD_TOL = [10 * (r - 1) for r in range(1, 11)], 2e-4
+# Lawson-Hanson and BPP on the rank-8 bucket (ranks 5-8, 40 models) on the
+# card, each against the port's float64 CPU runs of that bucket, where the
+# two algorithms must agree to NN_LH_F64_AGREE (they read 0). In float32
+# Lawson-Hanson leaves rows unconverged at its trip bounds (1.7 % of the
+# bucket's row updates, 0 for BPP; on such normal matrices JAX's own
+# float32 solver leaves the same rows: tests/test_torch_nnls.py), so its
+# models of rank 7-8 part: the port's float32 CPU run reads 8.0e-3 against
+# float64 for Lawson-Hanson and 6.7e-4 for BPP (tools/nnls_witness.py),
+# and the card read 8.2e-3 between the two algorithms. NN_LH_F64_TOL
+# holds each.
+NN_LH_BUCKET, NN_LH_F64_AGREE = 8, 1e-12
+NN_LH_F64_TOL = {"lawson_hanson": 1.5e-2, "bpp": 2e-3}
+# Line search at full width: the bench workload at "highest", 20 forced
+# iterations, interval 5, both methods; 20 models against the port's
+# float64 CPU run of the same settings (CROSS_TOL["highest"]).
+LS_ITERS, LS_INTERVAL = 20, 5
+# NO_ERROR_CHECKING is held to the "highest" run's limits (it read 1.4e-6
+# / 3.9e-5 on an H100). ERROR_CHECKING's reconstruction looser: a
+# candidate whose exact error is within float32 rounding of the current
+# one is accepted in one run and not in the other, and the two models then
+# part along a direction the fit barely sees (read 4.3e-6 / 6.0e-4).
+LS_CROSS_TOL = {"no_error_checking": CROSS_TOL["highest"], "error_checking": (5e-5, 2e-3)}
+LS_METHODS = ("no_error_checking", "error_checking")
+# The debug run: a small problem whose models' weights are scaled by 1.05
+# at their 6th iteration (an injected rise of the error) through the
+# unfused path with NEC line search, 8 forced iterations; the card's
+# entries against the same float32 run on the CPU: the same (iteration,
+# model) entries in order, errors at 1e-4 relative. (Run on, both runs
+# also record rises of 1e-4 at the float32 FastALS error's noise floor from
+# the 10th iteration on, different ones on the card and the CPU.)
+DEBUG_TOL, DEBUG_ITERS = 1e-4, 8
+
+
+def nn_problem():
+    from cp_cals_tpu_torch import Ktensor, random_ktensor_host
+    from cp_cals_tpu_torch.ktensor import to_tensor
+
+    rng = np.random.default_rng(NN_SEED)
+    kt = random_ktensor_host(rng, NN_MODES, NN_RANK, dtype=np.float32)
+    kt = Ktensor(tuple(torch.from_numpy(np.abs(f)) for f in kt.factors), torch.from_numpy(np.abs(kt.lam)))
+    x = to_tensor(kt).numpy().astype(np.float32)
+    queue = [random_ktensor_host(rng, NN_MODES, r, dtype=np.float32) for r in range(1, 11) for _ in range(10)]
+    return x, queue
+
+
+def nn_params(**kw):
+    from cp_cals_tpu_torch import CalsParams, UpdateMethod
+
+    base = dict(max_iterations=NN_ITERS, force_max_iter=True, update_method=UpdateMethod.NNLS,
+                bucket_ranks=NN_BUCKETS, precision="high")
+    return CalsParams(**{**base, **kw})
+
+
+def nn_engine_run(name, x, queue, **kw) -> tuple:
+    """One NNLS cp_cals run on the card from counts at 0: only the
+    tensor-core MTTKRP launches (three per bucket-iteration, no epilogue
+    kernel), every factor entry >= 0 exactly."""
+    from cp_cals_tpu_torch import cp_cals, launches
+
+    params = nn_params(**kw)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res, rep = cp_cals(x, queue, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes = read_counts(), launches.routes()
+    steps = sum(rep.engine_iterations.values())
+    check_launches(name, counts, {"fused_mttkrp_tc": 3}, steps)
+    check_routes(name, routes, {"fused": 3}, steps)
+    min_entry = min(float(f.min()) for kt in res for f in kt.factors)
+    if not min_entry >= 0.0 or any(not np.isfinite(f).all() for kt in res for f in kt.factors):
+        raise AssertionError(f"{name}: a factor entry is negative or not finite ({min_entry})")
+    fits = np.array([m.fit for m in rep.models])
+    out = dict(wall_s=wall, models_per_s=len(queue) / wall, mean_fit=float(fits.mean()), min_factor_entry=min_entry,
+               bucket_iterations=rep.engine_iterations, launches=counts, routes=routes, loop=loop_totals(rep))
+    print(f"NNLS {name}: wall {wall:.3f}s, {out['models_per_s']:.1f} models/s, mean fit {out['mean_fit']:.6f}, "
+          f"min factor entry {min_entry}, bucket-iterations {steps}, launches {counts}, MTTKRP routes {routes}, "
+          f"loop {out['loop']}", flush=True)
+    return res, rep, out
+
+
+def nnls_update_times(x, res, queue) -> dict:
+    """The NNLS update's device time per bucket-iteration (three modes),
+    both algorithms, at each bucket's (B, R) on the engine's own normal
+    matrices and MTTKRPs of its fitted models: the update replayed from a
+    CUDA graph (a captured update runs every loop to its bound, so the time
+    does not depend on the data), and eager."""
+    from cp_cals_tpu_torch.ops.gramians import gramians, hadamard_but_one
+    from cp_cals_tpu_torch.ops.mttkrp import mttkrp_batched
+    from cp_cals_tpu_torch.ops.update import padded_hadamard, update_factor_nnls
+    from cp_cals_tpu_torch.solvers.cals import allocate_bucket_batches, bucket_rank
+
+    dev = torch.device("cuda")
+    xt = torch.from_numpy(x).to(dev)
+    demands = collections.Counter(bucket_rank(kt.rank, NN_BUCKETS) for kt in queue)
+    (wave,) = allocate_bucket_batches(dict(demands), nn_params().buffer_size)
+    out = {}
+    for r, b in sorted(wave.items()):
+        models = [kt for kt in res if bucket_rank(kt.rank, NN_BUCKETS) == r][:b]
+        fs = [torch.zeros((b, m, r), device=dev) for m in NN_MODES]
+        mask = torch.zeros((b, r), dtype=torch.bool, device=dev)
+        for s, kt in enumerate(models):
+            for f, src in zip(fs, kt.factors):
+                f[s, :, :kt.rank] = torch.from_numpy(src).to(dev)
+            mask[s, :kt.rank] = True
+        grams = gramians(fs)
+        row = dict(B=b, R=r)
+        for alg in ("bpp", "lawson_hanson"):
+            per_mode = []
+            for n in range(3):
+                g = mttkrp_batched(xt, fs, n, "twostep", "high")
+                h = padded_hadamard(hadamard_but_one(grams, n), mask)
+                warm = torch.ones(g.shape, dtype=torch.bool, device=dev)
+                per_mode.append((lambda g=g, h=h, w=warm: update_factor_nnls(g, h, w, 0, alg)))
+            row[f"{alg}_graph_ms"] = sum(graph_ms(fn, reps=1, replays=3) for fn in per_mode)
+            row[f"{alg}_ms"] = sum(cuda_ms(fn, reps=1, warm=1) for fn in per_mode)
+        out[r] = row
+        print(f"NNLS update per bucket-iteration B={b} R={r}: BPP {row['bpp_graph_ms']:.3f}ms replayed "
+              f"({row['bpp_ms']:.3f} eager), Lawson-Hanson {row['lawson_hanson_graph_ms']:.3f}ms replayed "
+              f"({row['lawson_hanson_ms']:.3f} eager)", flush=True)
+    return out
+
+
+def nnls_phase() -> dict:
+    """NNLS at the JAX experiment's full size (module docstring, 4c)."""
+    from cp_cals_tpu_torch import AlsParams, Ktensor, UpdateMethod, cp_batched_als, cp_cals
+    from cp_cals_tpu_torch.solvers.cals import bucket_rank
+
+    x, queue = nn_problem()
+    nn_engine_run("warm-up", x, queue[::10])
+    # The run's MTTKRP calls, replays included: the tensor-core kernel held
+    # and timed at each (B, R, mode) of its launch mix.
+    with CubeMttkrpRecorder() as mix_rec:
+        res, rep, run = nn_engine_run("BPP", x, queue)
+    mix_rec.check_total("NNLS's MTTKRP mix", run["launches"]["fused_mttkrp_tc"])
+    mix = mttkrp_mix(mix_rec, torch.from_numpy(x).to("cuda"), "NNLS")
+    # CALS against each model's ALS on the card (compare_als_cals), and the
+    # models furthest apart again on the CPU, in float32 and in float64.
+    ap = AlsParams(max_iterations=NN_ITERS, force_max_iter=True, update_method=UpdateMethod.NNLS, precision="high")
+
+    def als_by_rank(xx, q, device=None, precision="high"):
+        t0 = time.perf_counter()
+        out = {}
+        for r in sorted({kt.rank for kt in q}):
+            ids = [i for i, kt in enumerate(q) if kt.rank == r]
+            _, reps = cp_batched_als(xx, [q[i] for i in ids], dataclasses.replace(ap, precision=precision),
+                                     device=device)
+            out.update(zip(ids, reps))
+        return out, time.perf_counter() - t0
+
+    def rel_err_diff(cals, als):
+        return abs(cals.approx_error - als.approx_error) / max(1.0, abs(als.approx_error))
+
+    def in_dtype(ids, dt):
+        return [Ktensor(tuple(f.astype(dt) for f in queue[i].factors), queue[i].lam.astype(dt)) for i in ids]
+
+    als, als_s = als_by_rank(x, queue)
+    fit_diff = {m.id: abs(m.fit - als[m.id].fit) for m in rep.models}
+    rel = {m.id: rel_err_diff(m, als[m.id]) for m in rep.models}
+    worst = sorted(rel, key=rel.get, reverse=True)[:NN_F64_WORST]
+    print(f"NNLS CALS vs per-model ALS on the card: max |fit diff| {max(fit_diff.values()):.3e}; the JAX "
+          f"experiment's relative error check: max {max(rel.values()):.3e}, {sum(v > 1e-1 for v in rel.values())} "
+          f"models above 1e-1 (ranks {sorted(queue[i].rank for i in rel if rel[i] > 1e-1)}); ALS wall "
+          f"{als_s:.2f}s", flush=True)
+    if not max(fit_diff.values()) <= NN_FIT_TOL:
+        raise AssertionError("NNLS: CALS fits differ from the models' ALS fits on the card")
+    cpu = {}
+    for name, dt, prec in (("float32", np.float32, "high"), ("float64", np.float64, "highest")):
+        _, rep_w = cp_cals(x.astype(dt), in_dtype(worst, dt), nn_params(precision=prec), device="cpu")
+        als_w, _ = als_by_rank(x.astype(dt), in_dtype(worst, dt), device="cpu", precision=prec)
+        cpu[name] = {worst[m.id]: rel_err_diff(m, als_w[m.id]) for m in rep_w.models}
+        print(f"NNLS CALS vs per-model ALS in {name} on the CPU, the {len(worst)} models furthest apart on the "
+              f"card: relative error differences {cpu[name]} (the card's: {[rel[i] for i in worst]})", flush=True)
+    if not max(cpu["float64"].values()) <= NN_F64_TOL:
+        raise AssertionError("NNLS: CALS and ALS differ in float64")
+    # Fits against the port's float64 CPU run at "highest".
+    t0 = time.perf_counter()
+    _, rep64 = cp_cals(x.astype(np.float64), in_dtype(NN_HELD, np.float64), nn_params(precision="highest"),
+                       device="cpu")
+    cpu_s = time.perf_counter() - t0
+    fit_diffs = [abs(rep.models[i].fit - m.fit) for i, m in zip(NN_HELD, rep64.models)]
+    print(f"NNLS vs CPU float64 ({len(NN_HELD)} models, {cpu_s:.1f}s on the CPU): max |fit diff| "
+          f"{max(fit_diffs):.3e}", flush=True)
+    if not max(fit_diffs) <= NN_HELD_TOL:
+        raise AssertionError(f"NNLS: fits differ from the float64 CPU run by {max(fit_diffs)}")
+    # Lawson-Hanson and BPP on one bucket on the card, each against the
+    # float64 CPU run of that bucket, where the two agree.
+    ids = [i for i, kt in enumerate(queue) if bucket_rank(kt.rank, NN_BUCKETS) == NN_LH_BUCKET]
+    sub = [queue[i] for i in ids]
+    b = f"bucket {NN_LH_BUCKET}"
+    one = dict(bucket_ranks=(NN_LH_BUCKET,))
+    nn_engine_run(f"Lawson-Hanson warm-up, {b}", x, sub[:2], nnls_algorithm="lawson_hanson", **one)
+    runs, fits, fits64 = {}, {}, {}
+    for alg in ("lawson_hanson", "bpp"):
+        _, rep_b, runs[alg] = nn_engine_run(f"{alg}, {b}", x, sub, nnls_algorithm=alg, **one)
+        fits[alg] = np.array([m.fit for m in rep_b.models])
+        _, rep_b64 = cp_cals(x.astype(np.float64), in_dtype(ids, np.float64),
+                             nn_params(precision="highest", nnls_algorithm=alg, **one), device="cpu")
+        fits64[alg] = np.array([m.fit for m in rep_b64.models])
+    agree = float(np.abs(fits64["lawson_hanson"] - fits64["bpp"]).max())
+    ranks = np.array([kt.rank for kt in sub])
+    vs64 = {}
+    for alg in fits:
+        d = np.abs(fits[alg] - fits64[alg])
+        vs64[alg] = dict(max=float(d.max()), parting_ranks=ranks[d > 1e-4].tolist())
+    lh_bpp = float(np.abs(fits["lawson_hanson"] - fits["bpp"]).max())
+    print(f"NNLS on {b} ({len(sub)} models): float64 CPU Lawson-Hanson vs BPP max |fit diff| {agree:.3e}; card vs "
+          f"float64: {vs64}; card Lawson-Hanson vs BPP {lh_bpp:.3e}; walls {runs['lawson_hanson']['wall_s']:.3f}s "
+          f"vs {runs['bpp']['wall_s']:.3f}s", flush=True)
+    if not agree <= NN_LH_F64_AGREE:
+        raise AssertionError(f"NNLS: Lawson-Hanson and BPP differ in float64 by {agree}")
+    for alg, v in vs64.items():
+        if not v["max"] <= NN_LH_F64_TOL[alg]:
+            raise AssertionError(f"NNLS: {alg} on {b} differs from the float64 CPU run by {v['max']}")
+    times = nnls_update_times(x, res, queue)
+    return dict(bpp=run, mttkrp_mix=mix, als_wall_s=als_s, max_fit_diff_vs_als=max(fit_diff.values()),
+                max_rel_err_diff_vs_als=max(rel.values()), worst_vs_als=worst, cpu_cals_vs_als=cpu,
+                max_fit_diff_vs_f64=max(fit_diffs), lawson_hanson_bucket=runs["lawson_hanson"],
+                bpp_bucket=runs["bpp"], bucket_vs_f64=vs64, bucket_f64_lh_vs_bpp=agree,
+                lh_vs_bpp_max_fit_diff=lh_bpp, update_times=times)
+
+
+def line_search_phase(x_np, queue) -> dict:
+    """Both line searches on the bench workload at "highest" (4d): the graph
+    loop against sync_mode="iter" bit for bit, 20 models against the
+    float64 CPU run; ERROR_CHECKING's candidate MTTKRP is predicated once
+    per bucket-iteration (a fourth fused result per bucket-iteration)."""
+    from cp_cals_tpu_torch import LineSearchMethod
+
+    out = {}
+    for method in LS_METHODS:
+        kw = dict(line_search=True, line_search_interval=LS_INTERVAL, max_iterations=LS_ITERS,
+                  line_search_method=LineSearchMethod(method))
+        ec = method == "error_checking"
+        routes = {"fused": 4 if ec else 3}
+        checked = "fused_mttkrp_fp32" if ec else None
+        res_g, rep_g, run_g = engine_run(x_np, queue, {}, f"line search {method}", routes=routes, checked=checked,
+                                         **kw)
+        res_i, rep_i, run_i = engine_run(x_np, queue, {}, f"line search {method} iter", routes=routes,
+                                         checked=checked, sync_mode="iter", **kw)
+        assert_bit_identical(f"line search {method}: graph loop vs sync_mode='iter'", (res_g, rep_g), (res_i, rep_i))
+        CROSS_TOL[f"line search {method}"] = LS_CROSS_TOL[method]
+        check = cross_check(x_np, queue, {f"line search {method}": (res_g, rep_g)}, **kw)
+        out[method] = dict(graph=run_g, iter=run_i, cross_check=check,
+                           candidate_predicated=run_g["launches"]["fused_mttkrp_fp32.predicated"])
+    return out
+
+
+def jk_line_search_phase(x_np, kt5) -> dict:
+    """J1 with NEC line search (tol-driven, as the bench's jackknife runs),
+    then at 10 forced iterations against the port's float64 CPU run of
+    JK_FIBERS (JK_CROSS_TOL)."""
+    from cp_cals_tpu_torch import jk_cp_cals
+
+    ls = dict(line_search=True, line_search_interval=LS_INTERVAL)
+    _, run = jk_run("J1 NEC line search", lambda: jk_cp_cals(x_np, [kt5], jk_params(**ls)), fused("high"))
+    want, _ = jk_reference(x_np, kt5, jk_params(force_max_iter=True, max_iterations=10, precision="highest",
+                                                result_wire_dtype=None, **ls))
+    rep = jk_cp_cals(x_np, [kt5], jk_params(force_max_iter=True, max_iterations=10, **ls))
+    diffs = [replicate_diff(rep.results[0][f], w, f) for f, w in zip(JK_FIBERS, want)]
+    rec, lam = max(d[0] for d in diffs), max(d[1] for d in diffs)
+    print(f"cross-check J1 NEC line search (10 forced iterations, 10 fibers) vs CPU float64: max relative "
+          f"reconstruction diff {rec:.3e}, max relative |lam| diff {lam:.3e}", flush=True)
+    if not (rec <= JK_CROSS_TOL[0] and lam <= JK_CROSS_TOL[1]):
+        raise AssertionError("jackknife line-search cross-check against the CPU float64 run failed")
+    return dict(run=run, max_rel_recon_diff=rec, max_rel_lam_diff=lam)
+
+
+def debug_phase() -> dict:
+    """A debug=True cp_cals run on the card (eager: no graph captured) with
+    an injected rise of the error at each model's 6th iteration, against
+    the same float32 run on the CPU: equal entries (DEBUG_TOL)."""
+    import warnings
+    from unittest import mock
+
+    from cp_cals_tpu_torch import CalsParams, cp_cals, random_ktensor_host
+    from cp_cals_tpu_torch.solvers import iteration as it
+
+    rng = np.random.default_rng(21)
+    modes = (40, 30, 20)
+    kt = random_ktensor_host(rng, modes, 3, dtype=np.float32)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    x = (x + 0.01 * rng.standard_normal(modes)).astype(np.float32)
+    queue = [random_ktensor_host(rng, modes, r, dtype=np.float32) for r in (2, 3, 4, 3, 2, 4)]
+    params = CalsParams(max_iterations=DEBUG_ITERS, force_max_iter=True, bucket_ranks=(4,), buffer_size=12,
+                        epilogue="xla", debug=True, line_search=True, line_search_interval=4)
+    real = it.normalize_factor_fused
+
+    def bumped(u, iters):
+        f, lam, gm = real(u, iters)
+        return f, torch.where((iters == 6)[:, None], lam * 1.05, lam), gm
+
+    entries = {}
+    for device in ("cuda", "cpu"):
+        it.MONOTONICITY_VIOLATIONS.clear()
+        with mock.patch.object(it, "normalize_factor_fused", bumped), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, rep = cp_cals(x, queue, params, device=device)
+        entries[device] = list(it.MONOTONICITY_VIOLATIONS)
+        if device == "cuda" and sum(c["captures"] for c in rep.loop_counts.values()):
+            raise AssertionError("debug run: a graph was captured")
+    it.MONOTONICITY_VIOLATIONS.clear()
+    got, want = entries["cuda"], entries["cpu"]
+    ok = bool(got) and len(got) == len(want) and all(
+        a[0] == b[0] and abs(a[1] - b[1]) <= DEBUG_TOL * abs(b[1]) and abs(a[2] - b[2]) <= DEBUG_TOL * abs(b[2])
+        for a, b in zip(got, want))
+    print(f"debug run: {len(got)} entries on the card, {len(want)} on the CPU, equal: {ok}; card's {got}", flush=True)
+    if not ok:
+        raise AssertionError(f"debug run: entries differ: card {got}, CPU {want}")
+    return dict(entries=got, cpu_entries=want)
+
+
+def read_mean(rows, bucket_iters, key, field):
+    """``weighted`` over the rows that have a reading (the inverses'
+    library replays exist for R <= INV_EX_CAPTURE_R only)."""
+    return weighted([row for row in rows if row[key][field] is not None], bucket_iters, key, field)
 
 
 def mean_or_none(rows, bucket_iters, key, field, tier=None):
@@ -1566,6 +1972,8 @@ def main() -> int:
     f64 = f64_phase()
     nd = nd_phase(dev)
     wide = widened_phase(dev)
+    nnls = nnls_phase()
+    ls = line_search_phase(x_np, queue)
 
     kt5, fit5 = fit_jk_model(x_np)
     jk_runs, rec, j1_rec = jk_phase(x_np, kt5)
@@ -1573,6 +1981,8 @@ def main() -> int:
     spd = spd_phase(rec, dev)
     jk_check = jk_cross_check(x_np, kt5)
     jk_check.update(j4_stop_check(x_np, kt5))
+    jk_ls = jk_line_search_phase(x_np, kt5)
+    debug = debug_phase()
     probe = probe_phase(dev)
 
     # Each kernel at the launch mix of the engine run that drives it: the
@@ -1601,7 +2011,8 @@ def main() -> int:
             ms=mean("ms"), graph_ms=mean("graph_ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
             bound_by="operations" if mean("bound_ops_ms") >= mean("bound_bytes_ms") else "bytes",
             library_ms=None if key == "apply" else mean("library_ms"),
-            library_graph_ms=None if key == "apply" else mean_or_none(rows, w, key, "library_graph_ms", t),
+            library_graph_ms=(None if key == "apply" else read_mean(rows, w, key, "library_graph_ms") if key == "hinv"
+                              else mean_or_none(rows, w, key, "library_graph_ms", t)),
         )
         if key == "mttkrp":
             entry["tier"] = t
@@ -1612,14 +2023,15 @@ def main() -> int:
         if name == "epilogue_apply":
             entry["max_err_rel"] = worst["apply_err"]
         if name == "fused_mttkrp_tc":
-            entry["max_abs_err"] = max(err, max(m["max_abs_err"] for m in j1_mix))
+            entry["max_abs_err"] = max(err, *(m["max_abs_err"] for m in j1_mix + nnls["mttkrp_mix"]))
             entry["by_tier"] = {tt: {f: mean_or_none(rows, w, key, f, tt) for f in
                                      ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")}
                                 for tt in ("default", "high")}
-            n = sum(m["launches"] for m in j1_mix)
-            entry["j1_mix"] = dict(launches=n, **{
-                f: sum(m["launches"] * m[f] for m in j1_mix) / n
-                for f in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")})
+            for label, mix in (("j1_mix", j1_mix), ("nnls_mix", nnls["mttkrp_mix"])):
+                n = sum(m["launches"] for m in mix)
+                entry[label] = dict(launches=n, **{
+                    f: sum(m["launches"] * m[f] for m in mix) / n
+                    for f in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")})
         kernels.append(entry)
     # The widened epilogue kernels at K = 3 (the 4-D run's normal matrices
     # and FastALS error), at that run's launch mix.
@@ -1638,7 +2050,8 @@ def main() -> int:
             launches=run4["launches"][name[:-3]], max_abs_err=max(row[key]["max_abs_err"] for row in k3),
             ms=mean("ms"), graph_ms=mean("graph_ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
             bound_by="operations" if mean("bound_ops_ms") >= mean("bound_bytes_ms") else "bytes",
-            library_ms=mean("library_ms") if key == "hinv" else None, library_graph_ms=None, k=3,
+            library_ms=mean("library_ms") if key == "hinv" else None,
+            library_graph_ms=read_mean(k3, w4, key, "library_graph_ms") if key == "hinv" else None, k=3,
         ))
     for name, mix, source, replaces, launches, err in (
         ("spd_inverse", spd["mix"], "cp_cals_tpu_torch/csrc/spd_inverse.cu",
@@ -1670,7 +2083,7 @@ def main() -> int:
                                      "dimtree": run_d, "dimtree_walls": dimtree_walls},
                        float64_on_card=f64, nd=nd, widened=wide,
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
-                       mttkrp_j1_mix=j1_mix,
+                       mttkrp_j1_mix=j1_mix, nnls=nnls, line_search=ls, jk_line_search=jk_ls, debug=debug,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,16 @@
 
 Field for field the same names and defaults as ``cp_cals_tpu/config.py``,
 so a configuration carries over between the two packages unchanged
-(``convert.params_from_dict``). The port runs unconstrained updates without
-line search on tensors of any order >= 3, per-iteration and mixed-tier
-stopping (``tol_check_interval``), polish sweeps (``polish_iters``,
-``polish_tol``), both engine loops (``sync_mode``), every MTTKRP method
-(fused, twostep, krp_gemm; the dimension tree; held or recomputed layouts),
-the fused epilogue, and the unfused epilogue with any of the three solves
-(``"gj"``, ``"chol"``, ``"pallas"``). Other values of features not yet
-ported raise ``NotImplementedError`` naming their ROADMAP item
-(``check_supported``).
+(``convert.params_from_dict``). The port runs unconstrained and NNLS
+updates (``nnls_algorithm`` "bpp" or "lawson_hanson") on tensors of any
+order >= 3, both line searches (``line_search_method``), the debug
+monotonicity hook (``debug``), per-iteration and mixed-tier stopping
+(``tol_check_interval``), polish sweeps (``polish_iters``, ``polish_tol``),
+both engine loops (``sync_mode``), every MTTKRP method (fused, twostep,
+krp_gemm; the dimension tree; held or recomputed layouts), the fused
+epilogue, and the unfused epilogue with any of the three solves (``"gj"``,
+``"chol"``, ``"pallas"``). ``check_supported`` raises ``ValueError`` for a
+value the JAX package does not take either.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import enum
 from typing import Optional
 
 PRECISIONS = ("default", "high", "highest")
+NNLS_ALGORITHMS = ("bpp", "lawson_hanson")
 
 
 class UpdateMethod(enum.Enum):
@@ -116,13 +118,9 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def check_supported(params: AlsParams | CalsParams) -> None:
-    """Raise for every setting this slice of the port does not run."""
-    if params.update_method != UpdateMethod.UNCONSTRAINED:
-        raise not_ported("update_method=NNLS", "queue 1 item 6")
-    if params.line_search:
-        raise not_ported("line_search", "queue 1 item 6")
-    if params.debug:
-        raise not_ported("debug (monotonicity hook)", "queue 1 item 6")
+    """Raise for every setting the port does not run."""
+    if params.nnls_algorithm not in NNLS_ALGORITHMS:
+        raise ValueError(f"nnls_algorithm={params.nnls_algorithm!r}: expected one of {NNLS_ALGORITHMS}")
     if params.dimtree not in ("auto", "on", "off"):
         raise ValueError(f"dimtree={params.dimtree!r}")
     if params.mode_layouts not in ("auto", "materialized", "recompute"):

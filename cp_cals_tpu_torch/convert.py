@@ -16,7 +16,7 @@ import torch
 from .config import AlsParams, CalsParams
 from .device import resolve_device
 from .ktensor import Ktensor
-from .solvers.state import HiState, SolverState
+from .solvers.state import HiState, LsState, SolverState
 
 
 def _tensor(a, dev, dtype=None) -> torch.Tensor:
@@ -34,18 +34,29 @@ def ktensor_from_numpy(kt, device=None) -> Ktensor:
 
 def state_from_numpy(state, device=None) -> SolverState:
     """A port ``SolverState`` from a JAX ``SolverState`` whose leaves were
-    pulled to NumPy, leaf by leaf. NNLS and line-search carries must be
-    empty (not ported yet, ROADMAP queue 1 item 6)."""
-    if state.active or state.ls:
-        raise NotImplementedError(
-            "NNLS / line-search state is not ported yet (ROADMAP queue 1 item 6)"
-        )
+    pulled to NumPy, leaf by leaf: the NNLS active sets, the line-search
+    carry (its snapshot, backup and backup active sets) and the mixed-tier
+    carry included."""
     dev = resolve_device(device)
+
+    def bools(sets):
+        return tuple(_tensor(a, dev, torch.bool) for a in sets)
+
     hi = ()
     if state.hi:
         h = state.hi
         hi = HiState(_tensor(h.fit_prev, dev), _tensor(h.iters_prev, dev, torch.int32),
                      _tensor(h.rate_prev, dev), _tensor(h.gap_prev, dev, torch.int32))
+    ls = ()
+    if state.ls:
+        c = state.ls
+        ls = LsState(
+            it=_tensor(c.it, dev, torch.int32), updated_last=_tensor(c.updated_last, dev, torch.bool),
+            prev=ktensor_from_numpy(c.prev, dev), backup=ktensor_from_numpy(c.backup, dev),
+            backup_err=_tensor(c.backup_err, dev), backup_fit=_tensor(c.backup_fit, dev),
+            backup_old_fit=_tensor(c.backup_old_fit, dev), backup_iters=_tensor(c.backup_iters, dev, torch.int32),
+            backup_active=bools(c.backup_active),
+        )
     return SolverState(
         kt=ktensor_from_numpy(state.kt, dev),
         grams=tuple(_tensor(g, dev).contiguous() for g in state.grams),
@@ -58,6 +69,8 @@ def state_from_numpy(state, device=None) -> SolverState:
         alive=_tensor(state.alive, dev, torch.bool),
         jk_fiber=_tensor(state.jk_fiber, dev, torch.int32),
         x_norm_model=_tensor(state.x_norm_model, dev),
+        active=bools(state.active),
+        ls=ls,
         hi=hi,
     )
 
@@ -65,7 +78,8 @@ def state_from_numpy(state, device=None) -> SolverState:
 def params_from_dict(d: dict, kind: str = "cals") -> AlsParams | CalsParams:
     """``AlsParams``/``CalsParams`` from a field dict, such as
     ``dataclasses.asdict`` of the JAX package's params. Enum members of
-    either package are mapped by value."""
+    either package (``update_method``, ``line_search_method``, ...) are
+    mapped by value; ``nnls_algorithm`` is a string in both."""
     cls = {"als": AlsParams, "cals": CalsParams}[kind]
     types = {f.name: f.type for f in dataclasses.fields(cls)}
     defaults = cls()

@@ -21,7 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import AlsParams, check_supported
+from ..config import AlsParams, UpdateMethod, check_supported
 from ..device import resolve_device
 from ..ktensor import Ktensor
 from .cals import _DTYPES, _norms, _queue_dtype, _to_numpy
@@ -57,7 +57,8 @@ def _run_batched(x, kt_b: Ktensor, params: AlsParams, dev, jk_fiber=None, x_norm
     )
     has_jk = jk_fiber is not None and int(jk_fiber) >= 0
     state = init_state(kt, x_norm, jk_fiber=jk_fiber, x_norm_model=x_norm_model,
-                       mixed_tol=params.tol_check_interval > 0)
+                       nnls=params.update_method == UpdateMethod.NNLS,
+                       line_search=params.line_search, mixed_tol=params.tol_check_interval > 0)
     iteration = make_iteration(params, batched=True, has_jk=has_jk)
     prepared = iteration.prepare(x)
     while not bool(state.converged.all()):

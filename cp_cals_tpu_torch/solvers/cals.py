@@ -18,7 +18,8 @@ polish sweeps at the end of each run-until-evict. ``sync_mode="iter"`` (and
 ``always_evict_first``) runs ``graph_loop.IterLoop``, one eager iteration
 per host round, the JAX package's per-iteration mode and the eager
 reference on the card. Refills upload through pinned memory without
-blocking.
+blocking. A ``debug`` run takes the chunk loop eagerly, one iteration per
+chunk, with no CUDA graph: its hook reads every iteration on the host.
 
 Differences from the JAX engine (ROADMAP section 3): buckets run one after
 another (``bucket_threads`` is accepted and not used); results are fetched
@@ -38,7 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import CalsParams, check_supported, not_ported
+from ..config import CalsParams, UpdateMethod, check_supported, not_ported
 from ..device import resolve_device
 from ..ktensor import Ktensor, scale_jk_rows
 from .graph_loop import NP_DTYPES, ChunkLoop, Graphs, IterLoop, Pinned, pack_evict_stats
@@ -335,6 +336,7 @@ def cp_cals(
         polish = (p_iter, prepared.hi, params.polish_iters, params.polish_tol)
     results: dict[int, Ktensor] = {}
     mixed_tol = params.tol_check_interval > 0
+    nnls = params.update_method == UpdateMethod.NNLS
 
     def build_block_state(uploader: Pinned, batch_slots, r: int) -> SolverState:
         """A state of one row per intake item ((id, ktensor, jk), or None
@@ -375,10 +377,13 @@ def cp_cals(
         kt_b = Ktensor(tuple(factors), pieces[len(modes)].view(bb, r))
         return init_state(
             kt_b, x_norm, jk_fiber=jk_d, x_norm_model=pieces[-1],
-            rank_mask=mask_d.view(bb, r).bool(), alive=alive_d.bool(), mixed_tol=mixed_tol,
+            rank_mask=mask_d.view(bb, r).bool(), alive=alive_d.bool(), nnls=nnls,
+            line_search=params.line_search, mixed_tol=mixed_tol,
         )
 
-    graphs = Graphs(dev) if chunked and dev.type == "cuda" else None  # freed when the call ends
+    # The graphs are freed when the call ends. A debug run reads the device
+    # on the host in every iteration, so it is never captured.
+    graphs = Graphs(dev) if chunked and dev.type == "cuda" and not params.debug else None
     uploader, fetcher = Pinned(dev), Pinned(dev)  # the call's pinned buffers, one each way
 
     def run_bucket(r: int, dq: collections.deque, b: int):

@@ -23,9 +23,18 @@ the host knows from the last fetch:
   check, its pre-check mK-1 or its decision check mK (a model can stop
   only at a check or at ``max_iterations``; the JAX loop evicts at either
   check, so a chunk that ran on past a pre-check would refill a slot an
-  iteration late);
+  iteration late). Under NO_ERROR_CHECKING line search a revert puts back
+  the count of the extrapolation's iteration, so a count stands still for
+  an iteration, never more: where the oldest count is at a check, the next
+  chunk is one iteration, since it may check again at that count;
 - with a per-iteration tol: ``TOL_CHUNK`` iterations;
-- never past the first slot's ``max_iterations``.
+- never past the first slot's ``max_iterations``;
+- under ``debug``, one iteration (the JAX loop's iterations exactly, so the
+  debug hook records what JAX's records).
+Apart from that count, line search needs nothing of the chunks: a
+NO_ERROR_CHECKING model whose extrapolation is pending does not converge
+before its check (its fit difference is BIG_ERROR's, and the mixed-tier
+check skips it).
 Models that converge inside a chunk are frozen by a select (as the JAX
 loop freezes them under ``evict_batch > 1``), so a chunk only delays the
 eviction. Under ``force_max_iter`` with ``evict_batch = 1`` no chunk runs
@@ -74,6 +83,7 @@ import numpy as np
 import torch
 
 from .. import launches
+from ..config import LineSearchMethod
 from .state import SolverState, tree_leaves, tree_map
 
 TOL_CHUNK = 4  # iterations per chunk under a per-iteration tol
@@ -98,6 +108,8 @@ def pack_evict_stats(state: SolverState) -> torch.Tensor:
 def chunk_length(params, iters: np.ndarray, live: np.ndarray) -> int:
     """Iterations of the next chunk (module docstring); ``iters`` and
     ``live`` per slot, with at least one live slot."""
+    if params.debug:  # one iteration per chunk: JAX's loop, iteration by iteration
+        return 1
     it = iters[live]
     n = int((params.max_iterations - it).min())
     if params.force_max_iter:
@@ -105,7 +117,13 @@ def chunk_length(params, iters: np.ndarray, live: np.ndarray) -> int:
     k = params.tol_check_interval
     if k > 0:  # to the next iteration whose phase is K-1 or 0
         top = int(it.max())
-        step = next(s for s in range(1, k + 1) if (top + s) % k in (0, k - 1))
+        # A NO_ERROR_CHECKING revert puts back the count of the
+        # extrapolation's iteration: from a check, the next may check again.
+        nec = params.line_search and params.line_search_method == LineSearchMethod.NO_ERROR_CHECKING
+        if nec and top % k in (0, k - 1):
+            step = 1
+        else:
+            step = next(s for s in range(1, k + 1) if (top + s) % k in (0, k - 1))
     else:
         step = TOL_CHUNK
     return max(min(n, step), 1)
@@ -389,7 +407,7 @@ class ChunkLoop(_Loop):
         torch.logical_not(st.converged & st.alive, out=self.done)
         k = 0
         while k < n_polish:
-            m = n_polish - k if tol <= 0 else min(POLISH_CHECK, n_polish - k)
+            m = n_polish - k if tol <= 0 else min(1 if self.params.debug else POLISH_CHECK, n_polish - k)
             self._run(self._sweep, "sweep_graph", m)
             k += m
             self.counts["polish_sweeps"] += m

@@ -26,12 +26,32 @@ nothing is held: each MTTKRP derives its layout inside the iteration, and
 in a captured CUDA graph the copies come from the graph's pool, so the
 peak is about X plus one layout.
 
+Under ``update_method=NNLS`` every mode takes the unfused path with the
+batched NNLS update (``ops/update.py:update_factor_nnls``), whatever
+``epilogue`` says, as in the JAX iteration; the MTTKRP still goes through
+the fused kernels where their gate takes the mode. Under ``line_search``
+the iteration snapshots the model at ``it == interval - 1`` before the
+sweep and runs the line search after the FastALS error (``line_search``).
+JAX skips work with ``lax.cond`` where no model is at its interval; here
+the work is done and its result selected by ``torch.where`` on the device,
+so the results are JAX's: NO_ERROR_CHECKING's gramian refresh runs every
+iteration, and ERROR_CHECKING's candidate MTTKRP goes through the last
+mode's method with the fused kernels' launch predicate (a twostep or
+krp_gemm last mode runs every iteration).
+
+``debug`` is the JAX package's monotonicity hook: every model whose error
+rose by more than 1e-4 adds ``(iteration, old_error, new_error)`` to
+``MONOTONICITY_VIOLATIONS`` (at most 16 per iteration) with a warning. It
+reads the device on the host, so a debug run is never captured into a
+CUDA graph: the engine runs it eagerly, one iteration per chunk.
+
 Dead and padded slots are inert (zero factors, zero lam, identity normal
 matrix), so nothing inside the iteration is gated on ``alive``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import torch
@@ -39,16 +59,18 @@ import torch
 from ..config import (
     AlsParams,
     CalsParams,
+    LineSearchMethod,
+    UpdateMethod,
     check_supported,
     resolve_dimtree,
     resolve_epilogue,
     resolve_layouts,
     resolve_mttkrp_method,
 )
-from ..ktensor import Ktensor, normalize_factor_fused, scale_jk_rows
+from ..ktensor import Ktensor, denormalize, normalize_factor_fused, normalize_full, scale_jk_rows
 from ..ops.error import fast_error
 from ..ops.fused_epilogue import epilogue_apply, normal_inverse, supports_fused_epilogue
-from ..ops.gramians import hadamard_all, hadamard_but_one
+from ..ops.gramians import gramians, hadamard_all, hadamard_but_one
 from ..ops.fused_mttkrp import prepare_mode_tensor
 from ..ops.mttkrp import (
     dimtree_layout,
@@ -57,8 +79,8 @@ from ..ops.mttkrp import (
     mttkrp_batched,
     prepare_batched,
 )
-from ..ops.update import padded_hadamard, update_factor_unconstrained
-from .state import HiState, SolverState, tree_where
+from ..ops.update import padded_hadamard, update_factor_nnls, update_factor_unconstrained
+from .state import BIG_ERROR, HiState, LsState, SolverState, tree_where
 
 
 class Held(tuple):
@@ -94,6 +116,34 @@ def extrapolated_delta(rate: torch.Tensor, rate_prev: torch.Tensor, gap: torch.T
     return torch.where(have2 & (rho < 1.0), d_k, rate)
 
 
+# The debug hook's record (``params.debug``): (iteration, old_error,
+# new_error) of each model whose error rose by more than 1e-4, as the JAX
+# package's ``MONOTONICITY_VIOLATIONS``. Inspected and cleared by callers.
+MONOTONICITY_VIOLATIONS: list = []
+
+
+def record_monotonicity_violations(viol, iters, err, prev_err) -> None:
+    """The first 16 violations of one iteration, in slot order, and a
+    warning (``cp_cals_tpu/solvers/iteration.py:348-368``). Reads the
+    device on the host: never inside a CUDA-graph capture."""
+    if viol.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("debug=True reads the device on the host and cannot be captured")
+    v = viol.cpu().numpy()
+    if not v.any():
+        return
+    it, e, pe = iters.cpu().numpy(), err.cpu().numpy(), prev_err.cpu().numpy()
+    for i in v.nonzero()[0][:16]:
+        MONOTONICITY_VIOLATIONS.append((int(it[i]), float(pe[i]), float(e[i])))
+    warnings.warn(f"approximation error increased for {int(v.sum())} model(s) (> 1e-4)", stacklevel=2)
+
+
+def cube_root(t: torch.Tensor) -> torch.Tensor:
+    """cbrt of a positive tensor: the power, then one Newton step, which
+    rounds exact cubes to their root as ``jnp.cbrt`` does."""
+    y = t ** (1.0 / 3.0)
+    return y - (y * y * y - t) / (3.0 * y * y)
+
+
 def make_iteration(
     params: AlsParams | CalsParams,
     batched: bool = True,
@@ -112,7 +162,10 @@ def make_iteration(
     check_supported(params)
     precision = params.precision
     mttkrp_prec = params.mttkrp_precision or precision
-    fused = resolve_epilogue(params) == "fused"
+    nnls = params.update_method == UpdateMethod.NNLS
+    # NNLS never takes the fused epilogue, whatever `epilogue` says.
+    fused = not nnls and resolve_epilogue(params) == "fused"
+    nec = params.line_search_method == LineSearchMethod.NO_ERROR_CHECKING
     k_check = params.tol_check_interval
     # The check's MTTKRP and the polish sweeps run at `precision`.
     need_hi = k_check > 0 or getattr(params, "polish_iters", 0) > 0
@@ -134,7 +187,7 @@ def make_iteration(
             held.hi.methods = methods
         return held
 
-    def check(x, state, kt, grams, iters, err, fit, x_norm_full, prepared, method):
+    def check(x, state, kt, grams, iters, err, fit, x_norm_full, prepared, method, not_pending):
         """The mixed-tier stopping check (``cp_cals_tpu/solvers/iteration.py:
         383-477``): at the batch's check iterations (adjacent pairs mK-1 and
         mK of the oldest live model's count), one more last-mode MTTKRP at
@@ -142,7 +195,9 @@ def make_iteration(
         decide convergence. `at_check` stays on the device: the MTTKRP
         kernel takes it as its launch predicate, and the outputs are
         selected by it, as the JAX lax.cond's false branch returns zeros
-        and the old values."""
+        and the old values. `not_pending` (None, or under NO_ERROR_CHECKING
+        line search the models not extrapolated blindly on this iteration)
+        keeps a model whose extrapolation is unchecked from stopping."""
         hi = state.hi
         live = state.alive & ~state.converged
         oldest = torch.amax(torch.where(live, iters, 0))
@@ -164,6 +219,8 @@ def make_iteration(
         rp = torch.where(gap_i == hi.gap_prev, hi.rate_prev, torch.zeros_like(hi.rate_prev))
         d_k = torch.where(gap_i == 1, rate, extrapolated_delta(rate, rp, gap))
         conv = seen & (d_k < params.tol)
+        if not_pending is not None:
+            conv = conv & not_pending
         checked = HiState(
             fit_prev=fit_hi,
             iters_prev=iters,
@@ -177,6 +234,76 @@ def make_iteration(
             torch.where(at_check, fit_hi, fit),
         )
 
+    def line_search(x, kt, grams, err, fit, old_fit, iters, ls: LsState, active, x_norm_full,
+                    x_norm_model, prepared, method):
+        """The masked batched line search (``cp_cals_tpu/solvers/iteration.py:
+        _line_search``): every ``interval`` iterations extrapolate U <- U +
+        step (U - U_prev), step = cbrt(iteration) unless given.
+        NO_ERROR_CHECKING extrapolates blindly with a backup, reverted on
+        the next iteration if the error rose (the NNLS active sets with
+        it); ERROR_CHECKING measures the candidate's exact error and
+        accepts only an improvement (keeping the active sets)."""
+        interval = params.line_search_interval
+        if params.line_search_step == 0:
+            step = cube_root(iters.to(err.dtype))
+        else:
+            step = torch.full_like(err, params.line_search_step)
+        s = step[:, None, None]
+        if nec:
+            do_ls = iters < params.max_iterations  # no extrapolation left unchecked
+            it2 = torch.where(do_ls, ls.it + 1, ls.it)
+            revert = ls.updated_last & do_ls & (ls.backup_err < err)
+            kt = tree_where(revert, ls.backup, kt)
+            active = tree_where(revert, ls.backup_active, active)
+            err = torch.where(revert, ls.backup_err, err)
+            fit = torch.where(revert, ls.backup_fit, fit)
+            old_fit = torch.where(revert, ls.backup_old_fit, old_fit)
+            iters = torch.where(revert, ls.backup_iters, iters)
+            it2 = torch.where(revert, torch.zeros_like(it2), it2)
+            extrap = (it2 == interval) & do_ls
+            it2 = torch.where(extrap, torch.zeros_like(it2), it2)
+            kt_d, prev_d = denormalize(kt), denormalize(ls.prev)
+            ext = normalize_full(Ktensor(
+                tuple(f + s * (f - pf) for f, pf in zip(kt_d.factors, prev_d.factors)),
+                torch.ones_like(kt.lam)))
+            ls = LsState(
+                it=it2, updated_last=(ls.updated_last & ~do_ls) | extrap, prev=ls.prev,
+                backup=tree_where(extrap, kt, ls.backup),
+                backup_err=torch.where(extrap, err, ls.backup_err),
+                backup_fit=torch.where(extrap, fit, ls.backup_fit),
+                backup_old_fit=torch.where(extrap, old_fit, ls.backup_old_fit),
+                backup_iters=torch.where(extrap, iters, ls.backup_iters),
+                backup_active=tree_where(extrap, active, ls.backup_active),
+            )
+            kt = tree_where(extrap, ext, kt)
+            err = torch.where(extrap, torch.full_like(err, BIG_ERROR), err)
+            old_fit = torch.where(extrap, fit, old_fit)
+            fit = torch.where(extrap, torch.full_like(fit, 1.0 - BIG_ERROR), fit)
+            # JAX refreshes the gramians only when some model was touched
+            # (lax.cond); here every iteration, selected per model.
+            grams = tree_where(revert | extrap, gramians(kt.factors), grams)
+            return kt, grams, err, fit, old_fit, iters, ls, active
+        it2 = ls.it + 1
+        extrap = it2 == interval
+        it2 = torch.where(extrap, torch.zeros_like(it2), it2)
+        cand = normalize_full(denormalize(Ktensor(
+            tuple(f + s * (f - pf) for f, pf in zip(kt.factors, ls.prev.factors)), kt.lam)))
+        # The candidate's exact error (``_exact_error``): one more last-mode
+        # MTTKRP by the mode's method at the MTTKRP's tier, launched by the
+        # fused kernels only where some model is at its interval.
+        last = x.ndim - 1
+        g_last = mttkrp_batched(x, cand.factors, last, method, mttkrp_prec, prepared[last],
+                                pred=extrap.any().to(torch.int32).reshape(1))
+        new_err = fast_error(x_norm_model, cand.lam, cand.factors[last], g_last,
+                             hadamard_all(gramians(cand.factors)))
+        accept = extrap & (new_err < err)
+        kt = tree_where(accept, cand, kt)
+        grams = tree_where(accept, gramians(kt.factors), grams)
+        old_fit = torch.where(accept, fit, old_fit)
+        fit = torch.where(accept, 1.0 - torch.abs(new_err) / x_norm_full, fit)
+        err = torch.where(accept, new_err, err)
+        return kt, grams, err, fit, old_fit, iters, ls._replace(it=it2), active
+
     def iteration(x, state: SolverState, x_norm_full, prepared=None) -> SolverState:
         if prepared is None:
             prepared = prepare(x)
@@ -184,7 +311,11 @@ def make_iteration(
         n_modes = x.ndim
         dimtree = resolve_dimtree(params, n_modes)
         iters = state.iters + 1
-        kt, grams = state.kt, state.grams
+        kt, grams, active, ls = state.kt, state.grams, state.active, state.ls
+        if params.line_search:
+            # The snapshot of the model before the sweep, one short of the
+            # interval.
+            ls = ls._replace(prev=tree_where(ls.it == params.line_search_interval - 1, kt, ls.prev))
         g_last = err = shared = None
         for n in range(n_modes):
             if dimtree and n >= 1:
@@ -208,7 +339,11 @@ def make_iteration(
                 )
             else:
                 h = padded_hadamard(hadamard_but_one(grams, n), state.rank_mask)
-                u = update_factor_unconstrained(g, h, solve=params.solve_method)
+                if nnls:
+                    u, act_n = update_factor_nnls(g, h, active[n], params.nnls_max_outer, params.nnls_algorithm)
+                    active = active[:n] + (act_n,) + active[n + 1 :]
+                else:
+                    u = update_factor_unconstrained(g, h, solve=params.solve_method)
                 if n == 0 and has_jk:
                     u = scale_jk_rows(u, state.jk_fiber, 0.0)
                 f_new, lam_new, gm = normalize_factor_fused(u, iters)
@@ -222,12 +357,24 @@ def make_iteration(
         old_fit = state.fit
         # Fit uses the FULL tensor norm, even for jackknife models.
         fit = 1.0 - torch.abs(err) / x_norm_full
+        if params.debug:
+            # The first iteration has no previous error; a blindly
+            # extrapolated model's BIG_ERROR cannot trigger it.
+            viol = (iters > 1) & state.alive & ((state.approx_error - err) < -1e-4)
+            record_monotonicity_violations(viol, iters, err, state.approx_error)
+        if params.line_search:
+            kt, grams, err, fit, old_fit, iters, ls, active = line_search(
+                x, kt, grams, err, fit, old_fit, iters, ls, active, x_norm_full, state.x_norm_model,
+                prepared, methods[-1])
         hi = state.hi
         if params.force_max_iter:
             converged = iters >= params.max_iterations
         elif k_check > 0:
+            # A model extrapolated blindly on this iteration must not stop
+            # before its check on the next.
+            not_pending = ~ls.updated_last if params.line_search and nec else None
             conv, hi, err, fit = check(
-                x, state, kt, grams, iters, err, fit, x_norm_full, prepared, methods[-1]
+                x, state, kt, grams, iters, err, fit, x_norm_full, prepared, methods[-1], not_pending
             )
             converged = conv | (iters >= params.max_iterations)
         else:
@@ -236,7 +383,7 @@ def make_iteration(
             )
         return state._replace(
             kt=kt, grams=grams, iters=iters, fit=fit, old_fit=old_fit,
-            approx_error=err, converged=converged, hi=hi,
+            approx_error=err, converged=converged, active=active, ls=ls, hi=hi,
         )
 
     iteration.prepare = prepare

@@ -2,9 +2,10 @@
 ``cp_cals_tpu/solvers/state.py:45-167``).
 
 Every field carries the leading batch dim ``(B,)`` of a bucket. The
-mixed-tier carry ``hi`` is a ``HiState`` when ``tol_check_interval > 0``
-and ``()`` otherwise; the NNLS (``active``) and line-search (``ls``)
-carries are ``()`` until those are ported.
+mixed-tier carry ``hi`` is a ``HiState`` when ``tol_check_interval > 0``,
+the NNLS carry ``active`` per-mode active sets under
+``update_method=NNLS``, and the line-search carry ``ls`` an ``LsState``
+under ``line_search``; each is ``()`` otherwise.
 """
 
 from __future__ import annotations
@@ -15,6 +16,29 @@ import torch
 
 from ..ktensor import Ktensor
 from ..ops.gramians import gramians
+
+
+# The error a blindly extrapolated model carries until its check (the JAX
+# package's sentinel: large and finite, so fit differences stay finite).
+BIG_ERROR = 1e30
+
+
+class LsState(NamedTuple):
+    """Line-search carry (``cp_cals_tpu/solvers/state.py:LsState``): the
+    counter modulo the interval, whether the model was extrapolated on the
+    previous iteration, the snapshot taken at ``it == interval - 1``, and
+    the backup a NO_ERROR_CHECKING revert restores (with the NNLS active
+    sets at backup time, ``()`` without NNLS)."""
+
+    it: torch.Tensor  # [B] int32
+    updated_last: torch.Tensor  # [B] bool
+    prev: Ktensor
+    backup: Ktensor
+    backup_err: torch.Tensor
+    backup_fit: torch.Tensor
+    backup_old_fit: torch.Tensor
+    backup_iters: torch.Tensor  # [B] int32
+    backup_active: tuple = ()
 
 
 class HiState(NamedTuple):
@@ -42,8 +66,8 @@ class SolverState(NamedTuple):
     alive: torch.Tensor  # [B] bool, False for vacant slots
     jk_fiber: torch.Tensor  # [B] int32, -1 = not a jackknife model
     x_norm_model: torch.Tensor  # [B], leave-one-out norm for JK models
-    active: tuple = ()  # NNLS active sets (not ported yet)
-    ls: tuple = ()  # line-search carry (not ported yet)
+    active: tuple = ()  # NNLS active sets, per-mode [B, I_n, R] bool, or ()
+    ls: LsState | tuple = ()  # line-search carry, () unless line_search
     hi: HiState | tuple = ()  # mixed-tier carry, () unless tol_check_interval > 0
 
 
@@ -83,11 +107,15 @@ def init_state(
     x_norm_model=None,
     rank_mask=None,
     alive: bool | torch.Tensor = True,
+    nnls: bool = False,
+    line_search: bool = False,
     mixed_tol: bool = False,
 ) -> SolverState:
     """Initial state of a batched Ktensor: gramians of the initial guess,
-    iteration counters at 0 (the first iteration makes them 1), and with
-    ``mixed_tol`` a zero ``HiState``."""
+    iteration counters at 0 (the first iteration makes them 1); with
+    ``nnls`` all-active sets, with ``line_search`` an ``LsState`` whose
+    snapshot and backup are the initial Ktensor, and with ``mixed_tol`` a
+    zero ``HiState``."""
     batch_shape = tuple(kt.lam.shape[:-1])
     dev, dtype = kt.lam.device, kt.lam.dtype
     r = kt.rank
@@ -103,6 +131,13 @@ def init_state(
         x_norm_model = x_norm
     x_norm_model = torch.as_tensor(x_norm_model, dtype=dtype, device=dev)
     x_norm_model = x_norm_model.expand(batch_shape).contiguous()
+    active = tuple(torch.ones(f.shape, dtype=torch.bool, device=dev) for f in kt.factors) if nnls else ()
+    ls = ()
+    if line_search:
+        i0 = torch.zeros(batch_shape, dtype=torch.int32, device=dev)
+        ls = LsState(it=i0, updated_last=torch.zeros(batch_shape, dtype=torch.bool, device=dev),
+                     prev=kt, backup=kt, backup_err=zeros.clone(), backup_fit=zeros.clone(),
+                     backup_old_fit=zeros.clone(), backup_iters=i0.clone(), backup_active=active)
     hi = ()
     if mixed_tol:
         i0 = torch.zeros(batch_shape, dtype=torch.int32, device=dev)
@@ -119,5 +154,7 @@ def init_state(
         alive=torch.as_tensor(alive, device=dev).expand(batch_shape).clone(),
         jk_fiber=jk_fiber,
         x_norm_model=x_norm_model,
+        active=active,
+        ls=ls,
         hi=hi,
     )

@@ -25,7 +25,9 @@ import torch
 from cp_cals_tpu_torch import (
     AlsParams,
     CalsParams,
+    LineSearchMethod,
     MttkrpMethod,
+    UpdateMethod,
     cp_als,
     cp_batched_als,
     cp_cals,
@@ -475,6 +477,80 @@ def test_spd_inverse_rejects_what_it_does_not_take(dev):
 def test_probe_copy_kernel_is_exact(dev, shape):
     x = torch.from_numpy(np.random.default_rng(0).normal(size=shape).astype(np.float32)).to(dev)
     assert torch.equal(probe.probe_copy(x), probe.probe_copy_plain(x))
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 2048, 2049, 576 * 1024 + 1])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_probe_copy_kernel_is_exact_at_any_length_and_alignment(dev, n, offset):
+    """Bit for bit x * 0.999 at lengths around the float4 and block edges,
+    on offset views (x misaligned against a fresh output: the scalar path),
+    and with x and the output misaligned alike (the float4 body between a
+    scalar head and tail), launched directly."""
+    from cp_cals_tpu_torch import _build
+
+    base = torch.from_numpy(np.random.default_rng(n).normal(size=n + 8).astype(np.float32)).to(dev)
+    x = base[offset : offset + n]
+    assert torch.equal(probe.probe_copy(x), probe.probe_copy_plain(x))
+    out = torch.full_like(base, float("nan"))
+    o = out[offset : offset + n]
+    code = probe._lib().probe_copy_launch(x.data_ptr(), o.data_ptr(), n, _build.stream_ptr(dev))
+    assert code == 0
+    torch.cuda.synchronize()
+    assert torch.equal(o, probe.probe_copy_plain(x))
+    assert torch.isnan(out[:offset]).all() and torch.isnan(out[offset + n :]).all()  # nothing outside
+
+
+def _nonneg_problem(seed, ranks, modes=(20, 17, 9)):
+    rng = np.random.default_rng(seed)
+    kt = random_ktensor_host(rng, modes, 3)
+    x = np.einsum("ir,jr,kr,r->ijk", *[np.abs(f) for f in kt.factors], np.abs(kt.lam))
+    x = np.abs(x + 0.01 * rng.standard_normal(modes)).astype(np.float32)
+    return x, [random_ktensor_host(rng, modes, r) for r in ranks]
+
+
+NNLS_LS_CASES = {
+    "bpp": dict(update_method=UpdateMethod.NNLS),
+    "lawson_hanson": dict(update_method=UpdateMethod.NNLS, nnls_algorithm="lawson_hanson"),
+    "nec": dict(line_search=True, line_search_interval=3),
+    "ec": dict(line_search=True, line_search_interval=3, line_search_method=LineSearchMethod.ERROR_CHECKING),
+    "bpp_nec": dict(update_method=UpdateMethod.NNLS, line_search=True, line_search_interval=3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NNLS_LS_CASES))
+def test_nnls_and_line_search_under_capture(dev, case):
+    """NNLS and both line searches in the captured graph loop: bit for bit
+    the eager iter loop on the card, the kernels' launches exact (ERROR_CHECKING's
+    candidate MTTKRP predicated once per bucket-iteration), and against the
+    same fp32 run on the CPU (force_max_iter: equal iterations, fits at
+    1e-4, factors >= 0 under NNLS)."""
+    x, queue = _nonneg_problem(11, (2, 3, 4, 3, 2, 4, 1))
+    params = CalsParams(max_iterations=9, force_max_iter=True, buffer_size=12, bucket_ranks=(2, 4),
+                        tail_compaction_depth=0, **NNLS_LS_CASES[case])
+    nnls = params.update_method == UpdateMethod.NNLS
+    runs = {}
+    for mode in ("iter", "evict"):
+        _zero()
+        runs[mode] = cp_cals(x, queue, dataclasses.replace(params, sync_mode=mode))
+        counts = _counts()
+        steps = sum(runs[mode][1].engine_iterations.values())
+        epilogue = 0 if nnls else 3 * steps
+        want = dict(fused_mttkrp_fp32=3 * steps, normal_inverse=epilogue, epilogue_apply=epilogue)
+        if case == "ec":
+            want["fused_mttkrp_fp32.predicated"] = steps
+        assert counts == {k: want.get(k, 0) for k in counts}, (mode, counts)
+    (res_i, rep_i), (res_g, rep_g) = runs["iter"], runs["evict"]
+    assert sum(c["replays"] for c in rep_g.loop_counts.values()) > 0
+    for a, b, ma, mb in zip(res_i, res_g, rep_i.models, rep_g.models):
+        assert (ma.iters, ma.fit, ma.approx_error) == (mb.iters, mb.fit, mb.approx_error)
+        for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
+            np.testing.assert_array_equal(fa, fb)
+    res_c, rep_c = cp_cals(x, queue, params, device="cpu")
+    for a, b, ma, mb in zip(res_g, res_c, rep_g.models, rep_c.models):
+        assert ma.iters == mb.iters
+        assert abs(ma.fit - mb.fit) <= 1e-4
+        if nnls:
+            assert min(float(f.min()) for f in a.factors) >= 0.0
 
 
 def _als_problem(seed, rank=3):

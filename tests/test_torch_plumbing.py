@@ -108,20 +108,6 @@ def test_result_wire_dtype(wire):
 
 
 @pytest.mark.parametrize(
-    "change",
-    [
-        dict(update_method=pcfg.UpdateMethod.NNLS),
-        dict(line_search=True),
-        dict(debug=True),
-    ],
-)
-def test_unported_settings_raise(change):
-    x, queue = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        cp_cals(x, queue, pcfg.CalsParams(**change), device="cpu")
-
-
-@pytest.mark.parametrize(
     "kwargs", [dict(checkpoint_dir="ckpt"), dict(trace=[])]
 )
 def test_unported_engine_options_raise(kwargs):
