@@ -110,6 +110,33 @@ the result lines are printed):
    cond up to 1e4, dead identity slots), timed at J2's launch mix. Both
    inverses record which path of their shared elimination (warp or block)
    each shape took.
+6b. Entry points (the user's API and CLI), at full width: the README's
+   command through cli.main (-t 299-301-41 -c 1:20:20 --compare-als --jk:
+   400 models at "highest", batched ALS per rank, then the 20 best models'
+   5,980 jackknife replicates), its output lines, its CSV's 400 rows, and
+   the fp32 MTTKRP, normal inverse and apply launched; the same target
+   written with tensor_io.write_tensor, read back equal, and run with
+   --tensor-file --fast --wire float16 (the tensor-core MTTKRP launched).
+   Both CLI runs record their MTTKRP, normal-inverse and apply calls
+   (replays included; the recorded launches must sum to the counts), and
+   each kernel is held against its plain version and timed on the run's
+   own inputs at every (B, R, mode) it ran at (the launch mixes in the
+   kernels line: "readme_cli_mix", "fast_cli_mix"); the README command's
+   best model of each rank is held against the port's float64 CPU run
+   from its init (CLI_CROSS_TOL). api.cp_cals at its defaults (tol-driven,
+   evict_batch 1) with init="random" against the same call on the host-
+   built queue, in turns: walls, setup and eviction-round times, spec
+   builds, results bit for bit.
+   api.cp_cals(init="random") on the bench tensor (ranks 1-20 x 20,
+   buckets 4/8/12/16/20, buffer 2880, 10 forced iterations): its models
+   are born on the card from their seeds and must equal the same run on
+   the spec_to_ktensor queue built on the host bit for bit (both runs'
+   bucket setup times printed). The same forced run cut after one
+   eviction round per bucket with checkpoint_dir and resumed must equal
+   the uninterrupted run bit for bit (seconds per snapshot, bytes on
+   disk); traced, its records number its engine iterations, its stats
+   fetches are the untraced run's, its results the same bits (walls of
+   three runs each, in turns U T T U U T).
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality and
    timed beside torch.mul, eager and replayed.
@@ -138,6 +165,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -182,7 +210,13 @@ BENCH_TIERS = dict(precision="high", mttkrp_precision="default")
 # The SPD inverse is held like hinv (the same elimination with a reciprocal
 # of each pivot): on J2's normal matrices (cond <= 1.1e4) and random batches
 # up to cond 1e4 it read at most 7.9e-8 on an H100.
-TOL = {"mttkrp": 2e-5, "hinv": 1e-6, "apply": 1e-5, "apply_err": 1e-5}
+# - apply_err_sq: the apply's error on a run's own inputs (the entry
+#   points' launch mixes), where the models may fit the CLI's exact rank-5
+#   target to a few 1e-6: err^2 = |X|^2 + term2 - 2 term3 then cancels to
+#   almost nothing, and F and the gramian's fp32 roundings (a few 1e-7 of
+#   each term, terms the size of |X|^2) set the difference of the two
+#   versions' err^2. It is held relative to |X|^2, not to err^2.
+TOL = {"mttkrp": 2e-5, "hinv": 1e-6, "apply": 1e-5, "apply_err": 1e-5, "apply_err_sq": 1e-5}
 # The N-D slice: the bench tensor with a fourth mode of 8 (29.5 M entries,
 # 118 MB in float32), the same queue and buckets; every mode takes the
 # twostep, and every normal matrix and FastALS error multiplies K = 3 other
@@ -250,6 +284,17 @@ JK_FIBERS = [int(f) for f in np.linspace(0, MODES[0] - 1, 10).round()]
 # polish takes both runs to one fixed point. Without its polish the card's
 # run reads 1.4e-4, which the reconstruction limit must refuse.
 J4_STOP_TOL = (5e-5, 3e-5)
+# The README command's best model of each rank (fp32 at "highest", stopped
+# by tol 1e-6 on the CLI's exact rank-5 target) against the port's float64
+# CPU run from the same init, forced to the card's iteration count: the
+# largest |fit difference| and relative reconstruction difference allowed.
+# On an H100 they read 3.3e-4 and 2.1e-5. The reconstructions agree; the
+# fits of the models that fit the target to near 1 (ranks 10-17) differ
+# by 2e-4 because the engine's fp32 FastALS error cancels there: err^2 is
+# a difference of terms the size of |X|^2, whose fp32 roundings (a few
+# 1e-7 of |X|^2) leave about 3e-4 |X| in err. The limits give the
+# readings 3x and 5x room.
+CLI_CROSS_TOL = (1e-3, 1e-4)
 
 
 def card_line() -> str:
@@ -823,6 +868,16 @@ def fit_jk_model(x_np):
     return kt, out
 
 
+def copied(a):
+    """A copy of a call's argument: tensors cloned, tuples and lists of
+    them copied leaf by leaf, anything else as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, (tuple, list)):
+        return type(a)(copied(v) for v in a)
+    return a
+
+
 class Recorder:
     """Observes the calls of one kernel's wrapper during one run, where the
     run makes them: ``module.attr`` is swapped for a recording function
@@ -831,7 +886,8 @@ class Recorder:
     them as it advances the wrappers' counts: ``shapes`` counts launches by
     ``key``, replays included. ``first`` holds copies of the first inputs
     of each key, taken at an eager call (the graph loop runs every captured
-    iteration eagerly first, as its warm-up); ``keep`` says which
+    iteration eagerly first, as its warm-up), the call's arguments in the
+    order of ``key``'s parameters, defaults filled in; ``keep`` says which
     arguments stay by reference (ones nothing writes to)."""
 
     module, attr, keep, n_first = None, None, (), 3
@@ -853,13 +909,18 @@ class Recorder:
         self.tallies = [self.shapes]
         launches.TALLIES.extend(self.tallies)
 
+        sig = inspect.signature(self.key)
+
         def record(*args, **kw):
             key = self.key(*args, **kw)
             if key is not None:
                 captured = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
                 self.shapes[key] = self.shapes.get(key, 0) + 1
                 if key not in self.first and not captured:
-                    self.first[key] = tuple(a if i in self.keep else a.clone() for i, a in enumerate(args[:self.n_first]))
+                    bound = sig.bind(*args, **kw)
+                    bound.apply_defaults()
+                    self.first[key] = tuple(a if i in self.keep else copied(a)
+                                            for i, a in enumerate(bound.args[:self.n_first]))
                 self.seen(self.n, captured, args)
                 self.n += 1
             return self.real(*args, **kw)
@@ -1284,6 +1345,115 @@ class ApplyRecorder(GramsRecorder):
 
     def key(self, g, hinv, iters, jk_fiber, zero_jk=False, err_inputs=None):
         return (g.shape[0], 0 if err_inputs is None else len(err_inputs) - 1)
+
+
+class HinvMixRecorder(Recorder):
+    """The iteration's normal-inverse calls on a 3-D run by (B, R, mode),
+    each key's first eager inputs copied (the gramians, rank mask, mode)."""
+
+    module, attr = "cp_cals_tpu_torch.solvers.iteration", "normal_inverse"
+
+    def key(self, grams, rank_mask, skip):
+        return (rank_mask.shape[0], rank_mask.shape[1], skip)
+
+
+class ApplyMixRecorder(Recorder):
+    """The same for the apply, by (B, R, mode, JK zero), its six inputs."""
+
+    module, attr, n_first = "cp_cals_tpu_torch.solvers.iteration", "epilogue_apply", 6
+
+    def key(self, g, hinv, iters, jk_fiber, zero_jk=False, err_inputs=None):
+        return (g.shape[0], g.shape[2], MODES.index(g.shape[1]), bool(zero_jk))
+
+
+def hinv_mix(rec, label: str) -> list:
+    """The normal inverse at every (B, R, mode) of a recorded run, on that
+    run's own normal matrices: held against its plain version at
+    TOL["hinv"] (per model, over cond(H) max|H^-1|) and timed, with
+    torch.linalg.inv beside it."""
+    from cp_cals_tpu_torch.ops import fused_epilogue as fe
+    from cp_cals_tpu_torch.ops.gramians import hadamard_but_one
+    from cp_cals_tpu_torch.ops.update import padded_hadamard
+
+    mix = []
+    for (b, r, mode), n in sorted(rec.shapes.items(), reverse=True):
+        grams, mask, skip = rec.first[(b, r, mode)]
+        got, want = fe.normal_inverse(grams, mask, skip), fe.normal_inverse_plain(grams, mask, skip)
+        h = padded_hadamard(hadamard_but_one(grams, skip), mask)
+        reading = hinv_reading(got, want, h)
+        if not reading["ratio"] <= TOL["hinv"]:
+            raise AssertionError(f"normal_inverse B={b} R={r} mode={mode} ({label}'s recorded inputs): {reading}")
+        mix.append(dict(
+            B=b, R=r, mode=mode, launches=n, path=inverse_path(b, r), **reading,
+            **bound(b * (4 * r**3 + 5 * r * r), PEAK_FP32, 4 * 3 * b * r * r + b * r),
+            ms=cuda_ms(lambda: fe.normal_inverse(grams, mask, skip)),
+            graph_ms=graph_ms(lambda: fe.normal_inverse(grams, mask, skip)),
+            plain_ms=cuda_ms(lambda: fe.normal_inverse_plain(grams, mask, skip)),
+            library_ms=cuda_ms(lambda: torch.linalg.inv(h)),
+        ))
+    m = max(mix, key=lambda m: m["ratio"])
+    print(f"normal_inverse {label} mix: {len(mix)} shapes, {sum(m['launches'] for m in mix)} launches, largest "
+          f"err/(cond*max) {m['ratio']:.3g} (B={m['B']} R={m['R']} mode={m['mode']}, cond {m['cond_max']:.3g})",
+          flush=True)
+    return mix
+
+
+def apply_mix(rec, label: str) -> list:
+    """The apply at every (B, R, mode, JK zero) of a recorded run, on that
+    run's own inputs: F, lam and the gramian held against the plain
+    version at TOL["apply"], the FastALS error's square at
+    TOL["apply_err_sq"] of |X|^2 (module docstring of TOL), and timed."""
+    from cp_cals_tpu_torch.ops import fused_epilogue as fe
+
+    mix = []
+    for (b, r, mode, zero_jk), n in sorted(rec.shapes.items(), reverse=True):
+        g, hinv, iters, jk, zero_jk, err_inputs = rec.first[(b, r, mode, zero_jk)]
+        got = fe.epilogue_apply(g, hinv, iters, jk, zero_jk, err_inputs)
+        want = fe.epilogue_apply_plain(g, hinv, iters, jk, zero_jk, err_inputs)
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, w in zip(got[:3], want[:3]):
+            e, scale = rel_err(a, w)
+            if not e <= TOL["apply"] * max(scale, 1e-30):
+                raise AssertionError(f"epilogue_apply B={b} R={r} mode={mode} zero_jk={zero_jk} "
+                                     f"({label}'s recorded inputs): {e} vs {scale}")
+            err = max(err, e)
+        with_err = err_inputs is not None
+        err_sq = None
+        if with_err:
+            xn2 = err_inputs[0].double() ** 2
+            err_sq = ((got[3].double() ** 2 - want[3].double() ** 2).abs() / xn2.clamp(min=1e-300)).max().item()
+            if not err_sq <= TOL["apply_err_sq"]:
+                raise AssertionError(f"epilogue_apply error B={b} R={r} mode={mode} ({label}'s recorded inputs): "
+                                     f"squared error differs by {err_sq} of |X|^2")
+        i = MODES[mode]
+        flops = b * (4 * i * r * r + i * r + (12 * i * r + 20 * r * r if with_err else 0))
+        nbytes = 4 * (2 * b * i * r + 2 * b * r * r + b * r + 2 * b) + (4 * (2 * b * r * r + 2 * b) if with_err else 0)
+        mix.append(dict(
+            B=b, R=r, mode=mode, zero_jk=zero_jk, with_err=with_err, launches=n, max_abs_err=err,
+            err_sq_rel=err_sq, **bound(flops, PEAK_FP32, nbytes),
+            ms=cuda_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, zero_jk, err_inputs)),
+            graph_ms=graph_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, zero_jk, err_inputs)),
+            plain_ms=cuda_ms(lambda: fe.epilogue_apply_plain(g, hinv, iters, jk, zero_jk, err_inputs)),
+            library_ms=None,
+        ))
+    sq = [m["err_sq_rel"] for m in mix if m["with_err"]]
+    print(f"epilogue_apply {label} mix: {len(mix)} shapes, {sum(m['launches'] for m in mix)} launches, largest "
+          f"|difference| {max(m['max_abs_err'] for m in mix):.3g}, squared error {max(sq):.3g} of |X|^2",
+          flush=True)
+    return mix
+
+
+def mix_summary(mix) -> dict:
+    """A launch mix's launches, largest difference from the plain version,
+    and per-launch means weighted by launches (None where a shape has no
+    reading)."""
+    n = sum(m["launches"] for m in mix)
+    out = dict(launches=n, shapes=len(mix), max_abs_err=max(m["max_abs_err"] for m in mix))
+    for f in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [m[f] for m in mix]
+        out[f] = None if any(v is None for v in vals) else sum(m["launches"] * v for m, v in zip(mix, vals)) / n
+    return out
 
 
 def by_k(rec) -> dict:
@@ -1918,6 +2088,319 @@ def weighted(rows, bucket_iters, key, field, tier=None):
     return num / den
 
 
+# ------------------------------------------------------------ entry points
+
+
+# The README's command (python -m cp_cals_tpu_torch.cli ...): the CLI's own
+# rank-5 299x301x41 target, 400 models of ranks 1-20, CALS, batched ALS and
+# the jackknife of the best model of each rank (20 x 299 replicates).
+README_CLI = ["-t", "299-301-41", "-c", "1:20:20", "--compare-als", "--jk"]
+SPEC_SEED = 11  # api.cp_cals(init="random", seed=SPEC_SEED): seeds SPEC_SEED * 100003 + i
+ENTRY_DIR = os.path.join("build", "chip_smoke")  # git-ignored scratch of the phase
+CLI_LINES = {
+    "tensor": r"^Tensor \((\d+), (\d+), (\d+)\), (\d+) models, ranks 1\.\.20$",
+    "device": r"^Device: (.+)$",
+    "cals": r"^CALS: ([\d.]+)s, ([\d.]+) models/s, mean fit ([-\d.]+), mean iters ([\d.]+)$",
+    "als": r"^Batched ALS: ([\d.]+)s -> CALS speedup ([\d.]+)x$",
+    "jk": r"^Jackknife: (\d+) replicates in ([\d.]+)s$",
+}
+
+
+def run_cli(name: str, argv: list, kernels: tuple, lines: tuple, x) -> tuple[dict, tuple]:
+    """``cli.main(argv)`` from counts at 0, its MTTKRP, normal-inverse and
+    apply calls recorded (replays included): its output lines (each of
+    ``lines`` must appear, as CLI_LINES spells it), every kernel of
+    ``kernels`` launched, its CSV's rows, and every recorded shape of each
+    kernel held against its plain version and timed on the run's own
+    inputs (``x``, the CLI's target on the card, for the twostep beside
+    the MTTKRP). Returns that, and the CLI's CALS call (queue, params,
+    (results, report))."""
+    import contextlib
+    import csv
+    import io
+    import re
+
+    from cp_cals_tpu_torch import cli, solvers
+
+    csv_path = os.path.join(ENTRY_DIR, f"{name}.csv")
+    buf = io.StringIO()
+    real, calls = solvers.cp_cals, []
+
+    def cals_call(xx, queue, params, **kw):
+        out = real(xx, queue, params, **kw)
+        calls.append((queue, params, out))
+        return out
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with MttkrpRecorder() as m_rec, HinvMixRecorder() as h_rec, ApplyMixRecorder() as a_rec:
+        solvers.cp_cals = cals_call
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv + ["--csv", csv_path])
+        finally:
+            solvers.cp_cals = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"cli {name}| {line}", flush=True)
+    got = {}
+    for key in lines:
+        m = [re.match(CLI_LINES[key], ln) for ln in text.splitlines()]
+        m = [hit for hit in m if hit]
+        if len(m) != 1:
+            raise AssertionError(f"cli {name}: no single {key!r} line in its output")
+        got[key] = m[0].groups()
+    missing = [k for k in kernels if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"cli {name}: {missing} never launched ({counts})")
+    with open(csv_path, newline="") as fh:
+        rows = list(csv.DictReader(fh, delimiter=";"))
+    ranks = [r for r in range(1, 21) for _ in range(20)]
+    if ([int(r["KTENSOR_ID"]) for r in rows] != list(range(400)) or [int(r["RANK"]) for r in rows] != ranks
+            or not all(np.isfinite(float(r["ERROR"])) and 1 <= int(r["ITERS"]) <= 200 for r in rows)):
+        raise AssertionError(f"cli {name}: its CSV's 400 rows are not the queue's")
+    if got["device"][0] != torch.cuda.get_device_name(0) or got["tensor"] != tuple(str(m) for m in MODES) + ("400",):
+        raise AssertionError(f"cli {name}: device or tensor line {got}")
+    fit = float(got["cals"][2])
+    if not 0.5 < fit <= 1.0:
+        raise AssertionError(f"cli {name}: mean fit {fit}")
+    if len(calls) != 1:
+        raise AssertionError(f"cli {name}: {len(calls)} CALS calls")
+    print(f"cli {name}: wall {wall:.3f}s (its kernels' calls recorded), launches {counts}", flush=True)
+    m_rec.check_total(f"cli {name}'s MTTKRP mix",
+                      counts.get("fused_mttkrp_fp32", 0) + counts.get("fused_mttkrp_tc", 0))
+    h_rec.check_total(f"cli {name}'s normal-inverse mix", counts.get("normal_inverse", 0))
+    a_rec.check_total(f"cli {name}'s apply mix", counts.get("epilogue_apply", 0))
+    mttkrp = mttkrp_mix(m_rec, x, f"cli {name}")
+    mixes = {k: v for k, v in (
+        ("fused_mttkrp_fp32", [m for m in mttkrp if m["tier"] == "highest"]),
+        ("fused_mttkrp_tc", [m for m in mttkrp if m["tier"] != "highest"]),
+        ("normal_inverse", hinv_mix(h_rec, f"cli {name}")),
+        ("epilogue_apply", apply_mix(a_rec, f"cli {name}"))) if v}
+    return dict(wall_s=wall, lines={k: list(v) for k, v in got.items()}, launches=counts, csv_rows=len(rows),
+                mixes=mixes), calls[0]
+
+
+def cli_cross_check(x_cli, call) -> dict:
+    """The README command's best model of each rank (the 20 its jackknife
+    takes) against the port's float64 CPU run from the same init, forced
+    to the iterations the card ran it, at the CLI's settings: |fit
+    difference| and relative reconstruction difference, held to
+    CLI_CROSS_TOL."""
+    from cp_cals_tpu_torch import Ktensor, cp_cals
+
+    queue, params, (results, rep) = call
+    best = {}
+    for m in rep.models:  # as the CLI picks them
+        if m.rank not in best or m.approx_error < best[m.rank].approx_error:
+            best[m.rank] = m
+    x64 = x_cli.astype(np.float64)
+    t0 = time.perf_counter()
+    rows = []
+    for r, m in sorted(best.items()):
+        q = queue[m.id]
+        q64 = Ktensor(tuple(f.astype(np.float64) for f in q.factors), q.lam.astype(np.float64))
+        p = dataclasses.replace(params, max_iterations=m.iters, force_max_iter=True, bucket_ranks=(r,))
+        (kt64,), rep64 = cp_cals(x64, [q64], p, device="cpu")
+        a, b = dense(results[m.id]), dense(kt64)
+        rows.append(dict(id=m.id, rank=r, iters=m.iters, fit=m.fit, fit64=rep64.models[0].fit,
+                         fit_diff=abs(m.fit - rep64.models[0].fit),
+                         rel_recon_diff=float(np.linalg.norm(a - b) / np.linalg.norm(b))))
+    worst_fit = max(row["fit_diff"] for row in rows)
+    worst_rec = max(row["rel_recon_diff"] for row in rows)
+    print(f"cli readme cross-check vs CPU float64 (the best model of each rank, {time.perf_counter() - t0:.1f}s): "
+          f"max |fit diff| {worst_fit:.3e}, max relative reconstruction diff {worst_rec:.3e}; by rank "
+          + ", ".join(f"{row['rank']}: {row['iters']} it {row['fit_diff']:.1e}/{row['rel_recon_diff']:.1e}"
+                      for row in rows), flush=True)
+    if not (worst_fit <= CLI_CROSS_TOL[0] and worst_rec <= CLI_CROSS_TOL[1]):
+        raise AssertionError("cli readme: its best models differ from the CPU float64 runs")
+    return dict(max_fit_diff=worst_fit, max_rel_recon_diff=worst_rec, models=rows)
+
+
+def tol_intake(x_np) -> dict:
+    """api.cp_cals at its defaults (init="random": tol-driven, at most 200
+    iterations, evict_batch 1, buffer 4200, buckets 4/8/16/32) on the bench
+    tensor, ranks 1-20 x 20, against the same call on the spec_to_ktensor
+    queue built on the host, in turns (seeds, host, host, seeds): walls,
+    bucket setup and eviction-round times, spec builds; the results bit
+    for bit."""
+    from cp_cals_tpu_torch import api
+    from cp_cals_tpu_torch.ktensor import spec_to_ktensor, to_host
+
+    ranks = [r for r in range(1, 21) for _ in range(20)]
+    t0 = time.perf_counter()
+    specs = api._init_models(MODES, ranks, "random", torch.float32, SPEC_SEED)
+    host = [to_host(spec_to_ktensor(s)) for s in specs]
+    materialize_s = time.perf_counter() - t0
+    real, reports = api._cp_cals_solver, []
+
+    def solver(*a, **kw):
+        out = real(*a, **kw)
+        reports.append(out[1])
+        return out
+
+    runs = {"seeds": [], "host": []}
+    api._cp_cals_solver = solver
+    try:
+        for kind in ("seeds", "host", "host", "seeds"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit = api.cp_cals(x_np, ranks, init="random" if kind == "seeds" else host, seed=SPEC_SEED)
+            torch.cuda.synchronize()
+            rep = reports[-1]
+            runs[kind].append(dict(wall_s=time.perf_counter() - t0, fit=fit, rep=rep, **engine_walls(rep),
+                                   spec_builds=sum(c["spec_builds"] for c in rep.loop_counts.values()),
+                                   rounds=loop_totals(rep)["stats_fetches"]))
+    finally:
+        api._cp_cals_solver = real
+    (a, b) = (runs["seeds"][0], runs["host"][0])
+    assert_bit_identical("api.cp_cals at its defaults: seeds vs the host-built queue",
+                         (a["fit"].ktensors, a["rep"]), (b["fit"].ktensors, b["rep"]))
+    out = {k: [{f: v for f, v in run.items() if f not in ("fit", "rep")} for run in rs] for k, rs in runs.items()}
+    out.update(materialize_s=materialize_s, mean_iters=float(np.mean(a["fit"].iters)),
+               mean_fit=float(np.mean(a["fit"].fits)))
+    print(f"api.cp_cals defaults (tol-driven, mean iters {out['mean_iters']:.1f}): "
+          + "; ".join(f"{k} walls {[round(r['wall_s'], 4) for r in v]} s, setup "
+                      f"{[round(r['setup'], 4) for r in v]} s, eviction rounds {[round(r['evict'], 4) for r in v]} s, "
+                      f"spec builds {v[0]['spec_builds']}, stats fetches {v[0]['rounds']}"
+                      for k, v in out.items() if k in runs)
+          + f"; the host queue built in {materialize_s:.3f}s", flush=True)
+    return out
+
+
+def engine_walls(rep) -> dict:
+    return {k: sum(pt.get(k, 0.0) for pt in rep.phase_times.values()) for k in ("setup", "evict", "checkpoint")}
+
+
+def entry_point_phase(x_np, dev) -> dict:
+    """The user entry points at full width (module docstring, phase 6b)."""
+    import shutil
+
+    from cp_cals_tpu_torch import api, cp_cals
+    from cp_cals_tpu_torch.ktensor import random_ktensor, spec_to_ktensor, to_host, to_tensor
+    from cp_cals_tpu_torch.prng import prng_key, split
+    from cp_cals_tpu_torch.tensor_io import read_tensor, write_tensor
+    from cp_cals_tpu_torch.utils.timers import RunTrace
+
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    os.makedirs(ENTRY_DIR)
+    out = {}
+    # 1. The README's command: the fp32 MTTKRP ("highest") and the epilogue,
+    # every shape they ran at held against their plain versions, and its
+    # best models against float64 runs on the CPU.
+    kx = split(prng_key(0, dev), 3)[0]
+    x_cli_d = to_tensor(random_ktensor(kx, MODES, 5))  # the CLI's target at seed 0
+    x_cli = x_cli_d.cpu().numpy()
+    out["readme_cli"], call = run_cli("readme", README_CLI,
+                                      ("fused_mttkrp_fp32", "normal_inverse", "epilogue_apply"),
+                                      ("tensor", "device", "cals", "als", "jk"), x_cli_d)
+    n_reps = int(out["readme_cli"]["lines"]["jk"][0])
+    if n_reps != 20 * MODES[0]:
+        raise AssertionError(f"cli readme: {n_reps} replicates, expected {20 * MODES[0]}")
+    out["readme_cli"]["cross_check"] = cli_cross_check(x_cli, call)
+    del call
+    # 2. The same target through a tensor file, at the --fast tier.
+    path = os.path.join(ENTRY_DIR, "cli_tensor.txt")
+    t0 = time.perf_counter()
+    write_tensor(path, x_cli)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = read_tensor(path)
+    read_s = time.perf_counter() - t0
+    if not np.array_equal(back, x_cli.astype(np.float64)):
+        raise AssertionError("tensor file: the read-back differs from the written array")
+    size = os.path.getsize(path)
+    print(f"tensor file: {size} bytes, write {write_s:.3f}s, read {read_s:.3f}s, read-back equal", flush=True)
+    out["tensor_file"] = dict(bytes=size, write_s=write_s, read_s=read_s)
+    out["fast_cli"] = run_cli("fast", ["--tensor-file", path, "-c", "1:20:20", "--fast", "--wire", "float16"],
+                              ("fused_mttkrp_tc",), ("tensor", "device", "cals"), x_cli_d)[0]
+    os.remove(path)
+    out["tol_intake"] = tol_intake(x_np)
+
+    # 3. api.cp_cals with device-generated inits against the same run on
+    # the spec_to_ktensor queue built on the host.
+    ranks = [r for r in range(1, 21) for _ in range(20)]
+    opts = dict(bucket_ranks=BUCKETS, buffer_size=BUFFER, maxiters=ITERS, force_max_iter=True, tol=1e-6)
+    reset_counts()
+    t0 = time.perf_counter()
+    fit = api.cp_cals(x_np, ranks, init="random", seed=SPEC_SEED, **opts)
+    api_s = time.perf_counter() - t0
+    specs = fit.initial
+    params = api._make_params(**opts)
+    res_s, rep_s = cp_cals(x_np, specs, params)
+    t0 = time.perf_counter()
+    host = [to_host(spec_to_ktensor(s)) for s in specs]
+    materialize_s = time.perf_counter() - t0
+    res_m, rep_m = cp_cals(x_np, host, params)
+    assert_bit_identical("api.cp_cals(init='random') vs the spec_to_ktensor queue", (fit.ktensors, rep_s),
+                         (res_m, rep_m))
+    if (fit.iters, fit.fits, fit.errors) != ([m.iters for m in rep_m.models], [m.fit for m in rep_m.models],
+                                               [m.approx_error for m in rep_m.models]):
+        raise AssertionError("api.cp_cals: its reports differ from the materialized run's")
+    assert_bit_identical("engine spec queue vs the spec_to_ktensor queue", (res_s, rep_s), (res_m, rep_m))
+    setup = dict(spec=engine_walls(rep_s)["setup"], host=engine_walls(rep_m)["setup"])
+    print(f"spec intake: api wall {api_s:.3f}s; bucket setup {setup['spec']:.4f}s from seeds on the card vs "
+          f"{setup['host']:.4f}s from host-built models (spec_to_ktensor + to_host of 400 models "
+          f"{materialize_s:.3f}s before it)", flush=True)
+    out["spec_intake"] = dict(api_wall_s=api_s, setup_s=setup, materialize_s=materialize_s,
+                              mean_fit=float(np.mean(fit.fits)))
+
+    # 4. Checkpoint, cut and resume, against the uninterrupted run; then
+    # the trace: untraced, traced, untraced.
+    ck_params = bench_params()
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, rep = cp_cals(x_np, specs, ck_params, **kw)
+        torch.cuda.synchronize()
+        return res, rep, time.perf_counter() - t0
+
+    # Untraced and traced in turns (U T T U U T): each kind's first run
+    # is checked, the walls of all are kept.
+    walls = {"untraced": [], "traced": []}
+    firsts = {}
+    for kind in ("untraced", "traced", "traced", "untraced", "untraced", "traced"):
+        trace = RunTrace() if kind == "traced" else None
+        res, rep, wall = timed(trace=trace)
+        walls[kind].append(wall)
+        firsts.setdefault(kind, (res, rep, trace))
+    (want, rep_w, _), (res_t, rep_t, trace) = firsts["untraced"], firsts["traced"]
+    plain_s = walls["untraced"][0]
+    ck_dir = os.path.join(ENTRY_DIR, "ckpt")
+    part, rep_p, cut_s = timed(checkpoint_dir=ck_dir, max_rounds_per_bucket=1)
+    if not any(k is None for k in part):
+        raise AssertionError("checkpoint: the cut run finished every model")
+    disk = sum(os.path.getsize(os.path.join(ck_dir, f)) for f in os.listdir(ck_dir))
+    got, rep_g, resume_s = timed(checkpoint_dir=ck_dir, resume=True)
+    assert_bit_identical("checkpoint cut + resume vs uninterrupted", (want, rep_w), (got, rep_g))
+    n_ck = sum(c["checkpoints"] for r in (rep_p, rep_g) for c in r.loop_counts.values())
+    ck_s = engine_walls(rep_p)["checkpoint"] + engine_walls(rep_g)["checkpoint"]
+    disk_end = sum(os.path.getsize(os.path.join(ck_dir, f)) for f in os.listdir(ck_dir))
+    print(f"checkpoint: cut run {cut_s:.3f}s ({sum(k is None for k in part)} models unfinished), resumed "
+          f"{resume_s:.3f}s, uninterrupted {plain_s:.3f}s; {n_ck} snapshots, {ck_s / n_ck * 1e3:.1f} ms each; "
+          f"{disk} bytes on disk after the cut, {disk_end} at the end", flush=True)
+    out["checkpoint"] = dict(cut_s=cut_s, resume_s=resume_s, plain_s=plain_s, snapshots=n_ck,
+                             s_per_snapshot=ck_s / n_ck, bytes_after_cut=disk, bytes_at_end=disk_end)
+    n_iter = sum(rep_t.engine_iterations.values())
+    fetches = (loop_totals(rep_t)["stats_fetches"], loop_totals(rep_w)["stats_fetches"])
+    if len(trace.records) != n_iter or fetches[0] != fetches[1]:
+        raise AssertionError(f"trace: {len(trace.records)} records for {n_iter} iterations, "
+                             f"stats fetches {fetches} (traced, untraced)")
+    assert_bit_identical("traced vs untraced", (want, rep_w), (res_t, rep_t))
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"trace: {len(trace.records)} records = engine iterations, {fetches[0]} stats fetches as untraced; "
+          f"walls in turns (U T T U U T) untraced {walls['untraced']}, traced {walls['traced']} s; medians "
+          f"{med['untraced']:.4f} / {med['traced']:.4f} s", flush=True)
+    out["trace"] = dict(records=len(trace.records), stats_fetches=fetches[0], walls_s=walls, median_s=med)
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1983,6 +2466,7 @@ def main() -> int:
     jk_check.update(j4_stop_check(x_np, kt5))
     jk_ls = jk_line_search_phase(x_np, kt5)
     debug = debug_phase()
+    entry_pts = entry_point_phase(x_np, dev)
     probe = probe_phase(dev)
 
     # Each kernel at the launch mix of the engine run that drives it: the
@@ -2027,11 +2511,13 @@ def main() -> int:
             entry["by_tier"] = {tt: {f: mean_or_none(rows, w, key, f, tt) for f in
                                      ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")}
                                 for tt in ("default", "high")}
-            for label, mix in (("j1_mix", j1_mix), ("nnls_mix", nnls["mttkrp_mix"])):
-                n = sum(m["launches"] for m in mix)
-                entry[label] = dict(launches=n, **{
-                    f: sum(m["launches"] * m[f] for m in mix) / n
-                    for f in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")})
+            entry["j1_mix"], entry["nnls_mix"] = mix_summary(j1_mix), mix_summary(nnls["mttkrp_mix"])
+        # The README command's launch mixes, and its --fast run's.
+        for run_name in ("readme_cli", "fast_cli"):
+            mix = entry_pts[run_name]["mixes"].get(name)
+            if mix:
+                entry[run_name + "_mix"] = mix_summary(mix)
+                entry["max_abs_err"] = max(entry["max_abs_err"], entry[run_name + "_mix"]["max_abs_err"])
         kernels.append(entry)
     # The widened epilogue kernels at K = 3 (the 4-D run's normal matrices
     # and FastALS error), at that run's launch mix.
@@ -2084,6 +2570,7 @@ def main() -> int:
                        float64_on_card=f64, nd=nd, widened=wide,
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
                        mttkrp_j1_mix=j1_mix, nnls=nnls, line_search=ls, jk_line_search=jk_ls, debug=debug,
+                       entry_points=entry_pts,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,24 @@ the JAX package's TPU kernels written by hand in CUDA C++ for Hopper
 (``csrc/``): the fused 3-D MTTKRP, the fused per-mode epilogue, the batched
 SPD inverse, and the launch-overhead probe's copy kernel. Entry points run
 on the card unless the caller passes ``device="cpu"``, which runs the
-kernels' plain PyTorch versions.
+kernels' plain PyTorch versions. The user API is ``api.py`` (``cp_cals``,
+``cp_cals_jk``, ``cp_cals_hybrid``), the CLI ``python -m
+cp_cals_tpu_torch.cli``.
 """
 
 from .config import AlsParams, CalsParams, LineSearchMethod, MttkrpMethod, UpdateMethod
 from .device import resolve_device
-from .ktensor import Ktensor, random_ktensor_host
+from .ktensor import (
+    Ktensor,
+    RandomKtensorSpec,
+    denormalize,
+    normalize_full,
+    normalize_mode,
+    random_ktensor,
+    random_ktensor_host,
+    spec_to_ktensor,
+    to_tensor,
+)
 from .solvers import (
     AlsReport,
     CalsModelReport,
@@ -36,6 +48,7 @@ __all__ = [
     "Ktensor",
     "LineSearchMethod",
     "MttkrpMethod",
+    "RandomKtensorSpec",
     "UpdateMethod",
     "cp_als",
     "cp_batched_als",
@@ -45,6 +58,12 @@ __all__ = [
     "jk_cp_batched_als",
     "jk_cp_cals",
     "jk_permutation_adjustment",
+    "denormalize",
+    "normalize_full",
+    "normalize_mode",
+    "random_ktensor",
     "random_ktensor_host",
     "resolve_device",
+    "spec_to_ktensor",
+    "to_tensor",
 ]

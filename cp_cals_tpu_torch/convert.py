@@ -15,7 +15,7 @@ import torch
 
 from .config import AlsParams, CalsParams
 from .device import resolve_device
-from .ktensor import Ktensor
+from .ktensor import Ktensor, RandomKtensorSpec
 from .solvers.state import HiState, LsState, SolverState
 
 
@@ -30,6 +30,21 @@ def ktensor_from_numpy(kt, device=None) -> Ktensor:
     return Ktensor(
         tuple(_tensor(f, dev).contiguous() for f in kt.factors), _tensor(kt.lam, dev)
     )
+
+
+def spec_from_jax(spec) -> RandomKtensorSpec:
+    """The port's ``RandomKtensorSpec`` of a JAX ``RandomKtensorSpec`` (the
+    same fields; it generates the same uniform draws)."""
+    dtype = None if spec.dtype is None else str(spec.dtype)
+    return RandomKtensorSpec(tuple(int(m) for m in spec.modes), int(spec.rank), int(spec.seed), dtype)
+
+
+def host_ktensors(result) -> list:
+    """Host NumPy Ktensors of a JAX ``FitResult``'s fitted models (or of any
+    list of Ktensors); an unfinished model (None) stays None."""
+    kts = getattr(result, "ktensors", result)
+    return [None if kt is None else Ktensor(tuple(np.array(f) for f in kt.factors), np.array(kt.lam))
+            for kt in kts]
 
 
 def state_from_numpy(state, device=None) -> SolverState:

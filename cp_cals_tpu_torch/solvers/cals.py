@@ -1,6 +1,5 @@
 """Concurrent ALS (CALS) engine: many CP models of varying rank fitted in
-one stream (port of ``cp_cals_tpu/solvers/cals.py`` for explicit host
-Ktensor queues).
+one stream (port of ``cp_cals_tpu/solvers/cals.py``).
 
 Models are padded to a rank bucket and packed into batched slots
 ``[B, I_n, R]``; one global padded-column budget (``buffer_size``) is split
@@ -21,10 +20,26 @@ reference on the card. Refills upload through pinned memory without
 blocking. A ``debug`` run takes the chunk loop eagerly, one iteration per
 chunk, with no CUDA graph: its hook reads every iteration on the host.
 
+A queue holds explicit Ktensors or ``RandomKtensorSpec``s, whose factors
+are generated on the device (``ktensor.spec_block``: the JAX package's
+threefry draws, bit for bit ``spec_to_ktensor`` of the spec in any bucket)
+a window of the bucket's queue ahead of intake (``SpecAhead``), so that a
+refill takes rows already built; explicit and spec models mix in one
+block.
+
+``trace`` takes one ``IterationRecord`` per engine iteration: from the
+host in ``sync_mode="iter"`` (as JAX does), from a device buffer read with
+each chunk's stats fetch in the chunk loop (``graph_loop``), where a
+tol-driven chunk's iterations past the last live model's stop are
+recorded too (they ran). ``checkpoint_dir`` snapshots each bucket (its
+``SolverState``, slot metadata and finished models, the JAX engine's files
+and keys) after every eviction round, after the round's refill, kill and
+tail compaction; ``resume`` rebuilds a bucket's loop from its snapshot,
+which captures its graphs anew.
+
 Differences from the JAX engine (ROADMAP section 3): buckets run one after
 another (``bucket_threads`` is accepted and not used); results are fetched
-synchronously. Device-generated ``RandomKtensorSpec`` queues, meshes,
-checkpoints and traces raise ``NotImplementedError``.
+synchronously. Meshes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +47,9 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import itertools
+import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Sequence
@@ -41,10 +59,13 @@ import torch
 
 from ..config import CalsParams, UpdateMethod, check_supported, not_ported
 from ..device import resolve_device
-from ..ktensor import Ktensor, scale_jk_rows
+from ..ktensor import Ktensor, RandomKtensorSpec, scale_jk_rows, spec_block
+from ..ops.mttkrp import als_iteration_flops
+from ..utils.checkpoint import load_state, save_state
+from ..utils.timers import IterationRecord
 from .graph_loop import NP_DTYPES, ChunkLoop, Graphs, IterLoop, Pinned, pack_evict_stats
 from .iteration import make_iteration
-from .state import SolverState, init_state
+from .state import SolverState, init_state, tree_where
 
 
 @dataclass
@@ -68,8 +89,9 @@ class CalsReport:
     phase_times: dict = field(default_factory=dict)
     materialize_s: float = 0.0
     # bucket rank -> the loop's counts: graph captures and replays, stats
-    # fetches (one per chunk, per polish check, per eviction round), and
-    # polish sweeps.
+    # fetches (one per chunk, per polish check, per eviction round), polish
+    # sweeps, and checkpoints written (one per eviction round under
+    # checkpoint_dir).
     loop_counts: dict = field(default_factory=dict)
 
 
@@ -241,10 +263,79 @@ _DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.floa
 
 
 def _queue_dtype(queue) -> np.dtype:
-    dt = _to_numpy(queue[0].lam).dtype
+    """The dtype of a run: the first model's, where a spec without a dtype
+    defers to the next entry (the JAX engine's rule); float32 when no entry
+    names one (the port has no x64 switch)."""
+    dt = np.dtype(np.float32)
+    for kt in queue:
+        if isinstance(kt, RandomKtensorSpec):
+            if kt.dtype:
+                dt = np.dtype(str(kt.dtype))
+                break
+        else:
+            dt = _to_numpy(kt.lam).dtype
+            break
     if dt not in _DTYPES:
         raise ValueError(f"queue dtype {dt}: float32 or float64 expected")
     return dt
+
+
+def _check_queue(queue, modes: tuple) -> None:
+    for i, kt in enumerate(queue):
+        if isinstance(kt, RandomKtensorSpec):
+            if tuple(kt.modes) != modes:
+                raise ValueError(
+                    f"queue[{i}]: spec modes {tuple(kt.modes)} do not match tensor shape {modes}"
+                )
+        elif not (hasattr(kt, "factors") and hasattr(kt, "lam")):
+            raise TypeError(
+                f"queue[{i}] ({type(kt).__name__}): a Ktensor or a RandomKtensorSpec expected "
+                "(convert.spec_from_jax carries the JAX package's specs over)"
+            )
+        else:
+            shapes = tuple(int(f.shape[0]) for f in kt.factors)
+            if shapes != modes:
+                raise ValueError(
+                    f"queue[{i}]: model factor leading dims {shapes} do not match "
+                    f"tensor shape {modes}"
+                )
+
+
+class SpecAhead:
+    """A bucket's spec models generated on the device ahead of their
+    intake: one ``spec_block`` per window of the queue (the window's
+    requested specs and the next ``window`` queued ones), not one per
+    refill, as the build is launch-bound (about 500 elementwise kernels
+    whatever its batch). Rows are bit for bit ``spec_to_ktensor`` of their
+    specs in any window and bucket."""
+
+    def __init__(self, dq: collections.deque, r: int, modes: tuple, dtype: torch.dtype, uploader: Pinned,
+                 window: int):
+        self.dq, self.r, self.modes, self.dtype = dq, r, modes, dtype
+        self.uploader, self.window = uploader, window
+        self.rows: dict[int, int] = {}  # model id -> row of self.kt
+        self.kt = None
+        self.builds = 0
+
+    def block(self, batch_slots) -> Ktensor:
+        """The spec models of ``batch_slots`` (intake items, or None) as a
+        block [bb, I_n, r]; zero rows where a slot holds no spec."""
+        want = [it for it in batch_slots if it is not None and isinstance(it[1], RandomKtensorSpec)]
+        if any(it[0] not in self.rows for it in want):
+            ahead = [it for it in itertools.islice(self.dq, self.window) if isinstance(it[1], RandomKtensorSpec)]
+            items = want + ahead
+            # A last row of seed 0 and rank 0: zero factors and lam.
+            seeds = np.array([np.uint32(it[1].seed) for it in items] + [0], np.int64)
+            ranks = np.array([it[1].rank for it in items] + [0])
+            meta = self.uploader.upload(np.concatenate([seeds, (np.arange(self.r) < ranks[:, None]).ravel()]))
+            mask = meta[len(seeds):].view(len(seeds), self.r).bool()
+            self.kt = spec_block(meta[: len(seeds)], mask, self.modes, self.dtype)
+            self.rows = {it[0]: n for n, it in enumerate(items)}
+            self.builds += 1
+        zero = self.kt.lam.shape[0] - 1
+        idx = [self.rows[it[0]] if it is not None and it[0] in self.rows else zero for it in batch_slots]
+        idx_d = self.uploader.upload(np.asarray(idx, np.int64))
+        return Ktensor(tuple(f.index_select(0, idx_d) for f in self.kt.factors), self.kt.lam.index_select(0, idx_d))
 
 
 # ------------------------------------------------------------------ engine
@@ -252,7 +343,7 @@ def _queue_dtype(queue) -> np.dtype:
 
 def cp_cals(
     x,
-    queue: Sequence[Ktensor],
+    queue: Sequence[Ktensor | RandomKtensorSpec],
     params: CalsParams = CalsParams(),
     jk_fibers: Sequence[int] | None = None,
     x_norms_jk=None,
@@ -269,42 +360,36 @@ def cp_cals(
 
     x: dense tensor of 3 or more modes (NumPy or torch); it is cast to the
     queue's dtype.
-    queue: Ktensors with NumPy or torch factors [I_n, R] and lam [R].
+    queue: Ktensors with NumPy or torch factors [I_n, R] and lam [R], or
+    ``RandomKtensorSpec``s, whose factors are generated on the device.
     jk_fibers: optional per-model jackknifed mode-0 fiber (-1 = regular
     model); leave-one-out norms are computed once unless ``x_norms_jk`` is
     given. device: None means the CUDA card (raises without one); pass
     "cpu" to run the plain PyTorch versions of the kernels.
+    trace: a ``utils.timers.RunTrace`` that takes one record per engine
+    iteration (module docstring).
+    checkpoint_dir: each bucket's solver state and finished models are
+    written there after every eviction round; ``resume=True`` restarts an
+    interrupted run from them (finished models from disk, in-flight models
+    mid-solve, only the rest of the queue fitted). Resume needs the same
+    tensor, queue and params.
     max_rounds_per_bucket: stop each bucket after this many eviction
     rounds; unfinished models are returned as None.
     """
     if mesh is not None or shard_mode0:
         raise not_ported("multi-device runs", "queue 1 item 10")
-    if trace is not None:
-        raise not_ported("trace", "queue 1 item 8")
-    if checkpoint_dir is not None or resume:
-        raise not_ported("checkpoint/resume", "queue 1 item 8")
     check_supported(params)
     dev = resolve_device(device)
     if not queue:
         return [], CalsReport()
-    for i, kt in enumerate(queue):
-        if not (hasattr(kt, "factors") and hasattr(kt, "lam")):
-            raise not_ported(
-                f"queue[{i}] ({type(kt).__name__}): device-generated specs",
-                "queue 1 item 7",
-            )
-    np_dtype = _queue_dtype(queue)
-    x = torch.as_tensor(x).to(device=dev, dtype=_DTYPES[np_dtype]).contiguous()
-    if x.ndim < 3:
-        raise ValueError(f"CP-CALS needs a tensor of >= 3 modes, got shape {tuple(x.shape)}")
+    x = torch.as_tensor(x)
     modes = tuple(x.shape)
-    for i, kt in enumerate(queue):
-        shapes = tuple(int(f.shape[0]) for f in kt.factors)
-        if shapes != modes:
-            raise ValueError(
-                f"queue[{i}]: model factor leading dims {shapes} do not match "
-                f"tensor shape {modes}"
-            )
+    if x.ndim < 3:
+        raise ValueError(f"CP-CALS needs a tensor of >= 3 modes, got shape {modes}")
+    _check_queue(queue, modes)
+    np_dtype = _queue_dtype(queue)
+    t_dtype = _DTYPES[np_dtype]
+    x = x.to(device=dev, dtype=t_dtype).contiguous()
     if jk_fibers is None:
         jk_fibers = [-1] * len(queue)
     has_jk = any(f >= 0 for f in jk_fibers)
@@ -338,46 +423,55 @@ def cp_cals(
     mixed_tol = params.tol_check_interval > 0
     nnls = params.update_method == UpdateMethod.NNLS
 
-    def build_block_state(uploader: Pinned, batch_slots, r: int) -> SolverState:
-        """A state of one row per intake item ((id, ktensor, jk), or None
-        for a dead slot): one upload through pinned memory (the factors,
-        lam and norms, then the int32 jackknife fibers, alive flags and
-        rank mask), then the gramians of the initial guesses on the
-        device."""
+    def build_block_state(uploader: Pinned, batch_slots, r: int, ahead: SpecAhead) -> SolverState:
+        """A state of one row per intake item ((id, model, jk), or None for
+        a dead slot): one upload through pinned memory (explicit models'
+        factors and lam, the norms, then the int32 jackknife fibers, alive
+        flags, spec flags and rank mask), the spec slots' factors from the
+        bucket's models generated on the device (``ahead``, bit for bit
+        ``spec_to_ktensor`` in any bucket), then the gramians of the
+        initial guesses."""
         bb = len(batch_slots)
-        parts = [np.zeros((bb, m, r), np_dtype) for m in modes]
-        lam = np.zeros((bb, r), np_dtype)
+        explicit = any(it is not None and not isinstance(it[1], RandomKtensorSpec) for it in batch_slots)
+        parts = [np.zeros((bb, m, r), np_dtype) for m in modes] + [np.zeros((bb, r), np_dtype)] if explicit else []
         xnm = np.full((bb,), x_norm_f, np_dtype)
         jk_arr = np.full((bb,), -1, np.int32)
         alive = np.zeros((bb,), np.int32)
+        spec = np.zeros((bb,), np.int32)
         rank_mask = np.zeros((bb, r), np.int32)
         for slot, item in enumerate(batch_slots):
             if item is None:
                 continue
             _, kt, jk = item
             rk = kt.rank
-            for dst, src in zip(parts, kt.factors):
-                dst[slot, :, :rk] = _to_numpy(src)
-            lam[slot, :rk] = _to_numpy(kt.lam)
+            if isinstance(kt, RandomKtensorSpec):
+                spec[slot] = 1
+            else:
+                for dst, src in zip(parts, kt.factors):
+                    dst[slot, :, :rk] = _to_numpy(src)
+                parts[-1][slot, :rk] = _to_numpy(kt.lam)
             alive[slot] = 1
             rank_mask[slot, :rk] = 1
             jk_arr[slot] = jk
             if jk >= 0:
                 xnm[slot] = float(x_norms_jk[jk])
-        flat = np.concatenate([p.reshape(-1) for p in parts] + [lam.reshape(-1), xnm])
-        meta = np.concatenate([jk_arr, alive, rank_mask.reshape(-1)])
+        flat = np.concatenate([p.reshape(-1) for p in parts] + [xnm])
+        meta = np.concatenate([jk_arr, alive, spec, rank_mask.reshape(-1)])
         raw = uploader.upload(np.concatenate([flat.view(np.uint8), meta.view(np.uint8)]))
-        sizes = [p.size for p in parts] + [lam.size, bb]
-        pieces = torch.split(raw[: flat.nbytes].view(_DTYPES[np_dtype]), sizes)
-        factors = [pc.view(bb, m, r) for pc, m in zip(pieces, modes)]
-        jk_d, alive_d, mask_d = torch.split(raw[flat.nbytes :].view(torch.int32), [bb, bb, bb * r])
+        pieces = torch.split(raw[: flat.nbytes].view(t_dtype), [p.size for p in parts] + [bb])
+        jk_d, alive_d, spec_d, mask_d = torch.split(raw[flat.nbytes :].view(torch.int32), [bb, bb, bb, bb * r])
+        mask_d = mask_d.view(bb, r).bool()
+        if explicit:
+            kt_b = Ktensor(tuple(pc.view(bb, m, r) for pc, m in zip(pieces, modes)), pieces[len(modes)].view(bb, r))
+        if spec.any():
+            gen = ahead.block(batch_slots)
+            kt_b = tree_where(spec_d.bool(), gen, kt_b) if explicit else gen
         # Pre-zero each jackknife slot's left-out row (the solver re-zeroes
         # it after every mode-0 update).
-        factors[0] = scale_jk_rows(factors[0], jk_d, 0.0)
-        kt_b = Ktensor(tuple(factors), pieces[len(modes)].view(bb, r))
+        kt_b = kt_b._replace(factors=(scale_jk_rows(kt_b.factors[0], jk_d, 0.0),) + tuple(kt_b.factors[1:]))
         return init_state(
             kt_b, x_norm, jk_fiber=jk_d, x_norm_model=pieces[-1],
-            rank_mask=mask_d.view(bb, r).bool(), alive=alive_d.bool(), nnls=nnls,
+            rank_mask=mask_d, alive=alive_d.bool(), nnls=nnls,
             line_search=params.line_search, mixed_tol=mixed_tol,
         )
 
@@ -385,26 +479,91 @@ def cp_cals(
     # on the host in every iteration, so it is never captured.
     graphs = Graphs(dev) if chunked and dev.type == "cuda" and not params.debug else None
     uploader, fetcher = Pinned(dev), Pinned(dev)  # the call's pinned buffers, one each way
+    if checkpoint_dir is not None:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+
+    def resume_bucket(r: int, dq: collections.deque, paths, models: list):
+        """The bucket's snapshot (``paths``: state and done archive): its
+        slot metadata, its state on the device with alive following the
+        slots' occupancy, and its finished models' records, whose results
+        come from the done archive. Finished and in-flight models leave
+        ``dq``."""
+        with open(paths[0] + ".meta.json") as fh:
+            meta = json.load(fh).get("meta", {})
+        slot_meta = [tuple(m) if m is not None else None for m in meta["slot_meta"]]
+        done_meta = [list(m) for m in meta.get("done", [])]
+        b = len(slot_meta)
+        zeros = Ktensor(tuple(torch.zeros((b, m, r), dtype=t_dtype, device=dev) for m in modes),
+                        torch.zeros((b, r), dtype=t_dtype, device=dev))
+        template = init_state(zeros, x_norm, nnls=nnls, line_search=params.line_search, mixed_tol=mixed_tol)
+        state, _ = load_state(paths[0], template)
+        occupied = torch.as_tensor([m is not None for m in slot_meta], device=dev)
+        state = state._replace(alive=state.alive & occupied)
+        skip = {int(m[0]) for m in done_meta} | {int(m[0]) for m in slot_meta if m is not None}
+        for _ in range(len(dq)):
+            item = dq.popleft()
+            if item[0] not in skip:
+                dq.append(item)
+        if done_meta:
+            with np.load(paths[1]) as done:
+                for mid, rank, iters, fit, err in done_meta:
+                    mid = int(mid)
+                    results[mid] = Ktensor(tuple(done[f"{mid}_f{m}"] for m in range(len(modes))),
+                                           done[f"{mid}_lam"])
+                    models.append(CalsModelReport(id=mid, rank=int(rank), iters=int(iters),
+                                                  fit=float(fit), approx_error=float(err)))
+        return slot_meta, state, done_meta
+
+    def save_bucket(paths, r: int, state: SolverState, slot_meta, done_meta) -> None:
+        """The bucket's state and slot metadata, and its finished models'
+        factors (``done_meta``'s ids), the JAX engine's files and keys."""
+        arrays = {}
+        for mid, *_ in done_meta:
+            kt = results[mid]
+            for m, f in enumerate(kt.factors):
+                arrays[f"{mid}_f{m}"] = f
+            arrays[f"{mid}_lam"] = kt.lam
+        if arrays:
+            np.savez(paths[1], **arrays)
+        save_state(paths[0], state, {
+            "slot_meta": [list(m) if m is not None else None for m in slot_meta],
+            "bucket_rank": r, "done": done_meta,
+        })
 
     def run_bucket(r: int, dq: collections.deque, b: int):
         models: list[CalsModelReport] = []
         pt = {"setup": 0.0, "solve": 0.0, "evict": 0.0, "capture": 0.0}
-        counts = dict(captures=0, replays=0, stats_fetches=0, polish_sweeps=0, capture_s=0.0)
+        counts = dict(captures=0, replays=0, stats_fetches=0, polish_sweeps=0, checkpoints=0, capture_s=0.0)
         t0 = time.perf_counter()
-        slot_meta: list = [None] * b  # (id, rank, jk) per slot
-        batch = [dq.popleft() for _ in range(min(b, len(dq)))]
-        for slot, (i, kt, jk) in enumerate(batch):
-            slot_meta[slot] = (i, kt.rank, jk)
-        state = build_block_state(uploader, batch + [None] * (b - len(batch)), r)
-        occupied = np.array([m is not None for m in slot_meta])
-        if chunked:
-            loop = ChunkLoop(iteration, x, x_norm, prepared, state, np.zeros(b, np.int64), occupied,
-                             counts, uploader, fetcher, params, polish, graphs)
+        ahead = SpecAhead(dq, r, modes, t_dtype, uploader, b)
+        b_wave, n_compactions = b, 0
+        paths = None
+        if checkpoint_dir is not None:
+            paths = (os.path.join(checkpoint_dir, f"bucket_r{r}"), os.path.join(checkpoint_dir, f"done_r{r}.npz"))
+        done_meta: list = []  # [id, rank, iters, fit, error] of the bucket's finished models
+        if resume and paths is not None and os.path.exists(paths[0] + ".meta.json"):
+            slot_meta, state, done_meta = resume_bucket(r, dq, paths, models)
+            b = len(slot_meta)
+            n_compactions = (b_wave // b).bit_length() - 1  # snapshots are taken after compaction
+            iters_h = _to_numpy(state.iters).astype(np.int64)
+            live_h = _to_numpy(state.alive & ~state.converged)
         else:
-            loop = IterLoop(iteration, x, x_norm, prepared, state, np.zeros(b, np.int64), occupied,
+            slot_meta: list = [None] * b  # (id, rank, jk) per slot
+            batch = [dq.popleft() for _ in range(min(b, len(dq)))]
+            for slot, (i, kt, jk) in enumerate(batch):
+                slot_meta[slot] = (i, kt.rank, jk)
+            state = build_block_state(uploader, batch + [None] * (b - len(batch)), r, ahead)
+            iters_h = np.zeros(b, np.int64)
+            live_h = np.array([m is not None for m in slot_meta])
+        if chunked:
+            loop = ChunkLoop(iteration, x, x_norm, prepared, state, iters_h, live_h,
+                             counts, uploader, fetcher, params, polish, graphs, traced=trace is not None)
+        else:
+            loop = IterLoop(iteration, x, x_norm, prepared, state, iters_h, live_h,
                             counts, uploader, fetcher)
         pt["setup"] = time.perf_counter() - t0
-        engine_iters = rounds = n_compactions = 0
+        engine_iters = rounds = 0
+        flops_per_col = als_iteration_flops(modes, r, 1) / r
         unpack = None  # the last round's results, unpacked while the device runs the next
 
         def unpack_results(kt_np, done):
@@ -415,7 +574,19 @@ def cp_cals(
             t0 = time.perf_counter()
             stats, k = loop.advance(params.evict_batch, unpack)
             unpack = None
+            first = engine_iters + 1
             engine_iters += k
+            if trace is not None:
+                if chunked:  # the device's counts, each chunk's wall shared by its iterations
+                    rows = [(*row, wall) for chunk, wall in loop.trace_chunks for row in chunk]
+                    loop.trace_chunks.clear()
+                else:  # one iteration, whose live slots the host knows
+                    live = [m for m in slot_meta if m is not None]
+                    rows = [(len(live), sum(m[1] for m in live), time.perf_counter() - t0)]
+                for it, (n_live, n_cols, wall) in enumerate(rows, first):
+                    trace.add(IterationRecord(
+                        iteration=it, active_models=int(n_live), active_columns=int(n_cols),
+                        flops=int(flops_per_col * int(n_cols)), wall_s=wall, bucket=r))
             conv = stats[0] != 0
             if params.always_evict_first:
                 # Defrag-stress knob (reference cals.cpp:346-352): evict the
@@ -441,10 +612,12 @@ def cp_cals(
                 done = []
                 for slot in evicted:
                     i, rank, _ = slot_meta[slot]
-                    models.append(CalsModelReport(
+                    rep_m = CalsModelReport(
                         id=i, rank=rank, iters=int(stats[1][slot]),
                         fit=float(stats[2][slot]), approx_error=float(stats[3][slot]),
-                    ))
+                    )
+                    models.append(rep_m)
+                    done_meta.append([i, rank, rep_m.iters, rep_m.fit, rep_m.approx_error])
                     done.append((i, offs[slot], rank))
                     slot_meta[slot] = None
                     if dq:
@@ -455,17 +628,15 @@ def cp_cals(
                     else:
                         keep[slot] = False
                 unpack = functools.partial(unpack_results, kt_np, done)
+                if paths is not None:
+                    unpack()  # the done archive is whole after every round
+                    unpack = None
                 if refill_slots:
                     # Batched refill: one build of the fresh models' rows,
                     # written into their slots.
-                    loop.refill(np.asarray(refill_slots), build_block_state(uploader, refill_items, r))
+                    loop.refill(np.asarray(refill_slots), build_block_state(uploader, refill_items, r, ahead))
             if not keep.all():
                 loop.kill(keep)
-            pt["evict"] += time.perf_counter() - t0
-            if evicted:
-                rounds += 1
-                if max_rounds_per_bucket is not None and rounds >= max_rounds_per_bucket:
-                    break
             # Tail compaction: once the queue is drained and at most half the
             # slots are live, repack live slots into a half-size batch.
             n_live = sum(m is not None for m in slot_meta)
@@ -480,9 +651,22 @@ def cp_cals(
                 slot_meta = [slot_meta[s] for s in idx]
                 b //= 2
                 n_compactions += 1
+            pt["evict"] += time.perf_counter() - t0
+            if evicted and paths is not None:
+                # After the eviction's fetch, refill, kill and compaction:
+                # the state and slot_meta describe the same slots.
+                t0 = time.perf_counter()
+                save_bucket(paths, r, loop.state, slot_meta, done_meta)
+                counts["checkpoints"] += 1
+                pt["checkpoint"] = pt.get("checkpoint", 0.0) + time.perf_counter() - t0
+            if evicted:
+                rounds += 1
+                if max_rounds_per_bucket is not None and rounds >= max_rounds_per_bucket:
+                    break
         if unpack is not None:
             unpack()
         pt["capture"] = counts.pop("capture_s")
+        counts["spec_builds"] = ahead.builds
         pt["solve"] -= pt["capture"]
         return models, pt, engine_iters, counts
 
@@ -496,6 +680,9 @@ def cp_cals(
             models, pt, engine_iters, counts = run_bucket(r, dq, b)
             report.models.extend(models)
             report.phase_times[r] = pt
+            if trace is not None:
+                for k, v in pt.items():
+                    trace.phase_totals[k] += v
             report.engine_iterations[r] = report.engine_iterations.get(r, 0) + engine_iters
             report.loop_counts[r] = counts
 

@@ -69,6 +69,15 @@ batch) makes a new loop and a new capture. The kernel wrappers count their
 launches in Python, which a replay does not run: each replay adds the
 counts its graph's capture added (``Graph``, ``launches.py``).
 
+Tracing (``cp_cals(trace=...)``): each captured iteration first writes
+(live models, live true-rank columns), "live" meaning alive and not
+converged, into row k of a ``[max_iterations, 2]`` int32 buffer at a
+device-side counter k, which the host zeroes before each chunk. The
+buffer sits behind the stats in one byte buffer, so the chunk's one stats
+fetch brings it back (``trace_chunks``: one (rows, wall per iteration)
+per chunk). This is the JAX loop's ``trace_cap`` buffer
+(``cp_cals_tpu/solvers/cals.py:make_run_until_evict``).
+
 ``IterLoop`` (``sync_mode="iter"``, and ``always_evict_first``) is the JAX
 engine's per-iteration mode: one eager iteration, then the host reads the
 stats, evicts and refills. It freezes nothing and does not polish, as the
@@ -280,12 +289,17 @@ class _Loop:
         self._write_rows(None, self.state._replace(alive=self.state.alive & keep_d))
         self.live_h &= keep
 
-    def fetch_stats(self, stats: torch.Tensor) -> np.ndarray:
+    def fetch_stats(self, buf: torch.Tensor, stats: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+        """One fetch of ``buf``, a byte buffer that begins with ``stats``:
+        the host's stats [5, B] (their iteration counts and liveness become
+        the host's view) and the bytes behind them."""
         self.counts["stats_fetches"] += 1
-        out = self.fetcher.fetch(stats)
+        raw = self.fetcher.fetch(buf)
+        ns = stats.numel() * stats.element_size()
+        out = raw[:ns].view(NP_DTYPES[stats.dtype]).reshape(stats.shape)
         self.iters_h = out[1].astype(np.int64)
         self.live_h = out[4] != 0
-        return out
+        return out, raw[ns:]
 
 
 class IterLoop(_Loop):
@@ -306,7 +320,7 @@ class IterLoop(_Loop):
         stats = pack_evict_stats(self.state)
         if overlap is not None:
             overlap()
-        return self.fetch_stats(stats), 1
+        return self.fetch_stats(stats.reshape(-1).view(torch.uint8), stats)[0], 1
 
     def compacted(self, idx: list[int]) -> "IterLoop":
         idx_t = torch.as_tensor(idx, device=self.device)
@@ -322,12 +336,22 @@ class ChunkLoop(_Loop):
     polish_tol)."""
 
     def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, counts, uploader,
-                 fetcher, params, polish=None, graphs: Graphs | None = None):
+                 fetcher, params, polish=None, graphs: Graphs | None = None, traced: bool = False):
         state = tree_map(lambda t: t.clone(), state)  # the buffers the graphs read and write
         super().__init__(state, iters_h, live_h, counts, uploader, fetcher)
         self.iteration, self.x, self.x_norm, self.prepared = iteration, x, x_norm, prepared
         self.params, self.polish_cfg, self.graphs = params, polish, graphs
-        self.stats = pack_evict_stats(state)
+        # The stats, then the trace rows (none untraced), in one byte
+        # buffer: one fetch a chunk.
+        stats = pack_evict_stats(state)
+        ns = stats.numel() * stats.element_size()
+        cap = max(params.max_iterations, 1) if traced else 0
+        self.fetch_buf = torch.zeros(ns + 8 * cap, dtype=torch.uint8, device=self.device)
+        self.stats = self.fetch_buf[:ns].view(stats.dtype).view(stats.shape)
+        self.stats.copy_(stats)
+        self.trace_buf = self.fetch_buf[ns:].view(torch.int32).view(cap, 2)
+        self.trace_k = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.traced, self.trace_chunks = traced, []
         self.step_graph = self.sweep_graph = None
         if polish is not None:
             b = state.iters.shape[0]
@@ -344,6 +368,11 @@ class ChunkLoop(_Loop):
 
     def _step(self) -> None:
         st = self.state
+        if self.traced:
+            live = st.alive & ~st.converged
+            row = torch.stack([live.sum(), (st.rank_mask & live[:, None]).sum()]).to(torch.int32)
+            self.trace_buf.index_copy_(0, self.trace_k, row[None])
+            self.trace_k.add_(1)
         frozen = st.converged & st.alive
         _assign(st, self.iteration(self.x, st, self.x_norm, self.prepared), frozen)
         self.stats.copy_(pack_evict_stats(st))
@@ -384,12 +413,17 @@ class ChunkLoop(_Loop):
         total = 0
         while True:
             n = chunk_length(self.params, self.iters_h, self.live_h)
+            t0 = time.perf_counter()
+            if self.traced:
+                self.trace_k.zero_()
             self._run(self._step, "step_graph", n)
             if overlap is not None:
                 overlap()
                 overlap = None
             total += n
-            stats = self.fetch_stats(self.stats)
+            stats, rows = self.fetch_stats(self.fetch_buf, self.stats)
+            if self.traced:
+                self.trace_chunks.append((rows.view(np.int32).reshape(-1, 2)[:n], (time.perf_counter() - t0) / n))
             n_conv = int(np.count_nonzero(stats[0]))
             if evict_batch <= 1:
                 if n_conv:
@@ -424,4 +458,4 @@ class ChunkLoop(_Loop):
         return ChunkLoop(self.iteration, self.x, self.x_norm, self.prepared,
                          tree_map(lambda leaf: leaf[idx_t], self.state),
                          self.iters_h[idx], self.live_h[idx], self.counts, self.uploader, self.fetcher,
-                         self.params, self.polish_cfg, self.graphs)
+                         self.params, self.polish_cfg, self.graphs, self.traced)

@@ -1,0 +1,92 @@
+"""Checkpoint/resume of solver state (port of
+``cp_cals_tpu/utils/checkpoint.py``).
+
+Every bit of a bucket's progress lives in one ``SolverState`` plus the
+host's slot metadata, so a snapshot is an ``.npz`` of the state's leaves
+(``leaf_0`` ... in the port's field order, the ``HiState`` and ``LsState``
+carries included) and a JSON sidecar (the structure, the leaf count and the
+caller's metadata). The CALS engine writes one per bucket after every
+eviction round; the jackknife driver passes its checkpoints through.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from ..solvers.graph_loop import NP_DTYPES
+from ..solvers.state import SolverState, tree_leaves
+
+
+def _base(path: str) -> str:
+    return path[: -len(".npz")] if path.endswith(".npz") else path
+
+
+def _structure(tree) -> str:
+    """The state's structure as text: field names, ``*`` for a leaf."""
+    if isinstance(tree, torch.Tensor):
+        return "*"
+    if hasattr(tree, "_fields"):
+        inner = ",".join(f"{k}={_structure(v)}" for k, v in zip(tree._fields, tree))
+        return f"{type(tree).__name__}({inner})"
+    return "(" + ",".join(_structure(v) for v in tree) + ")"
+
+
+def _rebuild(template, leaves):
+    if isinstance(template, torch.Tensor):
+        return next(leaves)
+    parts = [_rebuild(t, leaves) for t in template]
+    return type(template)(*parts) if hasattr(template, "_fields") else tuple(parts)
+
+
+def host_leaves(state: SolverState) -> list[np.ndarray]:
+    """The state's leaves on the host, in field order, from one copy of
+    their bytes packed on the device."""
+    leaves = tree_leaves(state)
+    raw = torch.cat([leaf.reshape(-1).view(torch.uint8) for leaf in leaves]).cpu().numpy()
+    out, off = [], 0
+    for leaf in leaves:
+        n = leaf.numel() * leaf.element_size()
+        np_dtype = np.bool_ if leaf.dtype == torch.bool else NP_DTYPES[leaf.dtype]
+        out.append(raw[off : off + n].view(np_dtype).reshape(tuple(leaf.shape)))
+        off += n
+    return out
+
+
+def save_state(path: str, state: SolverState, meta: dict | None = None) -> None:
+    leaves = host_leaves(state)
+    np.savez_compressed(_base(path) + ".npz", **{f"leaf_{i}": a for i, a in enumerate(leaves)})
+    side = {"treedef": _structure(state), "n_leaves": len(leaves)}
+    if meta:
+        side["meta"] = meta
+    with open(_base(path) + ".meta.json", "w") as f:
+        json.dump(side, f)
+
+
+def load_state(path: str, template: SolverState) -> tuple[SolverState, dict]:
+    """Restore into the structure of ``template``, on its leaves' device
+    (the shapes must match)."""
+    leaves = tree_leaves(template)
+    with np.load(_base(path) + ".npz") as data:
+        if len(data.files) != len(leaves):
+            raise ValueError(
+                f"checkpoint at {path!r} has {len(data.files)} state leaves "
+                f"but the current SolverState layout has {len(leaves)} — it "
+                "was written by a different library version and cannot be "
+                "resumed; restart the run without resume=True"
+            )
+        loaded = [data[f"leaf_{i}"] for i in range(len(leaves))]
+    for a, b in zip(loaded, leaves):
+        if a.shape != tuple(b.shape):
+            raise ValueError(f"shape mismatch {a.shape} vs {tuple(b.shape)}")
+    tensors = [torch.from_numpy(a).to(b.device) for a, b in zip(loaded, leaves)]
+    state = _rebuild(template, iter(tensors))
+    meta = {}
+    sidecar = _base(path) + ".meta.json"
+    if os.path.exists(sidecar):
+        with open(sidecar) as f:
+            meta = json.load(f).get("meta", {})
+    return state, meta

@@ -3,18 +3,20 @@
 Port of ``cp_cals_tpu/utils/lsap.py``'s NumPy solver (Crouse 2016, DOI
 10.1109/TAES.2016.140952, the solver the reference vendors from SciPy),
 used only for the jackknife's column matching on small R x R score
-matrices. The JAX package also has a native C++ version; the port runs this
-NumPy one only until the host tooling is ported (ROADMAP queue 1 item 8).
+matrices. ``solve_lsap`` runs the native C++ solver (``native/lsap.cpp``,
+built at first use; a failed build raises), as the JAX package's does;
+``solve_lsap_py`` is its plain NumPy version.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..native.lsap_native import solve_lsap  # noqa: F401  (the solver the jackknife runs)
 
-def solve_lsap(cost: np.ndarray, maximize: bool = False) -> np.ndarray:
-    """Return col4row: row i is assigned column col4row[i]; total cost is
-    minimized (or maximized)."""
+
+def solve_lsap_py(cost: np.ndarray, maximize: bool = False) -> np.ndarray:
+    """The NumPy solver (the plain version of ``solve_lsap``)."""
     cost = np.asarray(cost, dtype=np.float64)
     if maximize:
         cost = -cost

@@ -225,7 +225,20 @@ def test_fidelity_pin_rules():
     [(dict(checkpoint_dir="ckpt"), "item 8"), (dict(resume=True), "item 8"),
      (dict(mesh=object()), "item 10"), (dict(shard_mode0=True), "item 10")],
 )
-def test_unported_jk_options_raise(kwargs, item):
+def test_unported_jk_options_raise(kwargs, item, tmp_path):
+    """Multi-device runs still raise (queue 1 item 10); checkpoint and
+    resume, which raised until item 8, now run: a checkpointed and a
+    resumed jackknife give the plain run's replicates."""
     x, kt0 = make_problem(0)
-    with pytest.raises(NotImplementedError, match=item):
-        jk_cp_cals(x, [kt0], CalsParams(), device="cpu", **kwargs)
+    if item == "item 10":
+        with pytest.raises(NotImplementedError, match=item):
+            jk_cp_cals(x, [kt0], CalsParams(), device="cpu", **kwargs)
+        return
+    params = CalsParams(max_iterations=4, force_max_iter=True, bucket_ranks=(2,), buffer_size=4)
+    ckpt = str(tmp_path / "ckpt")
+    plain = jk_cp_cals(x, [kt0], params, device="cpu")
+    got = jk_cp_cals(x, [kt0], params, device="cpu", checkpoint_dir=ckpt)
+    if kwargs.get("resume"):  # from the finished archive: nothing is refitted
+        got = jk_cp_cals(x, [kt0], params, device="cpu", checkpoint_dir=ckpt, resume=True)
+        assert sum(got.cals_report.engine_iterations.values()) == 0
+    assert_replicates_close(plain.results[0], got.results[0], 0.0)

@@ -108,20 +108,46 @@ def test_result_wire_dtype(wire):
 
 
 @pytest.mark.parametrize(
-    "kwargs", [dict(checkpoint_dir="ckpt"), dict(trace=[])]
+    "kwargs", [dict(checkpoint_dir="ckpt"), dict(trace="trace")]
 )
-def test_unported_engine_options_raise(kwargs):
+def test_unported_engine_options_raise(kwargs, tmp_path):
+    """Checkpoints and the trace raised until they were ported (ROADMAP
+    queue 1 item 8); now they run: the snapshot files are written, the
+    trace takes one record per engine iteration, and neither moves a
+    result."""
+    from cp_cals_tpu_torch.utils.timers import RunTrace
+
     x, queue = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cp_cals(x, queue, pcfg.CalsParams(), device="cpu", **kwargs)
+    params = pcfg.CalsParams(max_iterations=4, force_max_iter=True, bucket_ranks=(4,))
+    plain, _ = cp_cals(x, queue, params, device="cpu")
+    if "checkpoint_dir" in kwargs:
+        kwargs = dict(checkpoint_dir=str(tmp_path / kwargs["checkpoint_dir"]))
+    else:
+        kwargs = dict(trace=RunTrace())
+    got, rep = cp_cals(x, queue, params, device="cpu", **kwargs)
+    if "checkpoint_dir" in kwargs:
+        assert {"bucket_r4.npz", "bucket_r4.meta.json", "done_r4.npz"} <= set(
+            p.name for p in (tmp_path / "ckpt").iterdir())
+    else:
+        assert len(kwargs["trace"].records) == sum(rep.engine_iterations.values()) == 4
+    for a, b in zip(plain, got):
+        for fa, fb in zip(a.factors, b.factors):
+            np.testing.assert_array_equal(fa, fb)
 
 
 def test_unported_queue_entries_raise():
+    """Device-generated specs run since they were ported (queue 1 item 7):
+    a JAX spec carried over by ``convert.spec_from_jax`` fits; the JAX
+    object itself is refused with a pointer to it."""
     from cp_cals_tpu.ktensor import RandomKtensorSpec
+    from cp_cals_tpu_torch.convert import spec_from_jax
 
     x, _ = _problem()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cp_cals(x, [RandomKtensorSpec(x.shape, 2, 0)], pcfg.CalsParams(), device="cpu")
+    spec = RandomKtensorSpec(x.shape, 2, 0)
+    res, rep = cp_cals(x, [spec_from_jax(spec)], pcfg.CalsParams(max_iterations=3), device="cpu")
+    assert res[0].lam.shape == (2,) and rep.models[0].iters >= 1
+    with pytest.raises(TypeError, match="spec_from_jax"):
+        cp_cals(x, [spec], pcfg.CalsParams(), device="cpu")
 
 
 def test_cp_cals_needs_cuda_unless_asked_for_cpu():
