@@ -22,6 +22,22 @@ the result lines are printed):
    without the FastALS error it finishes on the last mode, and timed as
    the iteration calls it (the error on mode 2). The fp32 MTTKRP is also
    timed against the torch twostep replayed from a CUDA graph.
+3b. Table: utils/lut.autotune on the card into a scratch root (the
+   committed tables stay as they are) at every (B, R) the engine allocates
+   for the bench workload, at "highest" and "default", and on the 4-D bench
+   tensor at "default": each mode's winner beside each candidate's
+   replayed ms per call, the committed table's pick and the fixed rule's.
+   From here on the main path's runs (the bench workload's engine runs,
+   the 4-D runs, the NNLS run, the entry points) resolve mttkrp_method=AUTO
+   per bucket and tier from the committed tables
+   (cp_cals_tpu_torch/lookup_tables/, measured by tools/lut_tables.py):
+   no decision may fall to the heuristic, and each run's launches and
+   MTTKRP results by route must equal its buckets' picks
+   (lut.lookup_methods at the engine's (R, B)); their CPU references run
+   each bucket with the card's picks. The phases that test a kernel's
+   launches (warm-ups, the dimension tree, the line searches, the float64
+   problem, the jackknife, the debug run, the NNLS side runs) pin
+   mttkrp_method=PALLAS.
 4. Engine: cp_cals on the full bench workload (400 models, ranks 1-20 x 20,
    buckets 4/8/12/16/20, 10 forced iterations) through the kernels and the
    device-paced loop (CUDA-graph replays), at the "highest" tier and then
@@ -30,9 +46,10 @@ the result lines are printed):
    loop), whose every model's fit, iteration count and factors must equal
    the graph loop's bit for bit. Then the headline leg of bench.py: 50
    forced iterations, polish_iters=1, float16 wire, at the bench tiers.
-   Each run starts with every launch count at 0, and each kernel of its
-   path (the MTTKRP kernel of its tier) must have launched 3 x (the
-   bucket-iterations the engine ran + its polish sweeps), replays
+   Each run starts with every launch count at 0; under AUTO its launches
+   and routes must be its buckets' picks (3b), and a run with a pinned
+   method's kernels (the MTTKRP kernel of its tier) must have launched 3 x
+   (the bucket-iterations the engine ran + its polish sweeps), replays
    included, every other kernel not at all, and the MTTKRP results by
    route (``launches.routes``) as the run's path says. In the graph-loop
    runs 20 models (one of each rank) are cross-checked against the port's
@@ -47,14 +64,15 @@ the result lines are printed):
 4b. N-D: the bench workload with a fourth mode of 8 (299x301x41x8, 29.5 M
    entries; the same 400 models, buckets and budget; 10 forced
    iterations) at "highest" and at the bench tiers. Every mode takes the
-   twostep (four route counts per bucket-iteration, no MTTKRP kernel),
-   every normal inverse multiplies K = 3 gramians and one apply per
+   table's pick, the twostep or krp_gemm (four route counts per
+   bucket-iteration, no MTTKRP kernel), every normal inverse multiplies
+   K = 3 gramians and one apply per
    bucket-iteration finishes the K = 3 error (both recorded by K, replays
    included). One model per bucket is cross-checked against the port's
    float64 CPU run (with the float32 CPU run's distance beside it); the
    bench-tier run is traced with torch.profiler for the device's busy
-   share and time by kernel, and the twostep is timed at every (B, mode)
-   of it for its share of that time. Then the widened epilogue kernels at
+   share and time by kernel, and each bucket's picked MTTKRP is timed at
+   every (B, mode) of it for its share of that time. Then the widened epilogue kernels at
    K = 3 and 4 (a fifth mode of 5) against their plain versions at every
    (B, R) of the engine and every mode, timed (K = 2 is phase 3's).
 4c. NNLS at full width (the JAX package's NNLS experiment,
@@ -175,12 +193,6 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): fp32 on the CUDA cores, bf16 on
-# the tensor cores, HBM3 bandwidth.
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
-
 MODES = (299, 301, 41)
 BUCKETS = (4, 8, 12, 16, 20)
 BUFFER = 2880
@@ -219,7 +231,7 @@ BENCH_TIERS = dict(precision="high", mttkrp_precision="default")
 TOL = {"mttkrp": 2e-5, "hinv": 1e-6, "apply": 1e-5, "apply_err": 1e-5, "apply_err_sq": 1e-5}
 # The N-D slice: the bench tensor with a fourth mode of 8 (29.5 M entries,
 # 118 MB in float32), the same queue and buckets; every mode takes the
-# twostep, and every normal matrix and FastALS error multiplies K = 3 other
+# table's twostep or krp_gemm, and every normal matrix and FastALS error multiplies K = 3 other
 # gramians. The widened epilogue kernels are also held at K = 4 (a fifth
 # mode of 5), on the same tolerances as at K = 2.
 MODES4 = MODES + (8,)
@@ -249,8 +261,10 @@ CROSS_TOL.update({"twostep": CROSS_TOL["highest"], "krp_gemm": CROSS_TOL["highes
 # two runs part ways; only the rank-4 model is held there, and even it moves
 # by the bf16 roundings of the factors in every product and of both
 # intermediates: 1.9e-2 / 9.2e-2 against the float64 run of the same
-# tiers, whose fit (0.4865) the card's (0.5056) and "highest"'s (0.5140)
-# bracket. The limits give that reading 2.5x room.
+# tiers with the twostep on every mode, whose fit (0.4865) the card's
+# (0.5056) and "highest"'s (0.5140) bracket. The limits give that reading
+# 2.5x room. Under the lookup table (krp_gemm on mode 0, the CPU run taking
+# the card's picks) it reads 7.5e-4 / 1.3e-2; "highest" 5.0e-7 / 8.4e-5.
 ND_CROSS_TOL = {"4-D highest": (5e-5, 1e-3), "4-D bench-tiers": (5e-2, 2.5e-1)}
 ND_HELD_RANKS = {"4-D highest": BUCKETS, "4-D bench-tiers": (4,)}
 # A float64 problem on the card against the same run on the CPU: the two
@@ -356,10 +370,18 @@ def inv_ex_graph_ms(h) -> float | None:
     return graph_ms(lambda: torch.linalg.inv_ex(h)) if h.shape[-1] <= INV_EX_CAPTURE_R else None
 
 
-def bound(flops: float, peak: float, nbytes: float) -> dict:
-    """The least time for the work: operations over the peak rate of their
-    type, or bytes (inputs read once, outputs written once) over HBM."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, kind: str, nbytes: float) -> dict:
+    """The least time for the work: operations over the card's peak rate of
+    their type (``kind`` "fp32" on the CUDA cores, "bf16" on the tensor
+    cores), or bytes (inputs read once, outputs written once) over HBM; the
+    peaks are cp_cals_tpu_torch/utils/roofline.py's."""
+    from cp_cals_tpu_torch.utils.roofline import device_peaks
+
+    peaks = device_peaks(0)
+    if peaks is None:
+        raise AssertionError(f"no peaks known for {torch.cuda.get_device_name(0)} (utils/roofline.py: PEAKS)")
+    t_ops = flops / (peaks[f"{kind}_tflops"] * 1e12) * 1e3
+    t_bytes = nbytes / (peaks["hbm_tb_s"] * 1e12) * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -540,7 +562,7 @@ def kernel_phase(x, dev):
                     return twostep(x_ts, u1, u2, tier)
 
                 lib_err, _ = rel_err(library(), want)
-                peak = PEAK_FP32 if tier == "highest" else PEAK_BF16
+                peak = "fp32" if tier == "highest" else "bf16"
                 row["mttkrp"][tier] = dict(
                     **bound(flops * (3 if tier == "high" else 1), peak, nbytes),
                     max_abs_err=err, ref_max=scale, library_err=lib_err,
@@ -570,7 +592,7 @@ def kernel_phase(x, dev):
                 worst["hinv"] = max(worst["hinv"], reading["max_abs_err"])
             hinv = fe.normal_inverse(grams, mask, mode)  # the apply check's input
             row["hinv"] = dict(
-                **bound(b * (4 * r**3 + 5 * r * r), PEAK_FP32, 4 * 3 * b * r * r + b * r),
+                **bound(b * (4 * r**3 + 5 * r * r), "fp32", 4 * 3 * b * r * r + b * r),
                 path=inverse_path(b, r), max_abs_err=max(c["max_abs_err"] for c in checks),
                 ratio=max(c["ratio"] for c in checks),
                 cond_max=max(c["cond_max"] for c in checks), checks=checks,
@@ -625,7 +647,7 @@ def kernel_phase(x, dev):
             flops = b * (4 * i * r * r + i * r + (12 * i * r + 20 * r * r if with_err else 0))
             nbytes = 4 * (2 * b * i * r + 2 * b * r * r + b * r + 2 * b) + (4 * (2 * b * r * r + 2 * b) if with_err else 0)
             row["apply"] = dict(
-                **bound(flops, PEAK_FP32, nbytes),
+                **bound(flops, "fp32", nbytes),
                 max_abs_err=max(errs), max_err_rel=max(err_errs), with_err=with_err,
                 ms=cuda_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, False, err_inputs)),
                 graph_ms=graph_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, False, err_inputs)),
@@ -645,6 +667,75 @@ def kernel_phase(x, dev):
                   + ", ".join(f"{k} {v['ms']:.4f}ms (graph {v['graph_ms']:.4f})" for k, v in row["methods"].items()),
                   flush=True)
     return rows, worst
+
+
+# ------------------------------------------------------------ table phase
+
+
+def auto_tables() -> list:
+    """(modes, tier, {bucket rank: batch}) of every bucket this script runs
+    under AUTO on the card, from the engine's allocation: the entries the
+    committed tables hold (``python3 tools/lut_tables.py`` measures them).
+    The bench workload (3-D at "highest", at the bench tiers' "default" and
+    the headline's polish at "high"; 4-D at "highest" and "default"), the
+    NNLS run at "high", and the README command's CALS and jackknife buckets
+    (``CalsParams`` defaults: buckets 4/8/16/32, buffer 4200) at "highest"
+    and its --fast tier at "default"."""
+    from cp_cals_tpu_torch import CalsParams
+
+    d = CalsParams()
+    models = [r for r in range(1, 21) for _ in range(20)]
+    bench = engine_batches(models, BUCKETS, BUFFER)
+    cli = engine_batches(models, d.bucket_ranks, d.buffer_size)
+    cli_jk = engine_batches([r for r in range(1, 21) for _ in range(MODES[0])], d.bucket_ranks, d.buffer_size)
+    nn = engine_batches([r for r in range(1, 11) for _ in range(10)], NN_BUCKETS, nn_params().buffer_size)
+    return [(MODES, "highest", bench), (MODES, "default", bench), (MODES, "high", bench),
+            (MODES4, "highest", bench), (MODES4, "default", bench), (NN_MODES, "high", nn),
+            (MODES, "highest", cli), (MODES, "default", cli), (MODES, "highest", cli_jk)]
+
+
+def table_phase(dev) -> dict:
+    """``utils/lut.autotune`` on the card into a scratch root (the committed
+    tables stay as they are): the bench workload's buckets (the engine's
+    allocation for buffer_size=2880) at "highest" and "default", and the
+    4-D bench tensor's at "default". Each mode's winner, each candidate's
+    replayed ms per call, the committed table's pick and the fixed rule's
+    (``heuristic_methods``) beside it; the phase's seconds."""
+    import shutil
+
+    from cp_cals_tpu_torch.utils import lut
+
+    root = os.path.join("build", "chip_smoke_lut")
+    shutil.rmtree(root, ignore_errors=True)
+    committed_root, bench = lut._ROOT, engine_batches([r for r in range(1, 21) for _ in range(20)], BUCKETS, BUFFER)
+    entries = []
+    t0 = time.perf_counter()
+    try:
+        for modes, tier in ((MODES, "highest"), (MODES, "default"), (MODES4, "default")):
+            for r, b in sorted(bench.items()):
+                lut._ROOT = root
+                winners = lut.autotune(modes, r, b, precision=tier, device=dev)
+                lut._ROOT = committed_root
+                committed = lut._load(modes, dev)
+                fixed = lut.heuristic_methods(modes, r, b, tier, torch.float32, dev)
+                for n, m in enumerate(winners):
+                    key = lut._key(b, r, n, tier)
+                    entries.append(dict(modes="-".join(map(str, modes)), tier=tier, B=b, R=r, mode=n, pick=m,
+                                        ms=lut.LAST_TIMES[key], committed=committed.get(key), fixed_rule=fixed[n]))
+                    e = entries[-1]
+                    print(f"table {e['modes']} {tier} B={b} R={r} mode {n}: {m} ("
+                          + ", ".join(f"{k} {v:.4f}" for k, v in e["ms"].items())
+                          + f" ms replayed); committed {e['committed']}, fixed rule {e['fixed_rule']}", flush=True)
+    finally:
+        lut._ROOT = committed_root
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    out = dict(seconds=seconds, entries=entries,
+               same_as_committed=sum(e["pick"] == e["committed"] for e in entries),
+               off_the_fixed_rule=sum(e["pick"] != e["fixed_rule"] for e in entries))
+    print(f"table phase: {len(entries)} modes tuned in {seconds:.1f}s; {out['same_as_committed']} picks as the "
+          f"committed tables', {out['off_the_fixed_rule']} off the fixed rule", flush=True)
+    return out
 
 
 # ------------------------------------------------------------ engine phase
@@ -694,28 +785,161 @@ def unfused(tier: str) -> dict:
     return {MTTKRP_KERNEL[tier]: 3, "spd_inverse": 3}
 
 
+def check_counts(name: str, counts: dict, kernels: dict, predicated: dict) -> None:
+    """Each kernel of ``kernels`` launched that many times, at least once,
+    every other kernel not at all; each MTTKRP kernel's predicated launches
+    (the mixed-tier check's, once per bucket-iteration) as ``predicated``
+    says, none elsewhere."""
+    for k, v in counts.items():
+        if k.endswith(".predicated"):
+            want = predicated.get(k.removesuffix(".predicated"), 0)
+        else:
+            want = kernels.get(k, 0)
+        if v != want or (k in kernels and v == 0):
+            raise AssertionError(f"{name}: {k} launched {v} times, expected {want} ({kernels}, "
+                                 f"predicated {predicated})")
+
+
 def check_launches(name: str, counts: dict, per_step: dict, steps: int, checked: str | None = None,
                    checks: int = 0) -> None:
     """Each kernel of ``per_step`` launched its count x ``steps`` times
     (bucket-iterations and polish sweeps), every other kernel not at all;
     the predicated launches of the mixed-tier check's MTTKRP (kernel
     ``checked``) ``checks`` times, once per bucket-iteration."""
-    for k, v in counts.items():
-        if k.endswith(".predicated"):
-            want = checks if k == f"{checked}.predicated" else 0
-        else:
-            want = per_step.get(k, 0) * steps
-        if v != want or (k in per_step and v == 0):
-            raise AssertionError(f"{name}: {k} launched {v} times, expected {want} ({per_step} x {steps}, "
-                                 f"{checks} checks)")
+    check_counts(name, counts, {k: v * steps for k, v in per_step.items()}, {checked: checks} if checked else {})
+
+
+def check_route_counts(name: str, routes: dict, want: dict) -> None:
+    """The MTTKRP results by route (``launches.routes``) as ``want`` says,
+    every other route none."""
+    want = {k: want.get(k, 0) for k in routes}
+    if routes != want:
+        raise AssertionError(f"{name}: MTTKRP routes {routes}, expected {want}")
 
 
 def check_routes(name: str, routes: dict, per_step: dict, steps: int) -> None:
-    """The MTTKRP results by route (``launches.routes``): each route of
-    ``per_step`` its count x ``steps``, every other none."""
-    want = {k: per_step.get(k, 0) * steps for k in routes}
-    if routes != want:
-        raise AssertionError(f"{name}: MTTKRP routes {routes}, expected {want}")
+    """The MTTKRP results by route: each route of ``per_step`` its count x
+    ``steps``, every other none."""
+    check_route_counts(name, routes, {k: v * steps for k, v in per_step.items()})
+
+
+# ------------------------------------------------------- the lookup table
+
+
+def pinned(**kw) -> dict:
+    """``kw`` with the MTTKRP pinned to the fused kernels (a mode their gate
+    refuses takes the twostep): the phases that test a kernel's launches
+    run so; the main path's runs resolve AUTO from the lookup table."""
+    from cp_cals_tpu_torch import MttkrpMethod
+
+    return dict(mttkrp_method=MttkrpMethod.PALLAS, **kw)
+
+
+def engine_batches(ranks, bucket_ranks, buffer_size) -> dict:
+    """{bucket rank: batch}, the engine's allocation for a queue of
+    ``ranks`` (solvers/cals.py: bucket_rank, allocate_bucket_batches)."""
+    from cp_cals_tpu_torch.solvers.cals import allocate_bucket_batches, bucket_rank
+
+    demands = collections.Counter(bucket_rank(r, bucket_ranks) for r in ranks)
+    out = {}
+    for wave in allocate_bucket_batches(dict(demands), buffer_size):
+        out.update(wave)
+    return out
+
+
+def bucket_picks(modes, ranks, params) -> dict:
+    """{bucket rank: (fast-tier methods, polish methods or None)} as the
+    engine resolves them on the card under AUTO for a queue of ``ranks``
+    (solvers/cals.py: _resolve_bucket_methods, after the run that ensured
+    the entries: exact hits), leaving LOOKUP_STATS as it was."""
+    from cp_cals_tpu_torch.solvers.cals import _resolve_bucket_methods
+    from cp_cals_tpu_torch.utils import lut
+
+    saved = dict(lut.LOOKUP_STATS)
+    try:
+        return {r: _resolve_bucket_methods(tuple(modes), r, b, params, torch.float32, "cuda")
+                for r, b in engine_batches(ranks, params.bucket_ranks, params.buffer_size).items()}
+    finally:
+        lut.LOOKUP_STATS.update(saved)
+
+
+def table_counts(picks: dict, rep, params, n_modes: int, epilogue: bool = True) -> tuple[dict, dict, dict]:
+    """What a run under AUTO must launch, from its buckets' picks: the
+    MTTKRP kernel of each tier on every mode picked "pallas" (the fast
+    tier's per bucket-iteration, the polish tier's per polish sweep), the
+    mixed-tier check's last-mode MTTKRP per bucket-iteration where it runs
+    (not under forced iterations; a predicated launch where it is fused),
+    and with ``epilogue`` the normal inverse and
+    the apply on every mode of every step. Returns (kernels, predicated,
+    routes)."""
+    kernels, predicated, routes = collections.Counter(), collections.Counter(), collections.Counter()
+    fast = params.mttkrp_precision or params.precision
+    for r, (methods, polish) in picks.items():
+        iters = rep.engine_iterations.get(r, 0)
+        sweeps = rep.loop_counts.get(r, {}).get("polish_sweeps", 0)
+        for tier, ms, steps in ((fast, methods, iters), (params.precision, polish or methods, sweeps)):
+            for m in ms:
+                routes["fused" if m == "pallas" else m] += steps
+                if m == "pallas":
+                    kernels[MTTKRP_KERNEL[tier]] += steps
+        if params.tol_check_interval > 0 and not params.force_max_iter:
+            routes["fused" if methods[-1] == "pallas" else methods[-1]] += iters
+            if methods[-1] == "pallas":
+                predicated[MTTKRP_KERNEL[params.precision]] += iters
+        if epilogue:
+            kernels["normal_inverse"] += n_modes * (iters + sweeps)
+            kernels["epilogue_apply"] += n_modes * (iters + sweeps)
+    return dict(kernels), dict(predicated), dict(routes)
+
+
+def lut_stats(name: str) -> dict:
+    """The lookup decisions of the run just made under AUTO: no mode may
+    have fallen to the heuristic (the committed tables, or on another card
+    the autotune, cover every bucket)."""
+    from cp_cals_tpu_torch.utils import lut
+
+    stats = dict(lut.LOOKUP_STATS)
+    if stats["heuristic"]:
+        raise AssertionError(f"{name}: {stats['heuristic']} MTTKRP dispatch decisions fell to the heuristic "
+                             f"({stats})")
+    return stats
+
+
+def check_table_run(name: str, modes, ranks, params, rep, counts: dict, routes: dict,
+                    epilogue: bool = True) -> dict:
+    """A run under AUTO: no heuristic decision, and its launches and MTTKRP
+    results by route equal its buckets' picks (``table_counts``). Returns
+    the lookup decisions and the picks, for the record."""
+    stats = lut_stats(name)
+    picks = bucket_picks(modes, ranks, params)
+    kernels, predicated, want_routes = table_counts(picks, rep, params, len(modes), epilogue)
+    check_counts(name, counts, kernels, predicated)
+    check_route_counts(name, routes, want_routes)
+    print(f"{name}: lookup {stats}; picks by bucket "
+          + ", ".join(f"{r}: {'/'.join(m)}" + (f" (polish {'/'.join(p)})" if p else "")
+                      for r, (m, p) in sorted(picks.items())), flush=True)
+    return dict(lut_dispatch=stats, picks={str(r): [list(m), list(p) if p else None] for r, (m, p) in picks.items()})
+
+
+def card_picks(picks: dict):
+    """A context in which the engine runs each bucket of rank r with
+    ``picks[r]`` (a card run's ``bucket_picks``): the CPU reference of a run
+    under AUTO takes the card's methods, whatever its own buckets'
+    batches."""
+    import contextlib
+
+    from cp_cals_tpu_torch.solvers import cals
+
+    @contextlib.contextmanager
+    def ctx():
+        real = cals._resolve_bucket_methods
+        cals._resolve_bucket_methods = lambda shape, r, b, params, *a, **k: picks[r]
+        try:
+            yield
+        finally:
+            cals._resolve_bucket_methods = real
+
+    return ctx()
 
 
 def loop_totals(rep) -> dict:
@@ -740,16 +964,21 @@ def bench_params(**kw):
 
 def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, per_step: dict | None = None,
                routes: dict | None = None, checked: str | None = None, **kw):
-    """One cp_cals run from counts at 0: ``per_step`` the kernels of its
-    path and their launches per bucket-iteration (default: the 3-D fused
-    path), ``routes`` its MTTKRP results by route (default: the fused
-    kernels on all three modes), ``checked`` the MTTKRP kernel launched
-    under a device predicate once per bucket-iteration (none by default)."""
+    """One cp_cals run from counts at 0. Under AUTO (unless ``kw`` pins a
+    method) its launches and routes must equal its buckets' picks from the
+    lookup table, with no heuristic decision (``check_table_run``). With a
+    pinned method: ``per_step`` the kernels of its path and their launches
+    per bucket-iteration (default: the 3-D fused path), ``routes`` its
+    MTTKRP results by route (default: the fused kernels on all three
+    modes), ``checked`` the MTTKRP kernel launched under a device predicate
+    once per bucket-iteration (none by default)."""
     from cp_cals_tpu_torch import cp_cals, launches
+    from cp_cals_tpu_torch.utils import lut
 
     params = bench_params(**tiers, **kw)
     torch.cuda.synchronize()
     reset_counts()
+    lut.reset_lookup_stats()
     t0 = time.perf_counter()
     results, rep = cp_cals(x, queue, params)
     torch.cuda.synchronize()
@@ -758,10 +987,16 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, per_ste
     bucket_iters = sum(rep.engine_iterations.values())
     loop = loop_totals(rep)
     steps = bucket_iters + loop["polish_sweeps"]
-    check_launches(name, counts, per_step or fused(params.mttkrp_precision or params.precision), steps, checked,
-                   bucket_iters if checked else 0)
     route_counts = launches.routes()
-    check_routes(name, route_counts, routes or {"fused": 3}, steps)
+    table = {}
+    if params.mttkrp_method.value == "auto":
+        if per_step or routes or checked:
+            raise ValueError(f"{name}: a run under AUTO takes its counts from the table's picks")
+        table = check_table_run(name, x.shape, [kt.rank for kt in queue], params, rep, counts, route_counts)
+    else:
+        check_launches(name, counts, per_step or fused(params.mttkrp_precision or params.precision), steps,
+                       checked, bucket_iters if checked else 0)
+        check_routes(name, route_counts, routes or {"fused": 3}, steps)
     if len(results) != len(queue) or any(kt is None for kt in results):
         raise AssertionError(f"{name}: missing results")
     for kt, q in zip(results, queue):
@@ -778,7 +1013,7 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, per_ste
         wall_s=wall, models_per_s=len(queue) / wall, mean_fit=float(fits.mean()),
         mean_iters=float(iters.mean()), bucket_iterations=rep.engine_iterations,
         launches=counts, routes=route_counts, phase_times={str(k): v for k, v in rep.phase_times.items()},
-        loop=loop, sync_mode=params.sync_mode,
+        loop=loop, sync_mode=params.sync_mode, **table,
     )
     print(f"engine {name}: wall {wall:.3f}s, {out['models_per_s']:.1f} models/s, "
           f"mean fit {out['mean_fit']:.6f}, mean iters {out['mean_iters']}, "
@@ -802,11 +1037,19 @@ def assert_bit_identical(name: str, a, b) -> None:
     print(f"{name}: {len(res_a)} models bit-identical (fits, iterations, factors)", flush=True)
 
 
-def cross_check(x, queue, runs: dict, **kw) -> dict:
+def picks_of(run: dict) -> dict:
+    """An engine run's picks by bucket rank, as ``card_picks`` takes them."""
+    return {int(r): (tuple(m), tuple(p) if p else None) for r, (m, p) in run["picks"].items()}
+
+
+def cross_check(x, queue, runs: dict, picks: dict | None = None, **kw) -> dict:
     """20 models (one per rank) of each engine run against the port's
     float64 CPU run from the same inits (``kw``: the runs' settings beside
-    the bench's): the largest |fit difference| and relative reconstruction
-    difference, held to CROSS_TOL per run."""
+    the bench's; ``picks``: a run's MTTKRP picks under AUTO, which the CPU
+    run then takes, ``card_picks``): the largest |fit difference| and
+    relative reconstruction difference, held to CROSS_TOL per run."""
+    import contextlib
+
     from cp_cals_tpu_torch import Ktensor, cp_cals
     from cp_cals_tpu_torch.ktensor import to_tensor
 
@@ -817,7 +1060,8 @@ def cross_check(x, queue, runs: dict, **kw) -> dict:
     pick = [20 * (r - 1) for r in range(1, 21)]
     q64 = [Ktensor(tuple(f.astype(np.float64) for f in queue[i].factors),
                    queue[i].lam.astype(np.float64)) for i in pick]
-    res64, rep64 = cp_cals(x.astype(np.float64), q64, bench_params(**kw), device="cpu")
+    with card_picks(picks) if picks else contextlib.nullcontext():
+        res64, rep64 = cp_cals(x.astype(np.float64), q64, bench_params(**kw), device="cpu")
     out = {}
     for name, (results, rep) in runs.items():
         worst_fit = worst_rec = 0.0
@@ -842,8 +1086,8 @@ def jk_params(**kw):
     4): 299 replicates of a rank-5 model in one bucket of rank 8."""
     from cp_cals_tpu_torch import CalsParams
 
-    base = dict(tol=1e-6, max_iterations=100, buffer_size=4200, bucket_ranks=(JK_BUCKET,),
-                precision="high", dimtree="off", evict_batch=48, result_wire_dtype="float16")
+    base = pinned(tol=1e-6, max_iterations=100, buffer_size=4200, bucket_ranks=(JK_BUCKET,),
+                  precision="high", dimtree="off", evict_batch=48, result_wire_dtype="float16")
     return CalsParams(**{**base, **kw})
 
 
@@ -998,7 +1242,9 @@ class MttkrpRecorder(Recorder):
 class CubeMttkrpRecorder(MttkrpRecorder):
     """The same on a cube, whose modes have one length: the target mode is
     the call's place in its iteration (a run with no predicated call makes
-    three per iteration, the modes in turn)."""
+    three per iteration, the modes in turn; where the table sends a mode
+    off the fused kernels, the places shift, and every place of a cube has
+    the same shapes)."""
 
     def key(self, x3, u1, u2, precision="highest", pred=None):
         if pred is not None:
@@ -1068,7 +1314,7 @@ def mttkrp_mix(rec, x, label="J1") -> list:
         flops = (2 * j * i * k * b * r + 2 * j * i * b * r) * (3 if tier == "high" else 1)
         mix.append(dict(
             B=b, R=r, mode=mode, tier=tier, launches=n, max_abs_err=err, ref_max=scale,
-            **bound(flops, PEAK_FP32 if tier == "highest" else PEAK_BF16, x3.nbytes + 4 * b * (j + k + i) * r),
+            **bound(flops, "fp32" if tier == "highest" else "bf16", x3.nbytes + 4 * b * (j + k + i) * r),
             ms=cuda_ms(lambda: fm.fused_mttkrp(x3, u1, u2, tier)),
             graph_ms=graph_ms(lambda: fm.fused_mttkrp(x3, u1, u2, tier)),
             plain_ms=cuda_ms(lambda: fm.fused_mttkrp_plain(x3, u1, u2, tier)),
@@ -1084,7 +1330,7 @@ def mttkrp_mix(rec, x, label="J1") -> list:
 def jk_phase(x_np, kt5):
     from cp_cals_tpu_torch import AlsParams, jk_cp_batched_als, jk_cp_cals
 
-    shared = dict(tol=1e-6, max_iterations=100, precision="high", dimtree="off")
+    shared = pinned(tol=1e-6, max_iterations=100, precision="high", dimtree="off")
     runs = {}
     # J1's MTTKRP launches and J2's SPD inverses are recorded in the runs
     # themselves, replays included.
@@ -1234,7 +1480,7 @@ def spd_phase(rec, dev) -> dict:
     for (b, r), n in sorted(rec.shapes.items()):
         (h,) = rec.first[(b, r)]
         flops = b * r * (1 + 2 * r + 4 * r * (r - 1))
-        mix.append(dict(B=b, R=r, launches=n, path=inverse_path(b, r), **bound(flops, PEAK_FP32, 2 * 4 * b * r * r),
+        mix.append(dict(B=b, R=r, launches=n, path=inverse_path(b, r), **bound(flops, "fp32", 2 * 4 * b * r * r),
                         ms=cuda_ms(lambda: si.spd_inverse(h)),
                         graph_ms=graph_ms(lambda: si.spd_inverse(h)),
                         plain_ms=cuda_ms(lambda: si.spd_inverse_plain(h)),
@@ -1273,7 +1519,7 @@ def probe_phase(dev) -> dict:
         if not torch.equal(probe.probe_copy(x), probe.probe_copy_plain(x)):
             raise AssertionError(f"probe_copy {shape}: not bit-identical to x * 0.999")
         n = x.numel()
-        shapes.append(dict(shape=shape, **bound(n, PEAK_FP32, 8 * n),
+        shapes.append(dict(shape=shape, **bound(n, "fp32", 8 * n),
                            ms=cuda_ms(lambda: probe.probe_copy(x)),
                            graph_ms=graph_ms(lambda: probe.probe_copy(x)),
                            plain_ms=cuda_ms(lambda: probe.probe_copy_plain(x)),
@@ -1385,7 +1631,7 @@ def hinv_mix(rec, label: str) -> list:
             raise AssertionError(f"normal_inverse B={b} R={r} mode={mode} ({label}'s recorded inputs): {reading}")
         mix.append(dict(
             B=b, R=r, mode=mode, launches=n, path=inverse_path(b, r), **reading,
-            **bound(b * (4 * r**3 + 5 * r * r), PEAK_FP32, 4 * 3 * b * r * r + b * r),
+            **bound(b * (4 * r**3 + 5 * r * r), "fp32", 4 * 3 * b * r * r + b * r),
             ms=cuda_ms(lambda: fe.normal_inverse(grams, mask, skip)),
             graph_ms=graph_ms(lambda: fe.normal_inverse(grams, mask, skip)),
             plain_ms=cuda_ms(lambda: fe.normal_inverse_plain(grams, mask, skip)),
@@ -1431,7 +1677,7 @@ def apply_mix(rec, label: str) -> list:
         nbytes = 4 * (2 * b * i * r + 2 * b * r * r + b * r + 2 * b) + (4 * (2 * b * r * r + 2 * b) if with_err else 0)
         mix.append(dict(
             B=b, R=r, mode=mode, zero_jk=zero_jk, with_err=with_err, launches=n, max_abs_err=err,
-            err_sq_rel=err_sq, **bound(flops, PEAK_FP32, nbytes),
+            err_sq_rel=err_sq, **bound(flops, "fp32", nbytes),
             ms=cuda_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, zero_jk, err_inputs)),
             graph_ms=graph_ms(lambda: fe.epilogue_apply(g, hinv, iters, jk, zero_jk, err_inputs)),
             plain_ms=cuda_ms(lambda: fe.epilogue_apply_plain(g, hinv, iters, jk, zero_jk, err_inputs)),
@@ -1473,29 +1719,29 @@ def dense(kt, dtype=np.float64) -> np.ndarray:
 def nd_phase(dev) -> dict:
     """The bench workload with a fourth mode at full width: 400 models, 10
     forced iterations, at "highest" and at the bench tiers, through the
-    graph loop. Every mode takes the twostep (four route counts per
-    bucket-iteration) and every epilogue the fused kernels with K = 3 other
-    gramians (four normal inverses, all K = 3, and four applies, one with
-    the K = 3 error, per bucket-iteration). Then one model per bucket
-    against the port's float64 CPU run, the bench-tier run profiled for
-    the device's busy share, and the twostep timed at every (B, mode) of the
-    run for its share of the device time."""
+    graph loop, under AUTO: every mode takes the table's pick for its
+    bucket and tier, the twostep or krp_gemm (the fused gate refuses N-D),
+    and every epilogue the fused kernels with K = 3 other gramians (four
+    normal inverses, all K = 3, and four applies, one with the K = 3 error,
+    per bucket-iteration). Then one model per bucket against the port's
+    float64 CPU run with the card's picks, the bench-tier run profiled for
+    the device's busy share, and each bucket's picked MTTKRP timed at every
+    (B, mode) of the run for its share of the device time."""
     from cp_cals_tpu_torch import cp_cals
     from cp_cals_tpu_torch.ops import mttkrp as mt
-    from cp_cals_tpu_torch.solvers.cals import allocate_bucket_batches
 
     x_np, rng = bench_tensor(MODES4)
     queue = engine_queue(rng, MODES4)
     per_step, routes = fused("highest", n_modes=4, mttkrp_modes=0), {"twostep": 4}
-    engine_run(x_np, queue[::80], BENCH_TIERS, "4-D warm-up", check_fit=False, per_step=per_step, routes=routes)
-    out, results = {}, {}
+    engine_run(x_np, queue[::80], BENCH_TIERS, "4-D warm-up", check_fit=False, per_step=per_step, routes=routes,
+               **pinned())
+    out, results, picks = {}, {}, {}
     for name, tiers in (("4-D highest", {}), ("4-D bench-tiers", BENCH_TIERS)):
         with HinvRecorder() as hrec, ApplyRecorder() as arec:
             # The bench tiers' reported fit is the FastALS error of a bf16
             # MTTKRP, whose noise the 4-D tensor's fits do not survive; the
             # cross-check below holds the models' dense fits instead.
-            res, rep, run = engine_run(x_np, queue, tiers, name, check_fit=not tiers, per_step=per_step,
-                                       routes=routes)
+            res, rep, run = engine_run(x_np, queue, tiers, name, check_fit=not tiers)
         hrec.check_total(f"{name} normal inverses", run["launches"]["normal_inverse"])
         arec.check_total(f"{name} applies", run["launches"]["epilogue_apply"])
         steps = sum(rep.engine_iterations.values())
@@ -1503,46 +1749,51 @@ def nd_phase(dev) -> dict:
             raise AssertionError(f"{name}: normal inverses by K {by_k(hrec)}, applies by K {by_k(arec)}")
         run.update(normal_inverse_by_k=by_k(hrec), apply_by_k=by_k(arec))
         out[name], results[name] = run, (res, rep)
-    out["cross_check"] = nd_cross_check(x_np, queue, results)
+        picks[name] = {int(r): tuple(m) for r, (m, _) in run["picks"].items()}
+    out["cross_check"] = nd_cross_check(x_np, queue, results, picks)
     x = torch.from_numpy(x_np).to(dev)
     params = bench_params(**BENCH_TIERS)
     prof = profiled(lambda: cp_cals(x_np, queue, params))
-    # The twostep alone at every (B, R) and mode of the runs, at each run's
-    # MTTKRP tier, on its held layout.
-    (alloc,) = allocate_bucket_batches({r: 80 for r in BUCKETS}, BUFFER)
-    held = mt.prepare_batched(x, ["twostep"] * 4)
+    # Each bucket's picked MTTKRP alone at every (B, R) and mode of the runs,
+    # at each run's MTTKRP tier, on its held layout.
+    alloc = engine_batches([kt.rank for kt in queue], BUCKETS, BUFFER)
     gen = torch.Generator().manual_seed(21)
-    mix = []
+    mix, held = [], {}
     for r, b in sorted(alloc.items()):
         factors = [torch.rand(b, m, r, generator=gen).to(dev) for m in MODES4]
         for mode in range(4):
             row = dict(B=b, R=r, mode=mode)
-            for tier in ("default", "highest"):
-                row[tier] = graph_ms(lambda: mt.mttkrp_batched_twostep(x, factors, mode, tier, held[mode]))
+            for tier, name in (("default", "4-D bench-tiers"), ("highest", "4-D highest")):
+                m = picks[name][r][mode]
+                if (mode, m) not in held:
+                    held[(mode, m)] = mt.prepare_mode(x, mode, m)
+                row[tier] = graph_ms(lambda: mt.mttkrp_batched(x, factors, mode, m, tier, held[(mode, m)]))
+                row[f"{tier}_method"] = m
             mix.append(row)
     w = results["4-D bench-tiers"][1].engine_iterations
-    ts_ms = sum(w.get(m["R"], 0) * m["default"] for m in mix)
-    prof.update(twostep_ms=ts_ms, twostep_share=ts_ms / prof["busy_ms"])
-    out.update(profile=prof, twostep_mix=mix)
+    mttkrp_ms = sum(w.get(m["R"], 0) * m["default"] for m in mix)
+    prof.update(mttkrp_ms=mttkrp_ms, mttkrp_share=mttkrp_ms / prof["busy_ms"])
+    out.update(profile=prof, mttkrp_mix=mix)
     print(f"4-D bench-tiers profiled: wall {prof['wall_s']:.3f}s, device busy {prof['busy_ms']:.2f} ms = "
-          f"{prof['busy_share']:.3f} of the wall, {prof['kernels']} kernels; the twostep alone {ts_ms:.2f} ms "
-          f"= {prof['twostep_share']:.3f} of the busy time", flush=True)
+          f"{prof['busy_share']:.3f} of the wall, {prof['kernels']} kernels; the picked MTTKRPs alone "
+          f"{mttkrp_ms:.2f} ms = {prof['mttkrp_share']:.3f} of the busy time", flush=True)
     for n, ms in prof["kernel_ms"].items():
         print(f"  {ms:9.3f} ms  {n}", flush=True)
     for m in mix:
-        print(f"twostep 4-D B={m['B']} R={m['R']} mode={m['mode']}: default {m['default']:.4f}ms, "
-              f"highest {m['highest']:.4f}ms (graph-replayed)", flush=True)
+        print(f"MTTKRP 4-D B={m['B']} R={m['R']} mode={m['mode']}: default {m['default_method']} {m['default']:.4f}ms, "
+              f"highest {m['highest_method']} {m['highest']:.4f}ms (graph-replayed)", flush=True)
     return out
 
 
-def nd_cross_check(x_np, queue, runs: dict) -> dict:
+def nd_cross_check(x_np, queue, runs: dict, picks: dict) -> dict:
     """One model per bucket (ranks 4, 8, 12, 16, 20) of each 4-D run
     against the port's float64 CPU run of the same settings from the same
-    inits: the relative reconstruction difference and the difference of
-    the fits from the dense reconstructions (the bench tiers' reported fit
-    is the fast tier's), held to ND_CROSS_TOL on the ranks ND_HELD_RANKS
-    names, reported for all. The port's float32 CPU run at "highest" is
-    measured the same way beside them: what float32 rounding alone moves."""
+    inits, each bucket with the card run's picks (``card_picks``): the
+    relative reconstruction difference and the difference of the fits from
+    the dense reconstructions (the bench tiers' reported fit is the fast
+    tier's), held to ND_CROSS_TOL on the ranks ND_HELD_RANKS names,
+    reported for all. The port's float32 CPU run at "highest" is measured
+    the same way beside them: what float32 rounding alone moves."""
     from cp_cals_tpu_torch import Ktensor, cp_cals
 
     pick = [20 * (r - 1) for r in BUCKETS]
@@ -1566,10 +1817,12 @@ def nd_cross_check(x_np, queue, runs: dict) -> dict:
     out, refs = dict(cpu_s={}), {}
     for name, tiers in (("highest", {}), ("bench-tiers", BENCH_TIERS)):
         t0 = time.perf_counter()
-        res64, _ = cp_cals(x64, q64, bench_params(mode_layouts="materialized", **tiers), device="cpu")
+        with card_picks({r: (m, None) for r, m in picks["4-D " + name].items()}):
+            res64, _ = cp_cals(x64, q64, bench_params(mode_layouts="materialized", **tiers), device="cpu")
         out["cpu_s"][name] = time.perf_counter() - t0
         refs[name] = [dense_fit(k) for k in res64]
-    res32, _ = cp_cals(x_np, [queue[i] for i in pick], bench_params(mode_layouts="materialized"), device="cpu")
+    with card_picks({r: (m, None) for r, m in picks["4-D highest"].items()}):
+        res32, _ = cp_cals(x_np, [queue[i] for i in pick], bench_params(mode_layouts="materialized"), device="cpu")
     out["cpu_float32"] = diffs(res32, refs["highest"], range(len(pick)))
     print("cross-check 4-D: the port's float32 CPU run vs its float64 run at 'highest', by rank (fit/recon): "
           + ", ".join(f"R={d['rank']} {d['dense_fit']:.2e}/{d['rel_recon']:.2e}" for d in out["cpu_float32"]),
@@ -1658,13 +1911,13 @@ def widened_phase(dev) -> dict:
                            + (4 * (k * b * r * r + 2 * b) if with_err else 0))
                 rows[k].append(dict(
                     K=k, B=b, R=r, mode=mode, I=i, with_err=with_err, path=inverse_path(b, r),
-                    hinv=dict(**bound(b * (4 * r**3 + (k + 3) * r * r), PEAK_FP32, 4 * (k + 1) * b * r * r + b * r),
+                    hinv=dict(**bound(b * (4 * r**3 + (k + 3) * r * r), "fp32", 4 * (k + 1) * b * r * r + b * r),
                               max_abs_err=reading["max_abs_err"], ratio=reading["ratio"],
                               ms=cuda_ms(lambda: fe.normal_inverse(grams, mask, mode)),
                               graph_ms=graph_ms(lambda: fe.normal_inverse(grams, mask, mode)),
                               plain_ms=cuda_ms(lambda: fe.normal_inverse_plain(grams, mask, mode)),
                               library_ms=cuda_ms(lambda: torch.linalg.inv(h)), library_graph_ms=inv_ex_graph_ms(h)),
-                    apply=dict(**bound(a_flops, PEAK_FP32, a_bytes), max_abs_err=max(e for e, _ in errs),
+                    apply=dict(**bound(a_flops, "fp32", a_bytes), max_abs_err=max(e for e, _ in errs),
                                max_err_rel=e_rel,
                                ms=cuda_ms(lambda: fe.epilogue_apply(g, got, iters, jk, False, err_inputs)),
                                graph_ms=graph_ms(lambda: fe.epilogue_apply(g, got, iters, jk, False, err_inputs)),
@@ -1690,7 +1943,7 @@ def f64_phase() -> dict:
     kt = random_ktensor_host(rng, modes, 3, dtype=np.float64)
     x = dense(kt) + 1e-3 * rng.standard_normal(modes)
     queue = [random_ktensor_host(rng, modes, r, dtype=np.float64) for r in (1, 2, 3, 4, 5, 6)]
-    params = CalsParams(max_iterations=10, force_max_iter=True, bucket_ranks=(2, 4, 8), buffer_size=24)
+    params = CalsParams(max_iterations=10, force_max_iter=True, bucket_ranks=(2, 4, 8), buffer_size=24, **pinned())
     torch.cuda.synchronize()
     reset_counts()
     res_d, rep_d = cp_cals(x, queue, params)
@@ -1806,28 +2059,36 @@ def nn_params(**kw):
 
 
 def nn_engine_run(name, x, queue, **kw) -> tuple:
-    """One NNLS cp_cals run on the card from counts at 0: only the
-    tensor-core MTTKRP launches (three per bucket-iteration, no epilogue
-    kernel), every factor entry >= 0 exactly."""
+    """One NNLS cp_cals run on the card from counts at 0: no epilogue
+    kernel; pinned, the tensor-core MTTKRP three times per bucket-iteration,
+    and under AUTO as its buckets' picks say (``check_table_run``); every
+    factor entry >= 0 exactly."""
     from cp_cals_tpu_torch import cp_cals, launches
+    from cp_cals_tpu_torch.utils import lut
 
     params = nn_params(**kw)
     torch.cuda.synchronize()
     reset_counts()
+    lut.reset_lookup_stats()
     t0 = time.perf_counter()
     res, rep = cp_cals(x, queue, params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, routes = read_counts(), launches.routes()
     steps = sum(rep.engine_iterations.values())
-    check_launches(name, counts, {"fused_mttkrp_tc": 3}, steps)
-    check_routes(name, routes, {"fused": 3}, steps)
+    table = {}
+    if params.mttkrp_method.value == "auto":
+        table = check_table_run(name, x.shape, [kt.rank for kt in queue], params, rep, counts, routes,
+                                epilogue=False)
+    else:
+        check_launches(name, counts, {"fused_mttkrp_tc": 3}, steps)
+        check_routes(name, routes, {"fused": 3}, steps)
     min_entry = min(float(f.min()) for kt in res for f in kt.factors)
     if not min_entry >= 0.0 or any(not np.isfinite(f).all() for kt in res for f in kt.factors):
         raise AssertionError(f"{name}: a factor entry is negative or not finite ({min_entry})")
     fits = np.array([m.fit for m in rep.models])
     out = dict(wall_s=wall, models_per_s=len(queue) / wall, mean_fit=float(fits.mean()), min_factor_entry=min_entry,
-               bucket_iterations=rep.engine_iterations, launches=counts, routes=routes, loop=loop_totals(rep))
+               bucket_iterations=rep.engine_iterations, launches=counts, routes=routes, loop=loop_totals(rep), **table)
     print(f"NNLS {name}: wall {wall:.3f}s, {out['models_per_s']:.1f} models/s, mean fit {out['mean_fit']:.6f}, "
           f"min factor entry {min_entry}, bucket-iterations {steps}, launches {counts}, MTTKRP routes {routes}, "
           f"loop {out['loop']}", flush=True)
@@ -1882,7 +2143,7 @@ def nnls_phase() -> dict:
     from cp_cals_tpu_torch.solvers.cals import bucket_rank
 
     x, queue = nn_problem()
-    nn_engine_run("warm-up", x, queue[::10])
+    nn_engine_run("warm-up", x, queue[::10], **pinned())
     # The run's MTTKRP calls, replays included: the tensor-core kernel held
     # and timed at each (B, R, mode) of its launch mix.
     with CubeMttkrpRecorder() as mix_rec:
@@ -1944,10 +2205,10 @@ def nnls_phase() -> dict:
     sub = [queue[i] for i in ids]
     b = f"bucket {NN_LH_BUCKET}"
     one = dict(bucket_ranks=(NN_LH_BUCKET,))
-    nn_engine_run(f"Lawson-Hanson warm-up, {b}", x, sub[:2], nnls_algorithm="lawson_hanson", **one)
+    nn_engine_run(f"Lawson-Hanson warm-up, {b}", x, sub[:2], nnls_algorithm="lawson_hanson", **one, **pinned())
     runs, fits, fits64 = {}, {}, {}
     for alg in ("lawson_hanson", "bpp"):
-        _, rep_b, runs[alg] = nn_engine_run(f"{alg}, {b}", x, sub, nnls_algorithm=alg, **one)
+        _, rep_b, runs[alg] = nn_engine_run(f"{alg}, {b}", x, sub, nnls_algorithm=alg, **one, **pinned())
         fits[alg] = np.array([m.fit for m in rep_b.models])
         _, rep_b64 = cp_cals(x.astype(np.float64), in_dtype(ids, np.float64),
                              nn_params(precision="highest", nnls_algorithm=alg, **one), device="cpu")
@@ -1984,8 +2245,8 @@ def line_search_phase(x_np, queue) -> dict:
 
     out = {}
     for method in LS_METHODS:
-        kw = dict(line_search=True, line_search_interval=LS_INTERVAL, max_iterations=LS_ITERS,
-                  line_search_method=LineSearchMethod(method))
+        kw = pinned(line_search=True, line_search_interval=LS_INTERVAL, max_iterations=LS_ITERS,
+                    line_search_method=LineSearchMethod(method))
         ec = method == "error_checking"
         routes = {"fused": 4 if ec else 3}
         checked = "fused_mttkrp_fp32" if ec else None
@@ -2038,7 +2299,7 @@ def debug_phase() -> dict:
     x = (x + 0.01 * rng.standard_normal(modes)).astype(np.float32)
     queue = [random_ktensor_host(rng, modes, r, dtype=np.float32) for r in (2, 3, 4, 3, 2, 4)]
     params = CalsParams(max_iterations=DEBUG_ITERS, force_max_iter=True, bucket_ranks=(4,), buffer_size=12,
-                        epilogue="xla", debug=True, line_search=True, line_search_interval=4)
+                        epilogue="xla", debug=True, line_search=True, line_search_interval=4, **pinned())
     real = it.normalize_factor_fused
 
     def bumped(u, iters):
@@ -2079,13 +2340,25 @@ def mean_or_none(rows, bucket_iters, key, field, tier=None):
 
 
 def weighted(rows, bucket_iters, key, field, tier=None):
+    """The mean of ``field`` over the rows, each weighted by its bucket's
+    iterations: ``bucket_iters`` by bucket rank, or by (rank, mode) where
+    only some modes of a bucket launch the kernel (``fused_weights``)."""
     num = den = 0.0
     for row in rows:
-        w = bucket_iters.get(row["R"], 0)
+        w = bucket_iters.get((row["R"], row["mode"]), bucket_iters.get(row["R"], 0))
         entry = row[key][tier] if tier else row[key]
         num += w * entry[field]
         den += w
+    if not den:
+        raise AssertionError(f"{key} {tier or ''}: no launch in the run whose mix is asked for")
     return num / den
+
+
+def fused_weights(run: dict, rep) -> dict:
+    """{(bucket rank, mode): the bucket's iterations} of the modes a run
+    under AUTO put on the fused MTTKRP kernels."""
+    return {(r, n): rep.engine_iterations.get(r, 0) for r, (m, _) in picks_of(run).items()
+            for n, method in enumerate(m) if method == "pallas"}
 
 
 # ------------------------------------------------------------ entry points
@@ -2121,6 +2394,7 @@ def run_cli(name: str, argv: list, kernels: tuple, lines: tuple, x) -> tuple[dic
     import re
 
     from cp_cals_tpu_torch import cli, solvers
+    from cp_cals_tpu_torch.utils import lut
 
     csv_path = os.path.join(ENTRY_DIR, f"{name}.csv")
     buf = io.StringIO()
@@ -2133,6 +2407,7 @@ def run_cli(name: str, argv: list, kernels: tuple, lines: tuple, x) -> tuple[dic
 
     torch.cuda.synchronize()
     reset_counts()
+    lut.reset_lookup_stats()
     t0 = time.perf_counter()
     with MttkrpRecorder() as m_rec, HinvMixRecorder() as h_rec, ApplyMixRecorder() as a_rec:
         solvers.cp_cals = cals_call
@@ -2170,7 +2445,9 @@ def run_cli(name: str, argv: list, kernels: tuple, lines: tuple, x) -> tuple[dic
         raise AssertionError(f"cli {name}: mean fit {fit}")
     if len(calls) != 1:
         raise AssertionError(f"cli {name}: {len(calls)} CALS calls")
-    print(f"cli {name}: wall {wall:.3f}s (its kernels' calls recorded), launches {counts}", flush=True)
+    stats = lut_stats(f"cli {name}")  # its CALS and jackknife runs under AUTO; batched ALS reads no table
+    print(f"cli {name}: wall {wall:.3f}s (its kernels' calls recorded), launches {counts}, lookup {stats}",
+          flush=True)
     m_rec.check_total(f"cli {name}'s MTTKRP mix",
                       counts.get("fused_mttkrp_fp32", 0) + counts.get("fused_mttkrp_tc", 0))
     h_rec.check_total(f"cli {name}'s normal-inverse mix", counts.get("normal_inverse", 0))
@@ -2182,7 +2459,7 @@ def run_cli(name: str, argv: list, kernels: tuple, lines: tuple, x) -> tuple[dic
         ("normal_inverse", hinv_mix(h_rec, f"cli {name}")),
         ("epilogue_apply", apply_mix(a_rec, f"cli {name}"))) if v}
     return dict(wall_s=wall, lines={k: list(v) for k, v in got.items()}, launches=counts, csv_rows=len(rows),
-                mixes=mixes), calls[0]
+                mixes=mixes, lut_dispatch=stats), calls[0]
 
 
 def cli_cross_check(x_cli, call) -> dict:
@@ -2243,7 +2520,10 @@ def tol_intake(x_np) -> dict:
         reports.append(out[1])
         return out
 
+    from cp_cals_tpu_torch.utils import lut
+
     runs = {"seeds": [], "host": []}
+    lut.reset_lookup_stats()
     api._cp_cals_solver = solver
     try:
         for kind in ("seeds", "host", "host", "seeds"):
@@ -2257,12 +2537,13 @@ def tol_intake(x_np) -> dict:
                                    rounds=loop_totals(rep)["stats_fetches"]))
     finally:
         api._cp_cals_solver = real
+    stats = lut_stats("api.cp_cals at its defaults")
     (a, b) = (runs["seeds"][0], runs["host"][0])
     assert_bit_identical("api.cp_cals at its defaults: seeds vs the host-built queue",
                          (a["fit"].ktensors, a["rep"]), (b["fit"].ktensors, b["rep"]))
     out = {k: [{f: v for f, v in run.items() if f not in ("fit", "rep")} for run in rs] for k, rs in runs.items()}
     out.update(materialize_s=materialize_s, mean_iters=float(np.mean(a["fit"].iters)),
-               mean_fit=float(np.mean(a["fit"].fits)))
+               mean_fit=float(np.mean(a["fit"].fits)), lut_dispatch=stats)
     print(f"api.cp_cals defaults (tol-driven, mean iters {out['mean_iters']:.1f}): "
           + "; ".join(f"{k} walls {[round(r['wall_s'], 4) for r in v]} s, setup "
                       f"{[round(r['setup'], 4) for r in v]} s, eviction rounds {[round(r['evict'], 4) for r in v]} s, "
@@ -2324,8 +2605,11 @@ def entry_point_phase(x_np, dev) -> dict:
     # 3. api.cp_cals with device-generated inits against the same run on
     # the spec_to_ktensor queue built on the host.
     ranks = [r for r in range(1, 21) for _ in range(20)]
+    from cp_cals_tpu_torch.utils import lut
+
     opts = dict(bucket_ranks=BUCKETS, buffer_size=BUFFER, maxiters=ITERS, force_max_iter=True, tol=1e-6)
     reset_counts()
+    lut.reset_lookup_stats()
     t0 = time.perf_counter()
     fit = api.cp_cals(x_np, ranks, init="random", seed=SPEC_SEED, **opts)
     api_s = time.perf_counter() - t0
@@ -2342,6 +2626,7 @@ def entry_point_phase(x_np, dev) -> dict:
                                                [m.approx_error for m in rep_m.models]):
         raise AssertionError("api.cp_cals: its reports differ from the materialized run's")
     assert_bit_identical("engine spec queue vs the spec_to_ktensor queue", (res_s, rep_s), (res_m, rep_m))
+    lut_stats("spec intake")
     setup = dict(spec=engine_walls(rep_s)["setup"], host=engine_walls(rep_m)["setup"])
     print(f"spec intake: api wall {api_s:.3f}s; bucket setup {setup['spec']:.4f}s from seeds on the card vs "
           f"{setup['host']:.4f}s from host-built models (spec_to_ktensor + to_host of 400 models "
@@ -2364,6 +2649,7 @@ def entry_point_phase(x_np, dev) -> dict:
     # is checked, the walls of all are kept.
     walls = {"untraced": [], "traced": []}
     firsts = {}
+    lut.reset_lookup_stats()
     for kind in ("untraced", "traced", "traced", "untraced", "untraced", "traced"):
         trace = RunTrace() if kind == "traced" else None
         res, rep, wall = timed(trace=trace)
@@ -2378,6 +2664,7 @@ def entry_point_phase(x_np, dev) -> dict:
     disk = sum(os.path.getsize(os.path.join(ck_dir, f)) for f in os.listdir(ck_dir))
     got, rep_g, resume_s = timed(checkpoint_dir=ck_dir, resume=True)
     assert_bit_identical("checkpoint cut + resume vs uninterrupted", (want, rep_w), (got, rep_g))
+    lut_stats("checkpoint and trace")
     n_ck = sum(c["checkpoints"] for r in (rep_p, rep_g) for c in r.loop_counts.values())
     ck_s = engine_walls(rep_p)["checkpoint"] + engine_walls(rep_g)["checkpoint"]
     disk_end = sum(os.path.getsize(os.path.join(ck_dir, f)) for f in os.listdir(ck_dir))
@@ -2421,16 +2708,17 @@ def main() -> int:
     x_np, rng = bench_tensor()
     x = torch.from_numpy(x_np).to(dev)
     rows, worst = kernel_phase(x, dev)
+    table = table_phase(dev)
 
     queue = engine_queue(rng)
-    engine_run(x_np, queue[::80], {}, "warm-up", check_fit=False)
+    engine_run(x_np, queue[::80], {}, "warm-up", check_fit=False, **pinned())
     res_a, rep_a, run_a = engine_run(x_np, queue, {}, "highest")
     res_b, rep_b, run_b = engine_run(x_np, queue, BENCH_TIERS, "bench-tiers")
     res_i, rep_i, run_i = engine_run(x_np, queue, BENCH_TIERS, "bench-tiers iter", sync_mode="iter")
     assert_bit_identical("bench-tiers graph loop vs sync_mode='iter'", (res_b, rep_b), (res_i, rep_i))
     res_h, rep_h, run_h = engine_run(x_np, queue, BENCH_TIERS, "headline", **HEADLINE)
-    check = cross_check(x_np, queue, {"highest": (res_a, rep_a), "bench-tiers": (res_b, rep_b)})
-    check.update(cross_check(x_np, queue, {"headline": (res_h, rep_h)}, **HEADLINE))
+    check = cross_check(x_np, queue, {"highest": (res_a, rep_a), "bench-tiers": (res_b, rep_b)}, picks_of(run_a))
+    check.update(cross_check(x_np, queue, {"headline": (res_h, rep_h)}, picks_of(run_h), **HEADLINE))
 
     # The other MTTKRP routes, the layout policies and the dimension tree on
     # the bench tensor (3-D), each checked.
@@ -2443,7 +2731,8 @@ def main() -> int:
     res_r, rep_r, run_r = engine_run(x_np, queue, BENCH_TIERS, "bench-tiers recompute", mode_layouts="recompute")
     assert_bit_identical("bench-tiers mode_layouts='recompute' vs 'materialized'", (res_b, rep_b), (res_r, rep_r))
     # dimtree="on" at "highest" beside "off", in turns: off, on, on, off.
-    dimtree = dict(per_step=fused("highest", mttkrp_modes=1), routes={"fused": 1, "dimtree": 2}, dimtree="on")
+    dimtree = dict(per_step=fused("highest", mttkrp_modes=1), routes={"fused": 1, "dimtree": 2}, dimtree="on",
+                   **pinned())
     res_d, rep_d, run_d = engine_run(x_np, queue, {}, "dimtree", **dimtree)
     run_d2 = engine_run(x_np, queue, {}, "dimtree again", **dimtree)[2]
     run_a2 = engine_run(x_np, queue, {}, "highest again")[2]
@@ -2483,7 +2772,7 @@ def main() -> int:
     ]
     kernels = []
     for name, key, t, run, rep, source, replaces in spec:
-        w = rep.engine_iterations
+        w = fused_weights(run, rep) if key == "mttkrp" else rep.engine_iterations
 
         def mean(field, t=t, key=key, w=w):
             return weighted(rows, w, key, field, t)
@@ -2562,7 +2851,7 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                       build_s=build_s, shapes=rows,
+                       build_s=build_s, shapes=rows, table=table,
                        engine={"highest": run_a, "bench_tiers": run_b, "bench_tiers_iter": run_i,
                                "headline": run_h},
                        other_routes={"twostep": run_t, "krp_gemm": run_k, "bench_tiers_recompute": run_r,

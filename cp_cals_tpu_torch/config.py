@@ -161,18 +161,21 @@ def resolve_epilogue(params: AlsParams | CalsParams) -> str:
 
 
 def resolve_mttkrp_method(params: AlsParams | CalsParams, shape, dtype, device) -> tuple[str, ...]:
-    """The MTTKRP method of each mode of a tensor of ``shape``. ``AUTO``
-    takes the fused kernels (``"pallas"``) where their static gate
-    (``ops/fused_mttkrp.py:fused_mttkrp_supported``) takes the mode, and the
-    twostep elsewhere, every mode of an N-D tensor included (the CUDA lookup
-    table is ROADMAP queue 1 item 9). An explicit method is honoured; the
-    batched dispatch still sends a mode the fused gate refuses to the
-    twostep, as the JAX package does."""
+    """The MTTKRP method of each mode of a tensor of ``shape`` where no
+    bucket's methods are given (``cp_als``, ``cp_batched_als``, and a
+    ``make_iteration`` called without ``mttkrp_methods``). ``AUTO`` takes
+    ``utils/lut.py:heuristic_methods`` (the fused kernels where their
+    static gate takes the mode, the twostep elsewhere) and never reads a
+    table, as the JAX package's ALS does; the engine resolves AUTO per
+    bucket from the table (``solvers/cals.py:_resolve_bucket_methods``).
+    An explicit method is honoured; the batched dispatch still sends a
+    mode the fused gate refuses to the twostep, as the JAX package does."""
     from .ops.mttkrp import resolve_batched_method
+    from .utils.lut import heuristic_methods
 
     method = params.mttkrp_method.value
     if method == "auto":
-        method = "pallas"
+        return heuristic_methods(tuple(shape), dtype=dtype, device=device)
     return tuple(resolve_batched_method(method, shape, n, dtype, device) for n in range(len(shape)))
 
 

@@ -158,23 +158,24 @@ def resolve_batched_method(method: str, shape, mode: int, dtype, device, b: int 
     return method
 
 
+def prepare_mode(x: torch.Tensor, mode: int, method: str, precision: str = "highest") -> torch.Tensor:
+    """The loop-invariant layout of one mode for ``method`` (already
+    resolved), an |X|-sized copy: the unfolding for ``krp_gemm``, the
+    twostep's ``[I_n * prod(small), I_big]``, the fused kernels' held layout
+    at the MTTKRP tier ``precision`` (X rounded there, once)."""
+    if method in ("krp_gemm", "auto"):
+        return _unfold(x, mode).contiguous()
+    if method == "twostep":
+        return _ts_layout(x, mode)
+    return prepare_mode_tensor(x, mode, precision)
+
+
 def prepare_batched(x: torch.Tensor, methods: Sequence[str], precision: str = "highest") -> tuple:
-    """Loop-invariant per-mode tensor layouts for the chosen methods, each
-    an |X|-sized copy: the unfolding for ``krp_gemm``, the twostep's
-    ``[I_n * prod(small), I_big]``, the fused kernels' held layout at the
-    MTTKRP tier ``precision`` (X rounded there, once). The fused gate's
-    planners refuse a mode by its k range alone, so the gate is asked here
-    for one model of rank one."""
-    out = []
-    for n, m in enumerate(methods):
-        m = resolve_batched_method(m, x.shape, n, x.dtype, x.device)
-        if m in ("krp_gemm", "auto"):
-            out.append(_unfold(x, n).contiguous())
-        elif m == "twostep":
-            out.append(_ts_layout(x, n))
-        else:
-            out.append(prepare_mode_tensor(x, n, precision))
-    return tuple(out)
+    """Every mode's ``prepare_mode`` layout for the chosen methods. The
+    fused gate's planners refuse a mode by its k range alone, so the gate
+    is asked here for one model of rank one."""
+    return tuple(prepare_mode(x, n, resolve_batched_method(m, x.shape, n, x.dtype, x.device), precision)
+                 for n, m in enumerate(methods))
 
 
 def _packed_krp(factors_t: list[torch.Tensor]) -> torch.Tensor:
@@ -251,12 +252,16 @@ def mttkrp_batched(x: torch.Tensor, factors, mode: int, method: str = "krp_gemm"
                    precision: str = "highest", prepared: torch.Tensor | None = None,
                    pred: torch.Tensor | None = None) -> torch.Tensor:
     """[B, I_mode, R] by ``method``, a mode the fused gate refuses taking
-    the twostep. ``prepared`` is ``prepare_batched``'s layout of the mode
+    the twostep. ``prepared`` is ``prepare_mode``'s layout of the mode
     (None: derived here); ``pred``, the fused kernels' launch predicate
     (``ops/fused_mttkrp.py``), is ignored by the other methods, which
-    always compute."""
+    always compute. Where the gate sends an asked ``"pallas"`` to the
+    twostep, ``prepared`` (the fused kernels' layout) is not the twostep's,
+    and the twostep derives its own."""
     b, r = factors[0].shape[0], factors[0].shape[-1]
-    method = resolve_batched_method(method, x.shape, mode, x.dtype, x.device, b, r)
+    asked, method = method, resolve_batched_method(method, x.shape, mode, x.dtype, x.device, b, r)
+    if method != asked:
+        prepared = None
     if method == "pallas":
         ROUTES["fused"] += 1
         return mttkrp_batched_fused(x, factors, mode, prepared, precision, pred)

@@ -37,6 +37,18 @@ and keys) after every eviction round, after the round's refill, kill and
 tail compaction; ``resume`` rebuilds a bucket's loop from its snapshot,
 which captures its graphs anew.
 
+Under ``mttkrp_method=AUTO`` every bucket takes its MTTKRP methods per
+mode from the lookup table at its (rank, allocated batch), for its fast
+tier and, where they differ, for its polish tier
+(``_resolve_bucket_methods``); on the card a missing entry is autotuned and
+stored first, every bucket's before any bucket runs, so no autotune times
+against a running bucket. The held X layouts are one per (mode, method,
+tier) that some bucket needs, shared by the buckets that agree, and kept
+until the call returns, since the captured graphs read them: at most one
+per method and mode, and the fused kernels' at a second tier where the
+check or the polish runs at another precision, each about |X| (at 500^3 in
+float32, 500 MB a layout, up to 6 GB for 3 modes).
+
 Differences from the JAX engine (ROADMAP section 3): buckets run one after
 another (``bucket_threads`` is accepted and not used); results are fetched
 synchronously. Meshes raise ``NotImplementedError``.
@@ -93,6 +105,40 @@ class CalsReport:
     # sweeps, and checkpoints written (one per eviction round under
     # checkpoint_dir).
     loop_counts: dict = field(default_factory=dict)
+
+
+# ------------------------------------------------------- MTTKRP dispatch
+
+
+def _resolve_bucket_methods(
+    x_shape: tuple, r: int, b: int, params: CalsParams, dtype=torch.float32, device="cpu"
+) -> tuple[tuple | None, tuple | None]:
+    """Per-mode MTTKRP methods of a bucket of rank ``r`` and batch ``b``
+    (``cp_cals_tpu/solvers/cals.py:_resolve_bucket_methods``): the fast
+    tier's (``mttkrp_precision or precision``) for the main sweeps, and
+    ``precision``'s for the polish sweeps, or None where they equal the
+    fast tier's. (None, None) unless ``mttkrp_method`` is AUTO.
+
+    The table is keyed by tier because the ranking of the methods changes
+    with it. On the card a missing exact entry is autotuned and stored
+    first (``utils/lut.ensure_methods``), unless ``CP_CALS_NO_AUTOTUNE`` is
+    set; on the CPU the table (or the heuristic) is read and nothing is
+    timed."""
+    if params.mttkrp_method.value != "auto":
+        return None, None
+    from ..utils.lut import ensure_methods, lookup_methods
+
+    dev = torch.device(device)
+    tune = dev.type == "cuda" and not os.environ.get("CP_CALS_NO_AUTOTUNE")
+    get = ensure_methods if tune else lookup_methods
+    fast_tier = params.mttkrp_precision or params.precision
+    methods = get(tuple(x_shape), r, b, precision=fast_tier, dtype=dtype, device=dev)
+    polish_methods = None
+    if params.polish_iters and params.mttkrp_precision:
+        polish_methods = get(tuple(x_shape), r, b, precision=params.precision, dtype=dtype, device=dev)
+        if polish_methods == methods:
+            polish_methods = None
+    return methods, polish_methods
 
 
 # ------------------------------------------------------- bucketing and budget
@@ -408,17 +454,36 @@ def cp_cals(
     )
     # always_evict_first needs per-iteration host control, as in JAX.
     chunked = params.sync_mode == "evict" and not params.always_evict_first
-    iteration = make_iteration(params, batched=True, has_jk=has_jk)
-    prepared = iteration.prepare(x)  # loop-invariant layouts, once per solve
-    polish = None
-    if chunked and params.polish_iters > 0:
-        # The polish sweeps: full `precision`, no line search, no mixed-tier
-        # check (polish keeps converged and iters), on X held at that tier.
-        p_params = dataclasses.replace(
-            params, mttkrp_precision=None, line_search=False, tol_check_interval=0
-        )
-        p_iter = make_iteration(p_params, batched=True, has_jk=has_jk)
-        polish = (p_iter, prepared.hi, params.polish_iters, params.polish_tol)
+    # The polish sweeps: full `precision`, no line search, no mixed-tier
+    # check (polish keeps converged and iters), on X held at that tier.
+    p_params = dataclasses.replace(params, mttkrp_precision=None, line_search=False, tol_check_interval=0)
+    # The loop-invariant layouts of X, (mode, method, tier) -> tensor, shared
+    # by every bucket (module docstring); none under mode_layouts="recompute".
+    layouts: dict = {}
+    resolved: dict = {}  # (bucket rank, batch) -> (methods, polish methods), resolved once
+    programs: dict = {}  # (methods, polish methods) -> (iteration, held layouts, polish)
+
+    def bucket_program(r: int, b: int):
+        """The iteration, its held layouts and the polish of a bucket, by the
+        bucket's MTTKRP methods; buckets of the same methods share them."""
+        if (r, b) not in resolved:
+            resolved[(r, b)] = _resolve_bucket_methods(modes, r, b, params, t_dtype, dev)
+        key = resolved[(r, b)]
+        if key not in programs:
+            methods, polish_methods = key
+            iteration = make_iteration(params, batched=True, mttkrp_methods=methods, has_jk=has_jk)
+            polish = None
+            if chunked and params.polish_iters > 0:
+                p_iter = make_iteration(p_params, batched=True, mttkrp_methods=polish_methods or methods,
+                                        has_jk=has_jk)
+                polish = (p_iter, p_iter.prepare(x, layouts), params.polish_iters, params.polish_tol)
+            programs[key] = (iteration, iteration.prepare(x, layouts), polish)
+        return programs[key]
+
+    # Every bucket's methods (autotuned on a miss) before any bucket runs.
+    for wave in waves:
+        for r, b in wave.items():
+            bucket_program(r, b)
     results: dict[int, Ktensor] = {}
     mixed_tol = params.tol_check_interval > 0
     nnls = params.update_method == UpdateMethod.NNLS
@@ -531,6 +596,7 @@ def cp_cals(
         })
 
     def run_bucket(r: int, dq: collections.deque, b: int):
+        iteration, prepared, polish = bucket_program(r, b)
         models: list[CalsModelReport] = []
         pt = {"setup": 0.0, "solve": 0.0, "evict": 0.0, "capture": 0.0}
         counts = dict(captures=0, replays=0, stats_fetches=0, polish_sweeps=0, checkpoints=0, capture_s=0.0)

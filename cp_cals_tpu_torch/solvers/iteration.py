@@ -1,9 +1,11 @@
 """One batched ALS iteration over a SolverState (port of the main-path
 subset of ``cp_cals_tpu/solvers/iteration.py:57-501``).
 
-Per mode: the MTTKRP by the mode's method (``config.resolve_mttkrp_method``:
-the fused kernels where their gate takes the mode, the twostep elsewhere,
-every mode of an N-D tensor included; or the method asked for), or under
+Per mode: the MTTKRP by the mode's method (``mttkrp_methods``, the
+engine's per-bucket picks from the lookup table; without them
+``config.resolve_mttkrp_method``: under AUTO the fused kernels where their
+gate takes the mode, the twostep elsewhere, every mode of an N-D tensor
+included; or the method asked for), or under
 ``dimtree="on"`` (3-D) modes 1 and 2 from one shared TTM after the mode-0
 update; then either the fused epilogue kernels (``epilogue="fused"``, the
 default here) or the unfused PyTorch path (``epilogue="xla"``). The fused
@@ -20,7 +22,11 @@ nothing in it reads a device value on the host. Its ``.prepare(x)`` resolves
 the per-mode methods and builds the loop-invariant tensor layouts once per
 solve, held for the MTTKRP's precision tier (the fused kernels' layouts at
 the bf16 tiers hold X rounded, once), and also at ``params.precision``
-where the mixed-tier check or the polish sweeps run there (``Held.hi``).
+where the mixed-tier check runs there (``Held.hi``; the engine's polish
+sweeps are an iteration of their own at that tier).
+Given a dict ``layouts``, it takes each layout from there, keyed by
+(mode, method, tier), and puts what it builds there, so the engine's
+buckets share the layouts they agree on.
 Under ``mode_layouts="recompute"`` (``"auto"``: tensors above 128 MB)
 nothing is held: each MTTKRP derives its layout inside the iteration, and
 in a captured CUDA graph the copies come from the graph's pool, so the
@@ -71,13 +77,13 @@ from ..ktensor import Ktensor, denormalize, normalize_factor_fused, normalize_fu
 from ..ops.error import fast_error
 from ..ops.fused_epilogue import epilogue_apply, normal_inverse, supports_fused_epilogue
 from ..ops.gramians import gramians, hadamard_all, hadamard_but_one
-from ..ops.fused_mttkrp import prepare_mode_tensor
 from ..ops.mttkrp import (
     dimtree_layout,
     dimtree_ttm,
     dimtree_ttv,
     mttkrp_batched,
-    prepare_batched,
+    prepare_mode,
+    resolve_batched_method,
 )
 from ..ops.update import padded_hadamard, update_factor_nnls, update_factor_unconstrained
 from .state import BIG_ERROR, HiState, LsState, SolverState, tree_where
@@ -89,9 +95,9 @@ class Held(tuple):
     more slot, the shared TTM's layout (``[n_modes]``, as in the JAX
     package). ``methods`` holds each mode's resolved MTTKRP method. ``hi``
     holds the layouts at ``params.precision``, the tier of the mixed-tier
-    check's MTTKRP and of the polish sweeps: the same tuple where the two
-    tiers agree, None where neither runs; only the fused kernels' layouts
-    depend on the tier, the others are shared."""
+    check's MTTKRP: the same tuple where the two tiers agree, None where no
+    check runs; only the fused kernels' layouts depend on the tier, the
+    others are shared."""
 
     hi: "Held | None" = None
     methods: tuple = ()
@@ -147,9 +153,14 @@ def cube_root(t: torch.Tensor) -> torch.Tensor:
 def make_iteration(
     params: AlsParams | CalsParams,
     batched: bool = True,
+    mttkrp_methods: tuple[str, ...] | None = None,
     has_jk: bool = True,
 ) -> Callable[..., SolverState]:
     """Build the iteration for the given params.
+
+    mttkrp_methods optionally gives each mode's MTTKRP method (the engine's
+    per-bucket picks under AUTO, ``solvers/cals.py:_resolve_bucket_methods``);
+    the mixed-tier check's MTTKRP takes the last mode's.
 
     has_jk=False leaves out the jackknife row zero of mode 0 for queues
     without jackknife models.
@@ -167,23 +178,38 @@ def make_iteration(
     fused = not nnls and resolve_epilogue(params) == "fused"
     nec = params.line_search_method == LineSearchMethod.NO_ERROR_CHECKING
     k_check = params.tol_check_interval
-    # The check's MTTKRP and the polish sweeps run at `precision`.
-    need_hi = k_check > 0 or getattr(params, "polish_iters", 0) > 0
+    # The check's MTTKRP runs at `precision`.
+    need_hi = k_check > 0
 
-    def prepare(x) -> Held:
+    def prepare(x, layouts: dict | None = None) -> Held:
         n_modes = x.ndim
-        methods = resolve_mttkrp_method(params, tuple(x.shape), x.dtype, x.device)
+        if mttkrp_methods is not None:
+            methods = tuple(mttkrp_methods)
+        else:
+            methods = resolve_mttkrp_method(params, tuple(x.shape), x.dtype, x.device)
         dimtree = resolve_dimtree(params, n_modes)
+        layouts = {} if layouts is None else layouts
+
+        def layout(n, tier):
+            """Mode n's layout for its method; only the fused kernels' depends
+            on the tier."""
+            m = resolve_batched_method(methods[n], x.shape, n, x.dtype, x.device)
+            key = (n, m, tier if m == "pallas" else None)
+            if key not in layouts:
+                layouts[key] = prepare_mode(x, n, m, tier)
+            return layouts[key]
+
         if resolve_layouts(params, x) == "recompute":
             held = Held((None,) * (n_modes + dimtree))
         else:
-            held = Held(prepare_batched(x, methods, mttkrp_prec)
-                        + ((dimtree_layout(x).contiguous(),) if dimtree else ()))
+            if dimtree and "dimtree" not in layouts:
+                layouts["dimtree"] = dimtree_layout(x).contiguous()
+            held = Held(tuple(layout(n, mttkrp_prec) for n in range(n_modes))
+                        + ((layouts["dimtree"],) if dimtree else ()))
         held.methods = methods
         if need_hi:
-            held.hi = held if precision == mttkrp_prec or held[0] is None else Held(tuple(
-                prepare_mode_tensor(x, n, precision) if methods[n] == "pallas" else held[n]
-                for n in range(n_modes)) + held[n_modes:])
+            held.hi = held if precision == mttkrp_prec or held[0] is None else Held(
+                tuple(layout(n, precision) for n in range(n_modes)) + held[n_modes:])
             held.hi.methods = methods
         return held
 

@@ -41,8 +41,19 @@ from cp_cals_tpu_torch.ops import fused_mttkrp as fm
 from cp_cals_tpu_torch.ops import mttkrp as mt
 from cp_cals_tpu_torch.ops import spd_inverse as si
 from cp_cals_tpu_torch.ops.gramians import gramians
+from cp_cals_tpu_torch.solvers.cals import allocate_bucket_batches, bucket_rank
+from cp_cals_tpu_torch.utils import lut
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _no_table(tmp_path_factory, monkeypatch):
+    """Every test reads an empty table root and never autotunes, so AUTO is
+    the heuristic, unless the test asks for the table
+    (``test_autotune_*``)."""
+    monkeypatch.setattr(lut, "_ROOT", str(tmp_path_factory.mktemp("lookup_tables")))
+    monkeypatch.setenv("CP_CALS_NO_AUTOTUNE", "1")
 
 
 @pytest.fixture
@@ -915,3 +926,57 @@ def test_recompute_equals_materialized_on_the_card(dev, kw):
         assert (ma.iters, ma.fit, ma.approx_error) == (mb.iters, mb.fit, mb.approx_error)
         for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
             np.testing.assert_array_equal(fa, fb)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_autotune_on_the_card_writes_valid_entries(dev, precision):
+    """Every mode gets a method its gate takes, each candidate a finite
+    replayed time; the launch counts are left as they were; a second call
+    hits the entries exactly."""
+    modes, r, b = (64, 50, 30), 4, 8
+    before = (launches.read(), launches.routes())
+    got = lut.autotune(modes, r, b, reps=2, precision=precision, device=dev)
+    assert (launches.read(), launches.routes()) == before
+    table = lut._load(modes, dev)
+    for n, m in enumerate(got):
+        assert table[lut._key(b, r, n, precision)] == m and m in lut.METHODS
+        times = lut.LAST_TIMES[lut._key(b, r, n, precision)]
+        assert set(times) == set(lut.METHODS) and all(0 < t < 1e3 for t in times.values())
+    lut.reset_lookup_stats()
+    assert lut.ensure_methods(modes, r, b, precision=precision, device=dev) == got
+    assert lut.LOOKUP_STATS == {"exact": 3, "nearest": 0, "heuristic": 0}
+
+
+def test_autotune_on_a_miss_then_auto_hits_the_entries(dev, monkeypatch):
+    """cp_cals under AUTO on the card autotunes each bucket's missing
+    entries once, before any bucket runs; a second run hits them exactly,
+    tunes nothing, and its MTTKRP results by route are the picks."""
+    monkeypatch.delenv("CP_CALS_NO_AUTOTUNE")
+    x, queue = _bench_problem(5, 1)
+    params = CalsParams(max_iterations=4, force_max_iter=True, bucket_ranks=(4, 8, 12, 16, 20), buffer_size=200,
+                        precision="high", mttkrp_precision="default")
+    lut.reset_lookup_stats()
+    cp_cals(x, queue, params)
+    assert lut.LOOKUP_STATS["heuristic"] == 0
+    demands = {}
+    for kt in queue:
+        demands[bucket_rank(kt.rank, params.bucket_ranks)] = demands.get(bucket_rank(kt.rank, params.bucket_ranks),
+                                                                          0) + 1
+    (wave,) = allocate_bucket_batches(demands, params.buffer_size)
+    assert all(lut.has_exact_entries(x.shape, r, b, "default", dev) for r, b in wave.items())
+
+    def refuse(*a, **k):
+        raise AssertionError("autotune on an exact hit")
+
+    monkeypatch.setattr(lut, "autotune", refuse)
+    lut.reset_lookup_stats()
+    _zero()
+    _, rep = cp_cals(x, queue, params)
+    assert lut.LOOKUP_STATS == {"exact": 3 * len(wave), "nearest": 0, "heuristic": 0}
+    picks = {r: lut.lookup_methods(x.shape, r, b, "default", device=dev) for r, b in wave.items()}
+    want = dict.fromkeys(launches.routes(), 0)
+    for r, methods in picks.items():
+        for m in methods:
+            want["fused" if m == "pallas" else m] += rep.engine_iterations[r]
+    assert launches.routes() == want
+    assert fm.fused_mttkrp_tc.launches == want["fused"]

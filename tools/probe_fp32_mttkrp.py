@@ -42,6 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the bench tensor, its timing helpers)
 from cp_cals_tpu_torch import _build  # noqa: E402
 from cp_cals_tpu_torch.ops import fused_mttkrp as fm  # noqa: E402
+from cp_cals_tpu_torch.utils.roofline import device_peaks  # noqa: E402
 
 SOURCE = _build.CSRC / "fused_mttkrp.cu"
 NO_X = [
@@ -177,8 +178,9 @@ def main() -> int:
     a, bm = torch.randn(n, n, device=dev), torch.randn(n, n, device=dev)
     t = chip_smoke.cuda_ms(lambda: torch.matmul(a, bm), reps=10)
     sgemm = 2 * n**3 / t / 1e9
+    peak = device_peaks(0)["fp32_tflops"]
     print(f"cuBLAS fp32 SGEMM {n}^3 (TF32 off): {t:.3f} ms, {sgemm:.1f} TFLOP/s "
-          f"({sgemm / (chip_smoke.PEAK_FP32 / 1e12):.3f} of the {chip_smoke.PEAK_FP32 / 1e12:.0f} TFLOP/s peak)",
+          f"({sgemm / peak:.3f} of the {peak:.0f} TFLOP/s peak)",
           flush=True)
     with open(os.path.join(args.out, "probe_fp32_mttkrp.json"), "w") as fh:
         json.dump(dict(card=card, builds={k: v[1] for k, v in libs.items()}, rows=rows, mix=summary,
