@@ -122,6 +122,31 @@ the result lines are printed):
    against the port's float64 CPU run of 10 fibers; a debug=True run
    (eager, no graph) with an injected rise of the error at each model's
    6th iteration, its recorded entries against the same run on the CPU.
+5c. Multi-device (cp_cals_tpu_torch/parallel/): two ranks spawned on
+   cuda:0, joined over gloo (backend="gloo", asked for: NCCL refuses two
+   ranks on one card), each launching every kernel itself: (a) the
+   bench-tier run (the bench workload at full width, 10 forced iterations,
+   the fused kernels pinned) under dp = 2, each rank on its half of every
+   bucket's slots, chunks captured; (b) the same under tp = 2, each rank on
+   its 150 or 149 rows of mode 0, the tp sums inside the iteration, mode
+   0's MTTKRP gathered whole for the apply kernel (as GSPMD gathers the
+   sharded operand around the Pallas apply), uncaptured; (c) J1 at 10
+   forced iterations (299 replicates) under dp = 2; and the "highest" run
+   (the fp32 kernel) under dp = 2 and under tp = 2, which hold the
+   collectives to CROSS_TOL["highest"], where a wrong sum would show (the
+   bf16 tiers amplify a rank's other rounding). Each rank's results are
+   held against the single-process run of the same configuration (the
+   bench-tier and "highest" runs, and J1 at 10 forced iterations run
+   here; ``mesh_diff``, which tools/mesh_cards.py shares): equal
+   iteration counts per model, bucket-iterations and stats fetches per
+   bucket (the same chunks and eviction rounds), and the results within
+   the cross-check tolerances (CROSS_TOL of the run's tiers,
+   JK_CROSS_TOL). Each rank's launches per kernel are exact: 3 MTTKRPs,
+   3 inverses and 3 applies per bucket-iteration. Printed: each rank's
+   launches, its collectives (in the iteration, "tp", and in the host
+   loop, "host") and their host seconds per bucket-iteration, the walls
+   beside the single-process walls. Two ranks on one card show correctness and the
+   cost of the collectives, not a speed-up.
 6. SPD inverse: the kernel against its plain version on the normal
    matrices J2 inverted (each eager call's, and each captured call's
    last replay), and on random SPD batches (R = 4, 20, 32, 33, 64,
@@ -161,7 +186,8 @@ the result lines are printed):
 8. Result: the graph captures, replays and stats fetches of each run, one
    {"kernels": [...]} line (the normal inverse and the apply also at K = 3,
    as "normal_inverse_k3" and "epilogue_apply_k3", at the 4-D run's launch
-   mix), then the last line
+   mix; each rank's launches in phase 5c's runs as
+   "multi_device_launches"), then the last line
    {"ok": true, "device": {...}}. The per-shape measurements go to
    chiprun_out/chip_smoke.json, the probe's to
    chiprun_out/overhead_probe.json.
@@ -1496,6 +1522,199 @@ def spd_phase(rec, dev) -> dict:
     return dict(checks=checks, mix=mix, max_abs_err=worst)
 
 
+# ------------------------------------------------------------ multi-device phase
+
+# name: (dp, tp, the run's precision tiers); each against the one-process
+# run of its tiers, within CROSS_TOL of those tiers. The "highest" runs (the
+# fp32 kernel) hold the collectives where a fault would show; the bench
+# tiers' bf16 roundings amplify a rank's other summation order (a rank runs
+# half the slots and the kernels' plans depend on the batch; under tp each
+# rank rounds its partial sum over its rows) to about 4e-3 (PERF.md).
+MESH_RUNS = {"dp": (2, 1, BENCH_TIERS), "tp": (1, 2, BENCH_TIERS), "dp highest": (2, 1, {}),
+             "tp highest": (1, 2, {})}
+MESH_DEVICE = "cuda:0"
+MESH_TIMEOUT = 300  # seconds a rank may take, start-up included
+
+
+def j1_forced(**kw):
+    """J1 at 10 forced iterations (the jackknife cross-check's depth)."""
+    return jk_params(force_max_iter=True, max_iterations=10, **kw)
+
+
+def mesh_rank(rank: int, world: int, store: str, job: str, out: str) -> None:
+    """One rank of the multi-device phase (spawned; module docstring, 5c):
+    joins the gloo group on ``store``, runs the phase's three runs, each
+    from launch counts at 0, and writes what it got to ``out``.RANK."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from cp_cals_tpu_torch import cp_cals, jk_cp_cals
+    from cp_cals_tpu_torch.parallel import distributed
+
+    distributed.initialize(init_method="file://" + store, backend="gloo", rank=rank, world_size=world,
+                           device=MESH_DEVICE)
+    with open(job, "rb") as fh:
+        kt5 = pickle.load(fh)
+    x_np, rng = bench_tensor()
+    queue = engine_queue(rng)
+    # This process's first CUDA calls (library loads, cuBLAS), outside the walls.
+    cp_cals(x_np, queue[::80], bench_params(**BENCH_TIERS, **pinned()),
+            mesh=distributed.pod_mesh(1, device=MESH_DEVICE))
+    runs = [(name, tp, lambda mesh, tp=tp, tiers=tiers: cp_cals(
+        x_np, queue, bench_params(**tiers, **pinned()), mesh=mesh, shard_mode0=tp > 1))
+        for name, (_, tp, tiers) in MESH_RUNS.items()]
+    runs.append(("J1 dp", 1, lambda mesh: jk_cp_cals(x_np, [kt5], j1_forced(), mesh=mesh)))
+    got = {}
+    for name, tp, run in runs:
+        mesh = distributed.pod_mesh(tp, device=MESH_DEVICE)
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run(mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results, rep = (res.results[0], res.cals_report) if name.startswith("J1") else res
+        got[name] = dict(results=results, report=rep, launches=read_counts(), collectives=dict(mesh.counts),
+                         wall_s=wall)
+    with open(f"{out}.{rank}", "wb") as fh:
+        pickle.dump(got, fh)
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, kt5) -> list:
+    """``world`` ranks of ``mesh_rank``, joined with a time limit; a rank's
+    non-zero exit or time-out fails the phase. Returns each rank's runs."""
+    import multiprocessing
+    import pickle
+    import shutil
+
+    tmp = os.path.join("build", "chip_smoke_mesh")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    job, out, store = (os.path.abspath(os.path.join(tmp, n)) for n in ("job.pkl", "out", "store"))
+    with open(job, "wb") as fh:
+        pickle.dump(kt5, fh)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, store, job, out), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r, p in enumerate(procs):
+        if p.exitcode != 0:
+            raise AssertionError(f"multi-device phase: rank {r} exited {p.exitcode}")
+    got = []
+    for r in range(world):
+        with open(f"{out}.{r}", "rb") as fh:
+            got.append(pickle.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return got
+
+
+def recon_diff(a, b, drop_row: int | None = None, dev="cuda") -> float:
+    """The relative difference of two 3-D models' dense reconstructions,
+    |A - B| / |B|, in float64 on ``dev`` (mode-0 row ``drop_row``, a
+    jackknife replicate's NaN row, left out of both)."""
+    def dense(kt):
+        fs = [torch.from_numpy(np.asarray(f, np.float64)).to(dev) for f in kt.factors]
+        if drop_row is not None:
+            fs[0] = torch.cat([fs[0][:drop_row], fs[0][drop_row + 1:]])
+        return torch.einsum("ir,jr,kr,r->ijk", *fs, torch.from_numpy(np.asarray(kt.lam, np.float64)).to(dev))
+
+    da, db = dense(a), dense(b)
+    return (torch.linalg.vector_norm(da - db) / torch.linalg.vector_norm(db)).item()
+
+
+def mesh_diff(label: str, got, want, dev="cuda", jk: bool = False, tol=None) -> dict:
+    """A mesh run's (results, report) against the same run in one process:
+    raises where the iteration counts, bucket-iterations or stats fetches
+    (the chunks and eviction rounds) differ, or the results lie outside the
+    tolerance: JK_CROSS_TOL for jackknife replicates (``jk``), else ``tol``
+    (fit, reconstruction; None: recorded only). Returns the differences."""
+    (res, rep), (res1, rep1) = got, want
+    if [m.iters for m in rep.models] != [m.iters for m in rep1.models]:
+        raise AssertionError(f"{label}: iteration counts differ from the single-process run")
+    if dict(rep.engine_iterations) != dict(rep1.engine_iterations):
+        raise AssertionError(f"{label}: bucket-iterations {rep.engine_iterations} vs {rep1.engine_iterations}")
+    fetches = {r: c["stats_fetches"] for r, c in rep.loop_counts.items()}
+    if fetches != {r: c["stats_fetches"] for r, c in rep1.loop_counts.items()}:
+        raise AssertionError(f"{label}: stats fetches (chunks and eviction rounds) {fetches} differ")
+    if jk:
+        rec = max(recon_diff(a, b, f, dev) for f, (a, b) in enumerate(zip(res, res1)))
+        lam = max(float(np.abs(a.lam - b.lam).max() / np.abs(b.lam).max()) for a, b in zip(res, res1))
+        if not (rec <= JK_CROSS_TOL[0] and lam <= JK_CROSS_TOL[1]):
+            raise AssertionError(f"{label}: replicates {rec:.3e} / {lam:.3e} from the single-process run")
+        return dict(max_rel_recon_diff=rec, max_rel_lam_diff=lam)
+    fit = max(abs(a.fit - b.fit) for a, b in zip(rep.models, rep1.models))
+    rec = max(recon_diff(a, b, None, dev) for a, b in zip(res, res1))
+    if tol is not None and not (fit <= tol[0] and rec <= tol[1]):
+        raise AssertionError(f"{label}: fits {fit:.3e} / reconstructions {rec:.3e} from the single-process run")
+    return dict(max_fit_diff=fit, max_rel_recon_diff=rec)
+
+
+def mesh_phase(x_np, kt5, res_a, rep_a, run_a, res_b, rep_b, run_b) -> dict:
+    """The multi-device phase (module docstring, 5c)."""
+    from cp_cals_tpu_torch import jk_cp_cals
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    j1 = jk_cp_cals(x_np, [kt5], j1_forced())
+    torch.cuda.synchronize()
+    j1_wall = time.perf_counter() - t0
+    single = {"dp": (res_b, rep_b, run_b["wall_s"]), "tp": (res_b, rep_b, run_b["wall_s"]),
+              "dp highest": (res_a, rep_a, run_a["wall_s"]), "tp highest": (res_a, rep_a, run_a["wall_s"]),
+              "J1 dp": (j1.results[0], j1.cals_report, j1_wall)}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, kt5)
+    phase_s = time.perf_counter() - t0
+    out = dict(card=card_line(), phase_s=phase_s, runs={})
+    for name, (want_res, want_rep, want_wall) in single.items():
+        _, tp, tiers = MESH_RUNS.get(name, (2, 1, {"precision": "high"}))
+        mttkrp = MTTKRP_KERNEL[tiers.get("mttkrp_precision") or tiers.get("precision", "highest")]
+        rows = []
+        for rank, got in enumerate(ranks):
+            g = got[name]
+            label = f"multi-device {name} rank {rank}"
+            rep = g["report"]
+            diff = mesh_diff(label, (g["results"], rep), (want_res, want_rep), jk=name.startswith("J1"),
+                             tol=CROSS_TOL["highest" if tiers == {} else "bench-tiers"])
+            steps = sum(rep.engine_iterations.values())
+            # Every rank launches each kernel itself, the apply on every mode
+            # (under tp on all of mode 0, gathered).
+            check_counts(label, g["launches"], {mttkrp: 3 * steps, "normal_inverse": 3 * steps,
+                                                "epilogue_apply": 3 * steps}, {})
+            captures = sum(c["captures"] for c in rep.loop_counts.values())
+            if (captures == 0) != (tp > 1):
+                raise AssertionError(f"{label}: {captures} graph captures")
+            c = g["collectives"]
+            row = dict(rank=rank, wall_s=g["wall_s"], launches=g["launches"], captures=captures,
+                       bucket_iterations=steps, collectives=c,
+                       tp_per_bucket_iteration=c["tp"] / steps, tp_s_per_bucket_iteration=c["tp_s"] / steps,
+                       host_per_bucket_iteration=c["host"] / steps, host_s_per_bucket_iteration=c["host_s"] / steps,
+                       **diff)
+            rows.append(row)
+            print(f"{label}: wall {g['wall_s']:.3f}s (one process {want_wall:.3f}s), {steps} bucket-iterations, "
+                  f"{captures} graph captures, launches {g['launches']}; collectives: {c['tp']} in the iteration "
+                  f"({row['tp_per_bucket_iteration']:.2f} and {1e3 * row['tp_s_per_bucket_iteration']:.3f} ms per "
+                  f"bucket-iteration), {c['host']} in the host loop ({row['host_per_bucket_iteration']:.2f} and "
+                  f"{1e3 * row['host_s_per_bucket_iteration']:.3f} ms per bucket-iteration); against one process "
+                  f"{diff}", flush=True)
+        out["runs"][name] = dict(single_wall_s=want_wall, ranks=rows)
+    print(f"multi-device phase: {phase_s:.1f}s for two ranks on {MESH_DEVICE} over gloo ({out['card']})",
+          flush=True)
+    return out
+
+
 # ------------------------------------------------------------ probe phase
 
 
@@ -2302,8 +2521,8 @@ def debug_phase() -> dict:
                         epilogue="xla", debug=True, line_search=True, line_search_interval=4, **pinned())
     real = it.normalize_factor_fused
 
-    def bumped(u, iters):
-        f, lam, gm = real(u, iters)
+    def bumped(u, iters, *args):
+        f, lam, gm = real(u, iters, *args)
         return f, torch.where((iters == 6)[:, None], lam * 1.05, lam), gm
 
     entries = {}
@@ -2753,6 +2972,7 @@ def main() -> int:
     spd = spd_phase(rec, dev)
     jk_check = jk_cross_check(x_np, kt5)
     jk_check.update(j4_stop_check(x_np, kt5))
+    multi = mesh_phase(x_np, kt5, res_a, rep_a, run_a, res_b, rep_b, run_b)
     jk_ls = jk_line_search_phase(x_np, kt5)
     debug = debug_phase()
     entry_pts = entry_point_phase(x_np, dev)
@@ -2807,6 +3027,9 @@ def main() -> int:
             if mix:
                 entry[run_name + "_mix"] = mix_summary(mix)
                 entry["max_abs_err"] = max(entry["max_abs_err"], entry[run_name + "_mix"]["max_abs_err"])
+        # Each rank's launches in the multi-device phase's runs.
+        entry["multi_device_launches"] = {run: [r["launches"][name] for r in v["ranks"]]
+                                          for run, v in multi["runs"].items()}
         kernels.append(entry)
     # The widened epilogue kernels at K = 3 (the 4-D run's normal matrices
     # and FastALS error), at that run's launch mix.
@@ -2858,6 +3081,7 @@ def main() -> int:
                                      "dimtree": run_d, "dimtree_walls": dimtree_walls},
                        float64_on_card=f64, nd=nd, widened=wide,
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
+                       multi_device=multi,
                        mttkrp_j1_mix=j1_mix, nnls=nnls, line_search=ls, jk_line_search=jk_ls, debug=debug,
                        entry_points=entry_pts,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)

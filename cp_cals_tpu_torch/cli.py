@@ -10,6 +10,10 @@ Usage:
   python -m cp_cals_tpu_torch.cli -t 100-100-100 -c 1:10:20 [--tol 1e-6]
       [--line-search] [--nnls] [--compare-als] [--jk] [--csv out.csv]
       [--tensor-file path] [--device cuda|cpu]
+
+On several cards, one process each (torchrun sets RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR and MASTER_PORT):
+  torchrun --nproc_per_node=N -m cp_cals_tpu_torch.cli --distributed --dp N ...
 """
 
 from __future__ import annotations
@@ -71,11 +75,14 @@ def parse_args(argv=None):
                    help="result extraction wire dtype (float16/bfloat16): "
                         "halves device->host result bytes")
     p.add_argument("--dp", type=int, default=0,
-                   help="shard the model batch over this many devices (not ported)")
+                   help="shard the model batch over this many devices")
     p.add_argument("--tp", type=int, default=1,
-                   help="shard tensor mode 0 over this many devices (not ported)")
+                   help="shard tensor mode 0 over this many devices")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host runs (not ported)")
+                   help="multi-process: join the torch.distributed process group "
+                        "(parallel.distributed.initialize, torchrun's variables) "
+                        "before touching the device; one process per device: "
+                        "nccl on the card, gloo with --device cpu")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; the card must be present) or cpu "
                         "(the kernels' plain PyTorch versions)")
@@ -84,18 +91,27 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    from .config import AlsParams, CalsParams, UpdateMethod, not_ported
+    from .parallel import distributed
+    from .parallel.sharding import local_device
 
-    if args.dp or args.tp > 1 or args.distributed:
-        raise not_ported("--dp, --tp and --distributed", "queue 1 item 10")
+    if args.distributed:
+        # Before the device is touched: every process joins one group
+        # instead of running an independent single-process job.
+        distributed.initialize(device=args.device)
+        import torch.distributed as dist
 
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        print(f"host {rank}/{world}: {local_device(args.device)} / {world} devices")
+
+    from .config import AlsParams, CalsParams, UpdateMethod
     from .device import resolve_device
     from .ktensor import random_ktensor, random_ktensor_host, to_tensor
     from .prng import normal, prng_key, split
     from .solvers import cp_batched_als, cp_cals, jk_cp_cals
     from .utils.timers import write_ktensor_results_csv
 
-    dev = resolve_device(args.device)
+    dev = local_device(args.device) if args.distributed else resolve_device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
     kx, kn, _ = split(prng_key(args.seed, dev), 3)
 
@@ -157,8 +173,15 @@ def main(argv=None):
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"Device: {name}")
 
+    mesh = None
+    if args.dp or args.tp > 1:
+        from .parallel.sharding import make_mesh
+
+        mesh = make_mesh(n_dp=args.dp or None, n_tp=args.tp, device=dev)
+        print(f"Mesh: dp={mesh.n_dp} x tp={mesh.n_tp}")
+
     t0 = time.perf_counter()
-    results, rep = cp_cals(x, queue, cals_params, device=dev)
+    results, rep = cp_cals(x, queue, cals_params, device=dev, mesh=mesh, shard_mode0=args.tp > 1)
     cals_s = time.perf_counter() - t0
     mean_fit = sum(m.fit for m in rep.models) / len(rep.models)
     print(
@@ -167,7 +190,7 @@ def main(argv=None):
         f"mean iters {sum(m.iters for m in rep.models) / len(rep.models):.1f}"
     )
 
-    if args.csv:
+    if args.csv and distributed.is_coordinator():
         write_ktensor_results_csv(args.csv, rep.models)
         print(f"wrote {args.csv}")
 

@@ -110,13 +110,6 @@ class CalsParams:
     debug: bool = False
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch/CUDA package yet "
-        f"(ROADMAP {item})"
-    )
-
-
 def check_supported(params: AlsParams | CalsParams) -> None:
     """Raise for every setting the port does not run."""
     if params.nnls_algorithm not in NNLS_ALGORITHMS:

@@ -174,13 +174,18 @@ def random_ktensor_host(
     return Ktensor(tuple(factors), lam)
 
 
-def normalize_full(kt: Ktensor) -> Ktensor:
+def normalize_full(kt: Ktensor, tp=None) -> Ktensor:
     """Per-column L2 normalization of every factor; weights go into lam.
-    Zero (padded) columns stay zero with lam = 0."""
+    Zero (padded) columns stay zero with lam = 0. ``tp`` (a
+    ``parallel.sharding.TpRows``, or None) holds factor 0's rows split over
+    ranks: its squared column norms are summed over them."""
     lam = torch.ones_like(kt.lam)
     new_factors = []
-    for f in kt.factors:
-        coeff = torch.linalg.vector_norm(f, dim=-2)
+    for n, f in enumerate(kt.factors):
+        if tp is not None and n == 0:
+            coeff = torch.sqrt(tp.sum(torch.sum(f * f, dim=-2)))
+        else:
+            coeff = torch.linalg.vector_norm(f, dim=-2)
         safe = torch.where(coeff != 0, coeff, torch.ones_like(coeff))
         new_factors.append(f / safe[..., None, :])
         lam = lam * coeff

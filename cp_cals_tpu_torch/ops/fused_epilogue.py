@@ -210,7 +210,11 @@ def supports_fused_epilogue(b: int, i_n: int, r: int, dtype, n_modes: int, devic
     counterpart of ``cp_cals_tpu/ops/pallas_epilogue.py:343``). True on the
     CPU, where the plain versions take every shape. On the card: float32,
     R <= MAX_R, 3 to MAX_MODES modes, and the apply's shared memory (H^-1, G and
-    four R-vectors) within the card's opt-in limit per block."""
+    four R-vectors) within the card's opt-in limit per block. The apply
+    reduces over a mode's rows inside the kernel (lam, the rescaled
+    gramian), so a mode whose rows are split over ranks (mode 0 under a tp
+    mesh) is asked for at its whole ``i_n``: the iteration gathers its G
+    whole and applies every row (``solvers/iteration.py``)."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return True

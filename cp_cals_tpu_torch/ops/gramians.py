@@ -16,8 +16,10 @@ def gramian(factor: torch.Tensor) -> torch.Tensor:
     return torch.matmul(factor.transpose(-1, -2), factor)
 
 
-def gramians(factors: Sequence[torch.Tensor]) -> tuple:
-    return tuple(gramian(f) for f in factors)
+def gramians(factors: Sequence[torch.Tensor], tp=None) -> tuple:
+    """Every factor's gramian; with ``tp`` (a ``parallel.sharding.TpRows``)
+    factor 0's rows are split over ranks and its gramian summed over them."""
+    return tuple(tp.sum(gramian(f)) if tp is not None and n == 0 else gramian(f) for n, f in enumerate(factors))
 
 
 def hadamard_but_one(grams: Sequence[torch.Tensor], skip: int) -> torch.Tensor:

@@ -49,9 +49,28 @@ per method and mode, and the fused kernels' at a second tier where the
 check or the polish runs at another precision, each about |X| (at 500^3 in
 float32, 500 MB a layout, up to 6 GB for 3 modes).
 
+On a mesh (``mesh``, ``parallel/sharding.py``; one process per device)
+every rank runs this function with the same arguments. dp gives each rank
+its share of every bucket's slots (a bucket whose batch dp does not divide
+is replicated); under ``shard_mode0`` tp gives it its rows of mode 0, of X
+and of every factor 0, and the iteration sums over the tp group
+(``solvers/iteration.py``). The host loop is SPMD: after each chunk one
+host all-reduce gathers every rank's stats, so every rank takes the same
+evictions, refills (each building only its own slots' rows: a spec's draws
+are per model), kills and tail compactions, and the report equals a
+single process's. Evicted results are gathered the same way, so every
+rank returns the whole result list in queue order. A dp bucket's chunks
+stay captured (no collective inside an iteration); a tp bucket's run
+uncaptured (``captures`` 0), since the tp sums are collectives. The
+checkpoint gathers each bucket's state and the coordinator alone writes;
+resume loads it on every rank, each keeping its own slots and rows. Under
+``mttkrp_method=AUTO`` a mesh run reads the table at the rank's block and
+batch and never autotunes (ranks would time against each other and write
+one table at once).
+
 Differences from the JAX engine (ROADMAP section 3): buckets run one after
 another (``bucket_threads`` is accepted and not used); results are fetched
-synchronously. Meshes raise ``NotImplementedError``.
+synchronously.
 """
 
 from __future__ import annotations
@@ -69,10 +88,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import CalsParams, UpdateMethod, check_supported, not_ported
+from ..config import CalsParams, UpdateMethod, check_supported
 from ..device import resolve_device
 from ..ktensor import Ktensor, RandomKtensorSpec, scale_jk_rows, spec_block
 from ..ops.mttkrp import als_iteration_flops
+from ..parallel.distributed import is_coordinator
+from ..parallel.sharding import Shard, tp_rows
 from ..utils.checkpoint import load_state, save_state
 from ..utils.timers import IterationRecord
 from .graph_loop import NP_DTYPES, ChunkLoop, Graphs, IterLoop, Pinned, pack_evict_stats
@@ -111,7 +132,7 @@ class CalsReport:
 
 
 def _resolve_bucket_methods(
-    x_shape: tuple, r: int, b: int, params: CalsParams, dtype=torch.float32, device="cpu"
+    x_shape: tuple, r: int, b: int, params: CalsParams, dtype=torch.float32, device="cpu", autotune: bool = True
 ) -> tuple[tuple | None, tuple | None]:
     """Per-mode MTTKRP methods of a bucket of rank ``r`` and batch ``b``
     (``cp_cals_tpu/solvers/cals.py:_resolve_bucket_methods``): the fast
@@ -122,14 +143,14 @@ def _resolve_bucket_methods(
     The table is keyed by tier because the ranking of the methods changes
     with it. On the card a missing exact entry is autotuned and stored
     first (``utils/lut.ensure_methods``), unless ``CP_CALS_NO_AUTOTUNE`` is
-    set; on the CPU the table (or the heuristic) is read and nothing is
-    timed."""
+    set, or ``autotune`` is False (a mesh run); on the CPU the table (or
+    the heuristic) is read and nothing is timed."""
     if params.mttkrp_method.value != "auto":
         return None, None
     from ..utils.lut import ensure_methods, lookup_methods
 
     dev = torch.device(device)
-    tune = dev.type == "cuda" and not os.environ.get("CP_CALS_NO_AUTOTUNE")
+    tune = autotune and dev.type == "cuda" and not os.environ.get("CP_CALS_NO_AUTOTUNE")
     get = ensure_methods if tune else lookup_methods
     fast_tier = params.mttkrp_precision or params.precision
     methods = get(tuple(x_shape), r, b, precision=fast_tier, dtype=dtype, device=dev)
@@ -285,18 +306,28 @@ def _unpack_cols(kt_np: Ktensor, off: int, rank: int) -> Ktensor:
     )
 
 
-def _norms(x: torch.Tensor, with_jk: bool):
+def _norms(x: torch.Tensor, with_jk: bool, tp=None):
     """(|X| on the device in x's dtype, leave-one-out norms per mode-0 fiber
     on the host or None). |X| reduces in float64: a float32 sum of squares
     over millions of entries on the CPU drifts by 1e-4 relative, which the
     FastALS error's |X|^2 - ... cancellation turns into a wrong fit. The
-    leave-one-out norms are ``jackknife_norms``."""
+    leave-one-out norms are ``jackknife_norms``. Under tp (``tp``) ``x``
+    holds this rank's rows of mode 0: the squared sums of its fibers are
+    placed in the whole mode's zeros and summed over the tp group."""
     from .jackknife import jackknife_norms
 
-    x_norm = torch.linalg.vector_norm(x.reshape(-1), dtype=torch.float64).to(x.dtype)
+    if tp is None:
+        x_norm = torch.linalg.vector_norm(x.reshape(-1), dtype=torch.float64).to(x.dtype)
+        return x_norm, (jackknife_norms(x).cpu().numpy() if with_jk else None)
+    x64 = x.to(torch.float64)
+    row_sq = torch.zeros(tp.size, dtype=torch.float64, device=x.device)
+    row_sq[tp.start : tp.stop] = torch.sum(x64 * x64, dim=tuple(range(1, x.ndim)))
+    row_sq = tp.sum(row_sq)
+    total = torch.sum(row_sq)
+    x_norm = torch.sqrt(total).to(x.dtype)
     if not with_jk:
         return x_norm, None
-    return x_norm, jackknife_norms(x).cpu().numpy()
+    return x_norm, torch.sqrt(torch.clamp(total - row_sq, min=0.0)).to(x.dtype).cpu().numpy()
 
 
 def _to_numpy(a) -> np.ndarray:
@@ -421,11 +452,21 @@ def cp_cals(
     tensor, queue and params.
     max_rounds_per_bucket: stop each bucket after this many eviction
     rounds; unfinished models are returned as None.
+    mesh: a ``parallel.sharding.Mesh`` (every process of the run calls
+    ``cp_cals`` with the same arguments; the module docstring): the model
+    batch splits over dp, and with ``shard_mode0`` the tensor's mode 0 over
+    tp. The run is on the mesh's device (``device`` must be None or that
+    device). Every rank returns the whole result list.
     """
-    if mesh is not None or shard_mode0:
-        raise not_ported("multi-device runs", "queue 1 item 10")
     check_supported(params)
-    dev = resolve_device(device)
+    if mesh is None:
+        if shard_mode0:
+            raise ValueError("shard_mode0 needs a mesh")
+        dev = resolve_device(device)
+    else:
+        dev = mesh.device
+        if device is not None and torch.device(device) != dev:
+            raise ValueError(f"device {device} is not the mesh's device {dev}")
     if not queue:
         return [], CalsReport()
     x = torch.as_tensor(x)
@@ -435,11 +476,14 @@ def cp_cals(
     _check_queue(queue, modes)
     np_dtype = _queue_dtype(queue)
     t_dtype = _DTYPES[np_dtype]
-    x = x.to(device=dev, dtype=t_dtype).contiguous()
+    # Under tp this rank's rows of mode 0 (of X and of every factor 0).
+    tp = tp_rows(mesh, modes[0], shard_mode0)
+    r0, r1 = (tp.start, tp.stop) if tp is not None else (0, modes[0])
+    x = x[r0:r1].to(device=dev, dtype=t_dtype).contiguous()
     if jk_fibers is None:
         jk_fibers = [-1] * len(queue)
     has_jk = any(f >= 0 for f in jk_fibers)
-    x_norm, loo = _norms(x, has_jk and x_norms_jk is None)
+    x_norm, loo = _norms(x, has_jk and x_norms_jk is None, tp)
     x_norm_f = float(x_norm)
     x_norms_jk = loo if x_norms_jk is None else _to_numpy(x_norms_jk)
 
@@ -465,17 +509,20 @@ def cp_cals(
 
     def bucket_program(r: int, b: int):
         """The iteration, its held layouts and the polish of a bucket, by the
-        bucket's MTTKRP methods; buckets of the same methods share them."""
+        bucket's MTTKRP methods (at this rank's block of X and share of the
+        batch); buckets of the same methods share them."""
         if (r, b) not in resolved:
-            resolved[(r, b)] = _resolve_bucket_methods(modes, r, b, params, t_dtype, dev)
+            shard = Shard(mesh, b, (r0, r1, modes[0]))
+            resolved[(r, b)] = _resolve_bucket_methods(tuple(x.shape), r, shard.hi - shard.lo, params, t_dtype,
+                                                       dev, autotune=mesh is None)
         key = resolved[(r, b)]
         if key not in programs:
             methods, polish_methods = key
-            iteration = make_iteration(params, batched=True, mttkrp_methods=methods, has_jk=has_jk)
+            iteration = make_iteration(params, batched=True, mttkrp_methods=methods, has_jk=has_jk, tp=tp)
             polish = None
             if chunked and params.polish_iters > 0:
                 p_iter = make_iteration(p_params, batched=True, mttkrp_methods=polish_methods or methods,
-                                        has_jk=has_jk)
+                                        has_jk=has_jk, tp=tp)
                 polish = (p_iter, p_iter.prepare(x, layouts), params.polish_iters, params.polish_tol)
             programs[key] = (iteration, iteration.prepare(x, layouts), polish)
         return programs[key]
@@ -497,8 +544,10 @@ def cp_cals(
         ``spec_to_ktensor`` in any bucket), then the gramians of the
         initial guesses."""
         bb = len(batch_slots)
-        explicit = any(it is not None and not isinstance(it[1], RandomKtensorSpec) for it in batch_slots)
-        parts = [np.zeros((bb, m, r), np_dtype) for m in modes] + [np.zeros((bb, r), np_dtype)] if explicit else []
+        specs = any(it is not None and isinstance(it[1], RandomKtensorSpec) for it in batch_slots)
+        explicit = not specs or any(it is not None and not isinstance(it[1], RandomKtensorSpec) for it in batch_slots)
+        rows = (r1 - r0,) + modes[1:]  # this rank's rows of mode 0
+        parts = [np.zeros((bb, m, r), np_dtype) for m in rows] + [np.zeros((bb, r), np_dtype)] if explicit else []
         xnm = np.full((bb,), x_norm_f, np_dtype)
         jk_arr = np.full((bb,), -1, np.int32)
         alive = np.zeros((bb,), np.int32)
@@ -512,8 +561,8 @@ def cp_cals(
             if isinstance(kt, RandomKtensorSpec):
                 spec[slot] = 1
             else:
-                for dst, src in zip(parts, kt.factors):
-                    dst[slot, :, :rk] = _to_numpy(src)
+                for n, (dst, src) in enumerate(zip(parts, kt.factors)):
+                    dst[slot, :, :rk] = _to_numpy(src)[r0:r1] if n == 0 else _to_numpy(src)
                 parts[-1][slot, :rk] = _to_numpy(kt.lam)
             alive[slot] = 1
             rank_mask[slot, :rk] = 1
@@ -527,32 +576,35 @@ def cp_cals(
         jk_d, alive_d, spec_d, mask_d = torch.split(raw[flat.nbytes :].view(torch.int32), [bb, bb, bb, bb * r])
         mask_d = mask_d.view(bb, r).bool()
         if explicit:
-            kt_b = Ktensor(tuple(pc.view(bb, m, r) for pc, m in zip(pieces, modes)), pieces[len(modes)].view(bb, r))
-        if spec.any():
+            kt_b = Ktensor(tuple(pc.view(bb, m, r) for pc, m in zip(pieces, rows)), pieces[len(modes)].view(bb, r))
+        if specs:
             gen = ahead.block(batch_slots)
+            gen = gen._replace(factors=(gen.factors[0][:, r0:r1],) + tuple(gen.factors[1:]))
             kt_b = tree_where(spec_d.bool(), gen, kt_b) if explicit else gen
         # Pre-zero each jackknife slot's left-out row (the solver re-zeroes
-        # it after every mode-0 update).
-        kt_b = kt_b._replace(factors=(scale_jk_rows(kt_b.factors[0], jk_d, 0.0),) + tuple(kt_b.factors[1:]))
+        # it after every mode-0 update), where this rank holds it.
+        kt_b = kt_b._replace(factors=(scale_jk_rows(kt_b.factors[0], jk_d - r0, 0.0),) + tuple(kt_b.factors[1:]))
         return init_state(
             kt_b, x_norm, jk_fiber=jk_d, x_norm_model=pieces[-1],
             rank_mask=mask_d, alive=alive_d.bool(), nnls=nnls,
-            line_search=params.line_search, mixed_tol=mixed_tol,
+            line_search=params.line_search, mixed_tol=mixed_tol, tp=tp,
         )
 
     # The graphs are freed when the call ends. A debug run reads the device
-    # on the host in every iteration, so it is never captured.
-    graphs = Graphs(dev) if chunked and dev.type == "cuda" and not params.debug else None
+    # on the host in every iteration, so it is never captured; nor is an
+    # iteration that sums over a tp group (its collectives).
+    graphs = Graphs(dev) if chunked and dev.type == "cuda" and not params.debug and tp is None else None
     uploader, fetcher = Pinned(dev), Pinned(dev)  # the call's pinned buffers, one each way
     if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
 
     def resume_bucket(r: int, dq: collections.deque, paths, models: list):
         """The bucket's snapshot (``paths``: state and done archive): its
-        slot metadata, its state on the device with alive following the
-        slots' occupancy, and its finished models' records, whose results
-        come from the done archive. Finished and in-flight models leave
-        ``dq``."""
+        slot metadata, this rank's part of its state on the device with
+        alive following the slots' occupancy, the host's view of every
+        slot (iteration counts, liveness) and its finished models' records,
+        whose results come from the done archive. Finished and in-flight
+        models leave ``dq``."""
         with open(paths[0] + ".meta.json") as fh:
             meta = json.load(fh).get("meta", {})
         slot_meta = [tuple(m) if m is not None else None for m in meta["slot_meta"]]
@@ -564,6 +616,9 @@ def cp_cals(
         state, _ = load_state(paths[0], template)
         occupied = torch.as_tensor([m is not None for m in slot_meta], device=dev)
         state = state._replace(alive=state.alive & occupied)
+        iters_h = _to_numpy(state.iters).astype(np.int64)
+        live_h = _to_numpy(state.alive & ~state.converged)
+        state = Shard(mesh, b, (r0, r1, modes[0])).take(state)
         skip = {int(m[0]) for m in done_meta} | {int(m[0]) for m in slot_meta if m is not None}
         for _ in range(len(dq)):
             item = dq.popleft()
@@ -577,11 +632,16 @@ def cp_cals(
                                            done[f"{mid}_lam"])
                     models.append(CalsModelReport(id=mid, rank=int(rank), iters=int(iters),
                                                   fit=float(fit), approx_error=float(err)))
-        return slot_meta, state, done_meta
+        return slot_meta, state, done_meta, iters_h, live_h
 
-    def save_bucket(paths, r: int, state: SolverState, slot_meta, done_meta) -> None:
+    def save_bucket(paths, r: int, loop, slot_meta, done_meta) -> None:
         """The bucket's state and slot metadata, and its finished models'
-        factors (``done_meta``'s ids), the JAX engine's files and keys."""
+        factors (``done_meta``'s ids), the JAX engine's files and keys. On
+        a mesh the state is gathered whole (every rank joins) and the
+        coordinator alone writes."""
+        leaves = loop.shard.gather_state(loop.state)
+        if not is_coordinator():
+            return
         arrays = {}
         for mid, *_ in done_meta:
             kt = results[mid]
@@ -590,10 +650,38 @@ def cp_cals(
             arrays[f"{mid}_lam"] = kt.lam
         if arrays:
             np.savez(paths[1], **arrays)
-        save_state(paths[0], state, {
+        save_state(paths[0], loop.state, {
             "slot_meta": [list(m) if m is not None else None for m in slot_meta],
             "bucket_rank": r, "done": done_meta,
-        })
+        }, leaves=leaves)
+
+    def fetch_evicted(loop, slot_idx: np.ndarray, col_idx: np.ndarray) -> list:
+        """The evicted models' stats [5, B], lam and factors in the packed
+        columns (``_evict_col_indices``), as host arrays in the run's
+        dtypes (``_split_payload``), by one fetch. On a mesh each rank
+        fetches the columns of its own slots (the rest read slot 0 and are
+        zeroed) and its rows of factor 0, placed in zero-filled whole
+        arrays, which one host all-reduce sums."""
+        shard = loop.shard
+        loop.counts["stats_fetches"] += 1
+        mine = shard.local(slot_idx)
+        local_idx = np.where(mine, slot_idx - shard.lo, 0)
+        idx = uploader.upload(np.stack([local_idx, col_idx]))
+        flat, layout = _evicted_payload(loop.state, idx, params.result_wire_dtype)
+        stats, lam, *factors = _split_payload(loop.fetcher.fetch(flat), layout)
+        if shard.trivial:
+            return [stats, lam, *factors]
+        cols = mine & shard.lead
+        lam = np.where(cols, lam, 0).astype(lam.dtype)
+        whole = [shard.gather_slots(stats, axis=1), lam]
+        for n, f in enumerate(factors):
+            if n == 0:
+                f0 = np.zeros((f.shape[0], modes[0]), f.dtype)
+                f0[mine & shard.rows_lead, r0:r1] = f[mine & shard.rows_lead]
+                whole.append(f0)
+            else:
+                whole.append(np.where(cols[:, None], f, 0).astype(f.dtype))
+        return shard.assemble(whole)
 
     def run_bucket(r: int, dq: collections.deque, b: int):
         iteration, prepared, polish = bucket_program(r, b)
@@ -608,25 +696,26 @@ def cp_cals(
             paths = (os.path.join(checkpoint_dir, f"bucket_r{r}"), os.path.join(checkpoint_dir, f"done_r{r}.npz"))
         done_meta: list = []  # [id, rank, iters, fit, error] of the bucket's finished models
         if resume and paths is not None and os.path.exists(paths[0] + ".meta.json"):
-            slot_meta, state, done_meta = resume_bucket(r, dq, paths, models)
+            slot_meta, state, done_meta, iters_h, live_h = resume_bucket(r, dq, paths, models)
             b = len(slot_meta)
+            shard = Shard(mesh, b, (r0, r1, modes[0]))
             n_compactions = (b_wave // b).bit_length() - 1  # snapshots are taken after compaction
-            iters_h = _to_numpy(state.iters).astype(np.int64)
-            live_h = _to_numpy(state.alive & ~state.converged)
         else:
             slot_meta: list = [None] * b  # (id, rank, jk) per slot
+            shard = Shard(mesh, b, (r0, r1, modes[0]))
             batch = [dq.popleft() for _ in range(min(b, len(dq)))]
             for slot, (i, kt, jk) in enumerate(batch):
                 slot_meta[slot] = (i, kt.rank, jk)
-            state = build_block_state(uploader, batch + [None] * (b - len(batch)), r, ahead)
+            batch += [None] * (b - len(batch))
+            state = build_block_state(uploader, batch[shard.lo : shard.hi], r, ahead)
             iters_h = np.zeros(b, np.int64)
             live_h = np.array([m is not None for m in slot_meta])
         if chunked:
-            loop = ChunkLoop(iteration, x, x_norm, prepared, state, iters_h, live_h,
-                             counts, uploader, fetcher, params, polish, graphs, traced=trace is not None)
+            loop = ChunkLoop(iteration, x, x_norm, prepared, state, iters_h, live_h, counts, uploader, fetcher,
+                             params, polish, graphs, traced=trace is not None, shard=shard)
         else:
             loop = IterLoop(iteration, x, x_norm, prepared, state, iters_h, live_h,
-                            counts, uploader, fetcher)
+                            counts, uploader, fetcher, shard)
         pt["setup"] = time.perf_counter() - t0
         engine_iters = rounds = 0
         flops_per_col = als_iteration_flops(modes, r, 1) / r
@@ -667,10 +756,7 @@ def cp_cals(
             keep = np.ones(b, bool)
             if evicted:
                 slot_idx, col_idx, offs = _evict_col_indices(evicted, slot_meta)
-                idx = uploader.upload(np.stack([slot_idx, col_idx]))
-                flat, layout = _evicted_payload(loop.state, idx, params.result_wire_dtype)
-                counts["stats_fetches"] += 1
-                stats, lam, *factors = _split_payload(loop.fetcher.fetch(flat), layout)
+                stats, lam, *factors = fetch_evicted(loop, slot_idx, col_idx)
                 kt_np = Ktensor(tuple(f.astype(np_dtype, copy=False) for f in factors),
                                 lam.astype(np_dtype, copy=False))
                 refill_slots: list = []
@@ -698,9 +784,11 @@ def cp_cals(
                     unpack()  # the done archive is whole after every round
                     unpack = None
                 if refill_slots:
-                    # Batched refill: one build of the fresh models' rows,
-                    # written into their slots.
-                    loop.refill(np.asarray(refill_slots), build_block_state(uploader, refill_items, r, ahead))
+                    # Batched refill: one build of the fresh models' rows
+                    # (this rank's slots' only), written into their slots.
+                    slots = np.asarray(refill_slots)
+                    mine = [it for it, m in zip(refill_items, loop.shard.local(slots)) if m]
+                    loop.refill(slots, build_block_state(uploader, mine, r, ahead) if mine else None)
             if not keep.all():
                 loop.kill(keep)
             # Tail compaction: once the queue is drained and at most half the
@@ -722,7 +810,7 @@ def cp_cals(
                 # After the eviction's fetch, refill, kill and compaction:
                 # the state and slot_meta describe the same slots.
                 t0 = time.perf_counter()
-                save_bucket(paths, r, loop.state, slot_meta, done_meta)
+                save_bucket(paths, r, loop, slot_meta, done_meta)
                 counts["checkpoints"] += 1
                 pt["checkpoint"] = pt.get("checkpoint", 0.0) + time.perf_counter() - t0
             if evicted:

@@ -82,6 +82,15 @@ per chunk). This is the JAX loop's ``trace_cap`` buffer
 engine's per-iteration mode: one eager iteration, then the host reads the
 stats, evicts and refills. It freezes nothing and does not polish, as the
 JAX step program does not.
+
+On a mesh (``parallel.sharding.Shard``) a loop holds this rank's slots of
+the bucket and the host's view of every slot: each stats fetch (and the
+trace rows behind it, and the polish's done flags) is gathered from every
+rank by one host all-reduce, so every rank takes the same chunk lengths,
+evictions, refills, kills and compactions. Refills write the rank's own
+slots; tail compaction gathers the bucket's state where dp splits it and
+takes the new batch's share. The engine runs a loop whose iteration sums
+over a tp group uncaptured (``graphs`` None).
 """
 
 from __future__ import annotations
@@ -93,6 +102,7 @@ import torch
 
 from .. import launches
 from ..config import LineSearchMethod
+from ..parallel.sharding import Shard
 from .state import SolverState, tree_leaves, tree_map
 
 TOL_CHUNK = 4  # iterations per chunk under a per-iteration tol
@@ -267,46 +277,72 @@ class _Loop:
     """What both loops share: the bucket's state, the host's view of each
     slot's iteration count and liveness, refills, kills and compaction,
     and the counts the engine reports. ``uploader`` and ``fetcher`` carry
-    the host's transfers each way (``Pinned``)."""
+    the host's transfers each way (``Pinned``). ``shard`` places the
+    bucket on a mesh (None: one process holds every slot); ``state`` holds
+    this rank's slots, ``iters_h`` and ``live_h`` every slot."""
 
     def __init__(self, state: SolverState, iters_h: np.ndarray, live_h: np.ndarray, counts: dict,
-                 uploader: Pinned, fetcher: Pinned):
+                 uploader: Pinned, fetcher: Pinned, shard: Shard | None = None):
         self.state = state
         self.iters_h, self.live_h = iters_h, live_h
         self.counts, self.uploader, self.fetcher = counts, uploader, fetcher
         self.device = state.iters.device
+        i0 = state.kt.factors[0].shape[1]
+        self.shard = shard if shard is not None else Shard(None, len(iters_h), (0, i0, i0))
 
-    def refill(self, slots: np.ndarray, fresh: SolverState) -> None:
-        """Rows ``slots`` take the fresh models' state (one row each, in
-        order)."""
-        self._write_rows(self.uploader.upload(slots.astype(np.int64)), fresh)
+    def refill(self, slots: np.ndarray, fresh: SolverState | None) -> None:
+        """Slots ``slots`` take fresh models: ``fresh`` holds one row each
+        for those of them this rank holds, in order (None where it holds
+        none)."""
+        if fresh is not None:
+            mine = slots[self.shard.local(slots)] - self.shard.lo
+            self._write_rows(self.uploader.upload(mine.astype(np.int64)), fresh)
         self.iters_h[slots] = 0
         self.live_h[slots] = True
 
     def kill(self, keep: np.ndarray) -> None:
         """Slots outside ``keep`` are vacant from now on."""
-        keep_d = self.uploader.upload(keep.astype(np.uint8)).bool()
+        keep_d = self.uploader.upload(keep[self.shard.lo : self.shard.hi].astype(np.uint8)).bool()
         self._write_rows(None, self.state._replace(alive=self.state.alive & keep_d))
         self.live_h &= keep
 
     def fetch_stats(self, buf: torch.Tensor, stats: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
         """One fetch of ``buf``, a byte buffer that begins with ``stats``:
-        the host's stats [5, B] (their iteration counts and liveness become
-        the host's view) and the bytes behind them."""
+        the host's stats [5, B] of every slot (their iteration counts and
+        liveness become the host's view) and the bytes behind them (on a
+        mesh summed over the slots' leads)."""
         self.counts["stats_fetches"] += 1
         raw = self.fetcher.fetch(buf)
         ns = stats.numel() * stats.element_size()
         out = raw[:ns].view(NP_DTYPES[stats.dtype]).reshape(stats.shape)
+        rest = raw[ns:]
+        if not self.shard.trivial:
+            out, rest = self.shard.assemble([self.shard.gather_slots(out, axis=1),
+                                             rest if self.shard.lead else np.zeros_like(rest)])
         self.iters_h = out[1].astype(np.int64)
         self.live_h = out[4] != 0
-        return out, raw[ns:]
+        return out, rest
+
+    def all_set(self, flags: torch.Tensor) -> bool:
+        """Whether a per-slot bool tensor is set in every slot of the bucket
+        (one host read, gathered on a mesh)."""
+        unset = np.array([int((~flags).sum()) if self.shard.lead else 0], np.int64)
+        return int(self.shard.assemble([unset])[0][0]) == 0
+
+    def _compacted_state(self, idx: list[int]) -> tuple[SolverState, Shard]:
+        """This rank's part of the bucket's slots ``idx`` (a half-size
+        batch), and the batch's shard."""
+        new = self.shard.resized(len(idx))
+        idx_t = torch.as_tensor(idx, device=self.device)
+        return new.take(tree_map(lambda leaf: leaf[idx_t], self.shard.whole_state(self.state))), new
 
 
 class IterLoop(_Loop):
     """One eager iteration per host round (``sync_mode="iter"``)."""
 
-    def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, counts, uploader, fetcher):
-        super().__init__(state, iters_h, live_h, counts, uploader, fetcher)
+    def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, counts, uploader, fetcher,
+                 shard=None):
+        super().__init__(state, iters_h, live_h, counts, uploader, fetcher, shard)
         self.iteration, self.x, self.x_norm, self.prepared = iteration, x, x_norm, prepared
 
     def _write_rows(self, rows, new):
@@ -323,10 +359,9 @@ class IterLoop(_Loop):
         return self.fetch_stats(stats.reshape(-1).view(torch.uint8), stats)[0], 1
 
     def compacted(self, idx: list[int]) -> "IterLoop":
-        idx_t = torch.as_tensor(idx, device=self.device)
-        return IterLoop(self.iteration, self.x, self.x_norm, self.prepared,
-                        tree_map(lambda leaf: leaf[idx_t], self.state),
-                        self.iters_h[idx], self.live_h[idx], self.counts, self.uploader, self.fetcher)
+        state, shard = self._compacted_state(idx)
+        return IterLoop(self.iteration, self.x, self.x_norm, self.prepared, state,
+                        self.iters_h[idx], self.live_h[idx], self.counts, self.uploader, self.fetcher, shard)
 
 
 class ChunkLoop(_Loop):
@@ -336,9 +371,10 @@ class ChunkLoop(_Loop):
     polish_tol)."""
 
     def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, counts, uploader,
-                 fetcher, params, polish=None, graphs: Graphs | None = None, traced: bool = False):
+                 fetcher, params, polish=None, graphs: Graphs | None = None, traced: bool = False,
+                 shard=None):
         state = tree_map(lambda t: t.clone(), state)  # the buffers the graphs read and write
-        super().__init__(state, iters_h, live_h, counts, uploader, fetcher)
+        super().__init__(state, iters_h, live_h, counts, uploader, fetcher, shard)
         self.iteration, self.x, self.x_norm, self.prepared = iteration, x, x_norm, prepared
         self.params, self.polish_cfg, self.graphs = params, polish, graphs
         # The stats, then the trace rows (none untraced), in one byte
@@ -447,15 +483,14 @@ class ChunkLoop(_Loop):
             self.counts["polish_sweeps"] += m
             if tol > 0 and k < n_polish:
                 self.counts["stats_fetches"] += 1
-                if bool(self.done.all()):
+                if self.all_set(self.done):
                     break
         st.converged.copy_(self.conv0)
         st.iters.copy_(self.iters0)
         self.stats.copy_(pack_evict_stats(st))
 
     def compacted(self, idx: list[int]) -> "ChunkLoop":
-        idx_t = torch.as_tensor(idx, device=self.device)
-        return ChunkLoop(self.iteration, self.x, self.x_norm, self.prepared,
-                         tree_map(lambda leaf: leaf[idx_t], self.state),
+        state, shard = self._compacted_state(idx)
+        return ChunkLoop(self.iteration, self.x, self.x_norm, self.prepared, state,
                          self.iters_h[idx], self.live_h[idx], self.counts, self.uploader, self.fetcher,
-                         self.params, self.polish_cfg, self.graphs, self.traced)
+                         self.params, self.polish_cfg, self.graphs, self.traced, shard)

@@ -53,6 +53,19 @@ CUDA graph: the engine runs it eagerly, one iteration per chunk.
 
 Dead and padded slots are inert (zero factors, zero lam, identity normal
 matrix), so nothing inside the iteration is gated on ``alive``.
+
+Under a tp mesh (``tp``, a ``parallel.sharding.TpRows``) X and every factor
+0 hold this rank's rows of mode 0, and the iteration sums over the tp group
+what those rows leave partial: the MTTKRP of every mode >= 1 (the check's
+and the ERROR_CHECKING candidate's too), the dimension tree's shared TTM,
+and the factor-0 gramians and column norms of the line searches. Mode 0's
+MTTKRP is complete on its rows, the FastALS error on the last mode reads
+summed operands only, and the updates (NNLS too) are row by row. The
+normalization is not (lam, the rescaled gramian), so mode 0 is normalized
+whole on every rank, as GSPMD gathers the sharded operand around the JAX
+package's Pallas apply: mode 0's G (for the apply kernel) or U (unfused)
+is gathered whole on every rank of the tp group (``TpRows.gather``), every
+rank computes the same bits from the same inputs, and keeps its rows.
 """
 
 from __future__ import annotations
@@ -155,6 +168,7 @@ def make_iteration(
     batched: bool = True,
     mttkrp_methods: tuple[str, ...] | None = None,
     has_jk: bool = True,
+    tp=None,
 ) -> Callable[..., SolverState]:
     """Build the iteration for the given params.
 
@@ -164,6 +178,9 @@ def make_iteration(
 
     has_jk=False leaves out the jackknife row zero of mode 0 for queues
     without jackknife models.
+
+    tp: None, or the ``parallel.sharding.TpRows`` of a mesh that splits
+    mode 0 (module docstring).
     """
     if not batched:
         raise NotImplementedError(
@@ -180,6 +197,8 @@ def make_iteration(
     k_check = params.tol_check_interval
     # The check's MTTKRP runs at `precision`.
     need_hi = k_check > 0
+    # The sum over the tp group of what mode 0's split rows leave partial.
+    psum = tp.sum if tp is not None else (lambda t: t)
 
     def prepare(x, layouts: dict | None = None) -> Held:
         n_modes = x.ndim
@@ -232,8 +251,8 @@ def make_iteration(
         last = x.ndim - 1
         # A twostep or krp_gemm last mode has no device predicate: it runs
         # every iteration and its result is selected below.
-        g_hi = mttkrp_batched(x, kt.factors, last, method, precision, prepared.hi[last],
-                              pred=at_check.to(torch.int32).reshape(1))
+        g_hi = psum(mttkrp_batched(x, kt.factors, last, method, precision, prepared.hi[last],
+                                   pred=at_check.to(torch.int32).reshape(1)))
         err_hi = fast_error(state.x_norm_model, kt.lam, kt.factors[-1], g_hi, hadamard_all(grams))
         fit_hi = 1.0 - torch.abs(err_hi) / x_norm_full
         gap_i = torch.clamp(iters - hi.iters_prev, min=1)
@@ -291,7 +310,7 @@ def make_iteration(
             kt_d, prev_d = denormalize(kt), denormalize(ls.prev)
             ext = normalize_full(Ktensor(
                 tuple(f + s * (f - pf) for f, pf in zip(kt_d.factors, prev_d.factors)),
-                torch.ones_like(kt.lam)))
+                torch.ones_like(kt.lam)), tp)
             ls = LsState(
                 it=it2, updated_last=(ls.updated_last & ~do_ls) | extrap, prev=ls.prev,
                 backup=tree_where(extrap, kt, ls.backup),
@@ -307,24 +326,24 @@ def make_iteration(
             fit = torch.where(extrap, torch.full_like(fit, 1.0 - BIG_ERROR), fit)
             # JAX refreshes the gramians only when some model was touched
             # (lax.cond); here every iteration, selected per model.
-            grams = tree_where(revert | extrap, gramians(kt.factors), grams)
+            grams = tree_where(revert | extrap, gramians(kt.factors, tp), grams)
             return kt, grams, err, fit, old_fit, iters, ls, active
         it2 = ls.it + 1
         extrap = it2 == interval
         it2 = torch.where(extrap, torch.zeros_like(it2), it2)
         cand = normalize_full(denormalize(Ktensor(
-            tuple(f + s * (f - pf) for f, pf in zip(kt.factors, ls.prev.factors)), kt.lam)))
+            tuple(f + s * (f - pf) for f, pf in zip(kt.factors, ls.prev.factors)), kt.lam)), tp)
         # The candidate's exact error (``_exact_error``): one more last-mode
         # MTTKRP by the mode's method at the MTTKRP's tier, launched by the
         # fused kernels only where some model is at its interval.
         last = x.ndim - 1
-        g_last = mttkrp_batched(x, cand.factors, last, method, mttkrp_prec, prepared[last],
-                                pred=extrap.any().to(torch.int32).reshape(1))
+        g_last = psum(mttkrp_batched(x, cand.factors, last, method, mttkrp_prec, prepared[last],
+                                     pred=extrap.any().to(torch.int32).reshape(1)))
         new_err = fast_error(x_norm_model, cand.lam, cand.factors[last], g_last,
-                             hadamard_all(gramians(cand.factors)))
+                             hadamard_all(gramians(cand.factors, tp)))
         accept = extrap & (new_err < err)
         kt = tree_where(accept, cand, kt)
-        grams = tree_where(accept, gramians(kt.factors), grams)
+        grams = tree_where(accept, gramians(kt.factors, tp), grams)
         old_fit = torch.where(accept, fit, old_fit)
         fit = torch.where(accept, 1.0 - torch.abs(new_err) / x_norm_full, fit)
         err = torch.where(accept, new_err, err)
@@ -344,17 +363,23 @@ def make_iteration(
             ls = ls._replace(prev=tree_where(ls.it == params.line_search_interval - 1, kt, ls.prev))
         g_last = err = shared = None
         for n in range(n_modes):
+            split = tp is not None and n == 0  # mode 0's rows split over the tp group
             if dimtree and n >= 1:
                 # Modes 1 and 2 from one TTM with the just-updated (and
                 # jackknife-zeroed) mode-0 factor.
                 if shared is None:
-                    shared = dimtree_ttm(x, kt.factors[0], mttkrp_prec, prepared[n_modes])
+                    shared = psum(dimtree_ttm(x, kt.factors[0], mttkrp_prec, prepared[n_modes]))
                 g = dimtree_ttv(shared, kt.factors, n, mttkrp_prec)
             else:
                 g = mttkrp_batched(x, kt.factors, n, methods[n], mttkrp_prec, prepared[n])
+                if n >= 1:
+                    g = psum(g)
             if n == n_modes - 1:
                 g_last = g
-            if fused and supports_fused_epilogue(*g.shape, g.dtype, n_modes, g.device):
+            b, i_n, r = g.shape
+            if fused and supports_fused_epilogue(b, tp.size if split else i_n, r, g.dtype, n_modes, g.device):
+                if split:
+                    g = tp.gather(g)
                 hinv = normal_inverse(grams, state.rank_mask, n)
                 # The last mode's apply also finishes the FastALS error, from
                 # the other modes' new gramians (hadamard_all's mode order).
@@ -370,9 +395,14 @@ def make_iteration(
                     active = active[:n] + (act_n,) + active[n + 1 :]
                 else:
                     u = update_factor_unconstrained(g, h, solve=params.solve_method)
+                if split:
+                    # The update is row by row; the normalization is not.
+                    u = tp.gather(u)
                 if n == 0 and has_jk:
                     u = scale_jk_rows(u, state.jk_fiber, 0.0)
                 f_new, lam_new, gm = normalize_factor_fused(u, iters)
+            if split:
+                f_new = f_new[:, tp.start : tp.stop].contiguous()
             kt = Ktensor(kt.factors[:n] + (f_new,) + kt.factors[n + 1 :], lam_new)
             grams = grams[:n] + (gm,) + grams[n + 1 :]
 

@@ -150,8 +150,11 @@ def jk_cp_cals(
     tensor (reference cals.cpp:397-446). ``checkpoint_dir``/``resume`` go
     to ``cp_cals`` (the replicate queue is deterministic from ``fitted``,
     so a resumed call with the same inputs continues exactly);
-    ``mesh``/``shard_mode0`` too, which raise there (not ported)."""
-    dev = resolve_device(device)
+    ``mesh``/``shard_mode0`` too: the replicates split over dp (the
+    jackknife is data parallel over replicates) and mode 0 over tp, each
+    rank of the mesh calling with the same arguments and getting every
+    replicate. With a mesh the run is on its device."""
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
     t0 = time.perf_counter()
     params = _pin_jk_fidelity(params, dev)
     fitted = [to_host_model(kt) for kt in fitted]

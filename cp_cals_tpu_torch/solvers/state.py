@@ -110,12 +110,15 @@ def init_state(
     nnls: bool = False,
     line_search: bool = False,
     mixed_tol: bool = False,
+    tp=None,
 ) -> SolverState:
     """Initial state of a batched Ktensor: gramians of the initial guess,
     iteration counters at 0 (the first iteration makes them 1); with
     ``nnls`` all-active sets, with ``line_search`` an ``LsState`` whose
     snapshot and backup are the initial Ktensor, and with ``mixed_tol`` a
-    zero ``HiState``."""
+    zero ``HiState``. ``tp`` (a ``parallel.sharding.TpRows``): factor 0
+    holds this rank's rows of mode 0, and its gramian sums over the
+    ranks."""
     batch_shape = tuple(kt.lam.shape[:-1])
     dev, dtype = kt.lam.device, kt.lam.dtype
     r = kt.rank
@@ -144,7 +147,7 @@ def init_state(
         hi = HiState(fit_prev=zeros.clone(), iters_prev=i0, rate_prev=zeros.clone(), gap_prev=i0.clone())
     return SolverState(
         kt=kt,
-        grams=gramians(kt.factors),
+        grams=gramians(kt.factors, tp),
         rank_mask=rank_mask,
         iters=torch.zeros(batch_shape, dtype=torch.int32, device=dev),
         fit=zeros,

@@ -6,7 +6,10 @@ host's slot metadata, so a snapshot is an ``.npz`` of the state's leaves
 (``leaf_0`` ... in the port's field order, the ``HiState`` and ``LsState``
 carries included) and a JSON sidecar (the structure, the leaf count and the
 caller's metadata). The CALS engine writes one per bucket after every
-eviction round; the jackknife driver passes its checkpoints through.
+eviction round; the jackknife driver passes its checkpoints through. On a
+mesh the engine gathers the bucket's state whole on every rank and the
+coordinator alone writes; on resume every rank loads the files and keeps
+its own slots and rows.
 """
 
 from __future__ import annotations
@@ -35,11 +38,17 @@ def _structure(tree) -> str:
     return "(" + ",".join(_structure(v) for v in tree) + ")"
 
 
-def _rebuild(template, leaves):
-    if isinstance(template, torch.Tensor):
-        return next(leaves)
-    parts = [_rebuild(t, leaves) for t in template]
-    return type(template)(*parts) if hasattr(template, "_fields") else tuple(parts)
+def rebuild(template, leaves):
+    """A state of ``template``'s structure from its leaves in field order."""
+    leaves = iter(leaves)
+
+    def build(t):
+        if isinstance(t, torch.Tensor):
+            return next(leaves)
+        parts = [build(p) for p in t]
+        return type(t)(*parts) if hasattr(t, "_fields") else tuple(parts)
+
+    return build(template)
 
 
 def host_leaves(state: SolverState) -> list[np.ndarray]:
@@ -56,8 +65,11 @@ def host_leaves(state: SolverState) -> list[np.ndarray]:
     return out
 
 
-def save_state(path: str, state: SolverState, meta: dict | None = None) -> None:
-    leaves = host_leaves(state)
+def save_state(path: str, state: SolverState, meta: dict | None = None, leaves: list | None = None) -> None:
+    """Write the snapshot of ``state``: its host ``leaves`` where given (a
+    multi-process run's state gathered whole, ``parallel.sharding.Shard.
+    gather_state``), else its own."""
+    leaves = host_leaves(state) if leaves is None else leaves
     np.savez_compressed(_base(path) + ".npz", **{f"leaf_{i}": a for i, a in enumerate(leaves)})
     side = {"treedef": _structure(state), "n_leaves": len(leaves)}
     if meta:
@@ -83,7 +95,7 @@ def load_state(path: str, template: SolverState) -> tuple[SolverState, dict]:
         if a.shape != tuple(b.shape):
             raise ValueError(f"shape mismatch {a.shape} vs {tuple(b.shape)}")
     tensors = [torch.from_numpy(a).to(b.device) for a, b in zip(loaded, leaves)]
-    state = _rebuild(template, iter(tensors))
+    state = rebuild(template, tensors)
     meta = {}
     sidecar = _base(path) + ".meta.json"
     if os.path.exists(sidecar):

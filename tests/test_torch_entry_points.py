@@ -252,9 +252,16 @@ def test_cli_reads_tensor_files(tmp_path, capsys):
     assert "Tensor (10, 9, 8), 4 models" in capsys.readouterr().out
 
 
-def test_cli_multi_device_flags_raise():
+def test_cli_multi_device_flags_raise(capsys):
+    """The multi-device flags run (queue 1 item 10): on one process
+    ``--distributed`` joins no group and says so, and ``--dp 1`` runs on a
+    1 x 1 mesh; a mesh wider than the processes raises. The 2-process
+    runs are in tests/test_torch_multiprocess.py."""
     from cp_cals_tpu_torch.cli import main
 
-    for flags in (["--dp", "2"], ["--tp", "2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    for flags in (["--dp", "2"], ["--tp", "2"]):
+        with pytest.raises(ValueError, match="does not cover"):
             main(["-t", "6-5-4", "-c", "1:1:1", "--device", "cpu"] + flags)
+    main(["-t", "6-5-4", "-c", "1:2:1", "--device", "cpu", "--f64", "--distributed", "--dp", "1"])
+    out = capsys.readouterr().out
+    assert "host 0/1: cpu / 1 devices" in out and "Mesh: dp=1 x tp=1" in out and "CALS:" in out

@@ -223,18 +223,27 @@ def test_fidelity_pin_rules():
 @pytest.mark.parametrize(
     "kwargs,item",
     [(dict(checkpoint_dir="ckpt"), "item 8"), (dict(resume=True), "item 8"),
-     (dict(mesh=object()), "item 10"), (dict(shard_mode0=True), "item 10")],
+     (dict(mesh=True), "item 10"), (dict(shard_mode0=True), "item 10")],
 )
 def test_unported_jk_options_raise(kwargs, item, tmp_path):
-    """Multi-device runs still raise (queue 1 item 10); checkpoint and
-    resume, which raised until item 8, now run: a checkpointed and a
-    resumed jackknife give the plain run's replicates."""
+    """The options that raised until their items were ported now run:
+    checkpoint and resume (item 8) give the plain run's replicates, and so
+    does a mesh (item 10; here the single-process 1 x 1 mesh, the
+    multi-process ones in tests/test_torch_sharded_cals.py). shard_mode0
+    without a mesh is refused."""
     x, kt0 = make_problem(0)
-    if item == "item 10":
-        with pytest.raises(NotImplementedError, match=item):
-            jk_cp_cals(x, [kt0], CalsParams(), device="cpu", **kwargs)
-        return
     params = CalsParams(max_iterations=4, force_max_iter=True, bucket_ranks=(2,), buffer_size=4)
+    if item == "item 10":
+        if kwargs.get("shard_mode0"):
+            with pytest.raises(ValueError, match="needs a mesh"):
+                jk_cp_cals(x, [kt0], params, device="cpu", **kwargs)
+            return
+        from cp_cals_tpu_torch.parallel.sharding import make_mesh
+
+        plain = jk_cp_cals(x, [kt0], params, device="cpu")
+        got = jk_cp_cals(x, [kt0], params, mesh=make_mesh(device="cpu"))
+        assert_replicates_close(plain.results[0], got.results[0], 0.0)
+        return
     ckpt = str(tmp_path / "ckpt")
     plain = jk_cp_cals(x, [kt0], params, device="cpu")
     got = jk_cp_cals(x, [kt0], params, device="cpu", checkpoint_dir=ckpt)
