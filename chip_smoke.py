@@ -180,6 +180,20 @@ the result lines are printed):
    disk); traced, its records number its engine iterations, its stats
    fetches are the untraced run's, its results the same bits (walls of
    three runs each, in turns U T T U U T).
+6c. Experiments (cp_cals_tpu_torch/experiments.py, the paper's harness):
+   experiments.main at --quick with every leg (the ALS-vs-CALS grid at
+   50^3, the NNLS comparison, the jackknife and jackknife-scale runs, the
+   scale sweep, a jackknife of a tensor file written here with tensor_io,
+   the defrag study), then at full width the base grid (compare_als_cals
+   at 200^3, ranks 1-20 x 20, 50 forced iterations, buckets 4/8/12/16/20,
+   "highest") and the scale sweep at the paper's 500^3 float32 cut in
+   depth (25 copies a rank, 500 models, 10 forced iterations; "high",
+   layouts derived in the loop). Every engine run of the harness is checked
+   against the committed tables' picks (launches and routes), with no
+   heuristic decision and no autotune; every comparison has no model
+   beyond the 1e-1 check; every number is finite. Printed: the measured
+   matmul peaks beside the data sheet's, the 500^3 sweep's MTTKRP TFLOP/s
+   and its tensor-core share at "high", its peak allocated bytes.
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality and
    timed beside torch.mul, eager and replayed.
@@ -187,7 +201,8 @@ the result lines are printed):
    {"kernels": [...]} line (the normal inverse and the apply also at K = 3,
    as "normal_inverse_k3" and "epilogue_apply_k3", at the 4-D run's launch
    mix; each rank's launches in phase 5c's runs as
-   "multi_device_launches"), then the last line
+   "multi_device_launches"; each kernel's launches in the experiment
+   harness's engine runs as "experiments_launches"), then the last line
    {"ok": true, "device": {...}}. The per-shape measurements go to
    chiprun_out/chip_smoke.json, the probe's to
    chiprun_out/overhead_probe.json.
@@ -706,7 +721,8 @@ def auto_tables() -> list:
     the headline's polish at "high"; 4-D at "highest" and "default"), the
     NNLS run at "high", and the README command's CALS and jackknife buckets
     (``CalsParams`` defaults: buckets 4/8/16/32, buffer 4200) at "highest"
-    and its --fast tier at "default"."""
+    and its --fast tier at "default"; and the experiment harness's buckets
+    (``experiment_tables``)."""
     from cp_cals_tpu_torch import CalsParams
 
     d = CalsParams()
@@ -717,7 +733,7 @@ def auto_tables() -> list:
     nn = engine_batches([r for r in range(1, 11) for _ in range(10)], NN_BUCKETS, nn_params().buffer_size)
     return [(MODES, "highest", bench), (MODES, "default", bench), (MODES, "high", bench),
             (MODES4, "highest", bench), (MODES4, "default", bench), (NN_MODES, "high", nn),
-            (MODES, "highest", cli), (MODES, "default", cli), (MODES, "highest", cli_jk)]
+            (MODES, "highest", cli), (MODES, "default", cli), (MODES, "highest", cli_jk)] + experiment_tables()
 
 
 def table_phase(dev) -> dict:
@@ -2907,6 +2923,253 @@ def entry_point_phase(x_np, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------- experiments
+
+
+EXP_DIR = os.path.join("chiprun_out", "experiments_quick")  # the quick run's CSVs and experiments.json
+EXP_FILE = os.path.join("build", "chip_smoke_experiments", "jk_file.txt")  # written by the phase, removed after
+# The --jk-file tensor: a synthetic rank-5 Ktensor of these modes plus 5 %
+# noise (seed EXP_FILE_SEED), in the reference text format. The
+# reference's stjohns.txt and wine.txt are not in the repository.
+EXP_FILE_MODES, EXP_FILE_SEED, EXP_FILE_RANKS = (40, 60, 50), 5, (4, 5, 6)
+# The harness's engine settings (cp_cals_tpu_torch/experiments.py), for the
+# tables of its buckets: the base grid's and the defrag study's buckets,
+# the jackknife runs' (and their ranks), the scale sweep's buckets and
+# column budget.
+EXP_BUCKETS, EXP_JK_BUCKETS, EXP_JK_RANKS = (4, 8, 12, 16, 20), (4, 8, 12), (3, 5, 7, 9)
+EXP_SWEEP_BUCKETS, EXP_SWEEP_BUFFER = (4, 8, 16, 20), 40 * 96
+# The full-width legs: the base grid at 200^3 with the paper's queue (ranks
+# 1-20 x 20, 50 forced iterations), and the scale sweep at the paper's
+# 500^3 in float32, cut in depth: 25 copies a rank (500 models) in place of
+# 250, 10 forced iterations in place of 50.
+EXP_BASE_MODES, EXP_BASE_ITERS = (200, 200, 200), 50
+EXP_SWEEP = dict(modes=(500, 500, 500), copies=25, max_iter=10)
+
+
+def write_jk_file(path: str) -> None:
+    """The --jk-file tensor (``EXP_FILE_MODES``) in the reference text
+    format, at ``path``."""
+    from cp_cals_tpu_torch.ktensor import random_ktensor_host
+    from cp_cals_tpu_torch.tensor_io import write_tensor
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    rng = np.random.default_rng(EXP_FILE_SEED)
+    kt = random_ktensor_host(rng, EXP_FILE_MODES, 5, dtype=np.float64)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    write_tensor(path, x + 0.05 * x.std() * rng.standard_normal(EXP_FILE_MODES))
+
+
+def experiment_tables() -> list:
+    """(modes, tier, {bucket rank: batch}) of every ``cp_cals`` run of the
+    experiment harness, from the engine's allocation: the quick legs and
+    this script's full-width legs (``experiments_phase``), and the
+    full-size run (``python3 -m cp_cals_tpu_torch.experiments --large
+    --jk --jk-scale --scale-sweep --defrag --nnls --jk-file``), whose NNLS
+    leg is phase 4c's queue. The jackknife runs fit one model per rank
+    and then run each model's mode-0 replicates; the real-data jackknife
+    also runs each model's replicates alone (``jk_cp_batched_als``: one
+    bucket of its rank)."""
+    from cp_cals_tpu_torch import CalsParams
+
+    buffer = CalsParams().buffer_size
+
+    def grid(rmax, copies):
+        return [r for r in range(1, rmax + 1) for _ in range(copies)]
+
+    def jk(modes, ranks, buckets):
+        reps = [r for r in ranks for _ in range(modes[0])]
+        return [(modes, "high", engine_batches(ranks, buckets, buffer)),
+                (modes, "high", engine_batches(reps, buckets, buffer))]
+
+    out = [(modes, "highest", engine_batches(grid(rmax, copies), EXP_BUCKETS, buffer))
+           for modes, rmax, copies in (((50, 50, 50), 3, 2), ((100, 100, 100), 20, 20),
+                                       (EXP_BASE_MODES, 20, 20), ((300, 300, 300), 20, 20))]
+    out.append(((30, 30, 30), "high", engine_batches(grid(3, 2), EXP_JK_BUCKETS, buffer)))  # quick NNLS
+    for modes in ((20, 30, 30), (50, 100, 100), (50, 200, 200), (50, 400, 400)):
+        out += jk(modes, EXP_JK_RANKS, EXP_JK_BUCKETS)
+    out += jk(EXP_FILE_MODES, EXP_FILE_RANKS, tuple(sorted(set(EXP_FILE_RANKS))))
+    out += [(EXP_FILE_MODES, "high", engine_batches([r] * EXP_FILE_MODES[0], (r,), buffer)) for r in EXP_FILE_RANKS]
+    for modes, rmax, copies in (((30, 25, 20), 6, 3), (EXP_SWEEP["modes"], 20, EXP_SWEEP["copies"]),
+                                ((500, 500, 500), 20, 250)):
+        out.append((modes, "high", engine_batches(grid(rmax, copies), EXP_SWEEP_BUCKETS, EXP_SWEEP_BUFFER)))
+    for modes, rmax, copies in (((30, 30, 30), 4, 2), ((200, 200, 200), 20, 20)):
+        out.append((modes, "high", engine_batches(grid(rmax, copies), EXP_BUCKETS, buffer)))
+    return out
+
+
+def exp_label(modes, params, jk: bool) -> str:
+    """A name for one engine run of the harness: its tensor, tier and kind."""
+    from cp_cals_tpu_torch import UpdateMethod
+
+    kind = ("nnls" if params.update_method == UpdateMethod.NNLS else "jk" if jk
+            else "evict_first" if params.always_evict_first else "cals")
+    return f"{'x'.join(map(str, modes))} {params.mttkrp_precision or params.precision} {kind}"
+
+
+class EngineRuns:
+    """Every ``cp_cals`` call of the experiment harness, checked as it
+    returns: the harness calls ``solvers.cp_cals`` and the jackknife
+    drivers ``cals.cp_cals`` through ``solvers.jackknife``; both names are
+    wrapped. Each call's launches and MTTKRP results by route are what it
+    added to the counts (the harness's own per-leg counts run on), and must
+    equal its buckets' picks from the committed tables, with no decision
+    left to the heuristic (``check_table_run``). ``autotunes`` counts
+    ``utils/lut.autotune`` calls (a table miss)."""
+
+    def __init__(self):
+        self.runs, self.autotunes = [], 0
+
+    def __enter__(self):
+        from cp_cals_tpu_torch import solvers
+        from cp_cals_tpu_torch.solvers import jackknife
+        from cp_cals_tpu_torch.utils import lut
+
+        self.saved = [(solvers, "cp_cals", solvers.cp_cals), (jackknife, "cp_cals", jackknife.cp_cals),
+                      (lut, "autotune", lut.autotune)]
+        solvers.cp_cals = jackknife.cp_cals = self.wrap(solvers.cp_cals)
+        real_tune = lut.autotune
+
+        def counted_tune(*a, **kw):
+            self.autotunes += 1
+            return real_tune(*a, **kw)
+
+        lut.autotune = counted_tune
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def wrap(self, real):
+        from cp_cals_tpu_torch import UpdateMethod, launches
+        from cp_cals_tpu_torch.utils import lut
+
+        def run(x, queue, params, *a, **kw):
+            counts0, routes0, stats0 = read_counts(), launches.routes(), dict(lut.LOOKUP_STATS)
+            lut.reset_lookup_stats()
+            t0 = time.perf_counter()
+            out = real(x, queue, params, *a, **kw)
+            wall = time.perf_counter() - t0
+            counts = {k: v - counts0[k] for k, v in read_counts().items()}
+            routes = {k: v - routes0[k] for k, v in launches.routes().items()}
+            modes = tuple(x.shape)
+            label = exp_label(modes, params, kw.get("jk_fibers") is not None)
+            picked = check_table_run(f"experiments {label}", modes, [kt.rank for kt in queue], params, out[1],
+                                     counts, routes, epilogue=params.update_method != UpdateMethod.NNLS)
+            for k, v in stats0.items():
+                lut.LOOKUP_STATS[k] += v
+            self.runs.append(dict(label=label, n_models=len(queue), wall_s=wall, launches=counts, routes=routes,
+                                  bucket_iterations=dict(out[1].engine_iterations), **picked))
+            return out
+
+        return run
+
+    def launches_by_label(self) -> dict:
+        """{kernel: {run label: launches}}, summed over the runs of a label."""
+        out = collections.defaultdict(lambda: collections.defaultdict(int))
+        for run in self.runs:
+            for k, v in run["launches"].items():
+                if v:
+                    out[k][run["label"]] += v
+        return {k: dict(v) for k, v in out.items()}
+
+
+def finite_numbers(name: str, obj) -> None:
+    """Every number in a (nested) result is finite."""
+    if isinstance(obj, dict):
+        for v in obj.values():
+            finite_numbers(name, v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            finite_numbers(name, v)
+    elif isinstance(obj, (int, float)) and not np.isfinite(obj):
+        raise AssertionError(f"{name}: a number is not finite: {obj}")
+
+
+def experiments_phase(dev) -> dict:
+    """The experiment harness (cp_cals_tpu_torch/experiments.py) on the card:
+    every leg at --quick sizes through ``experiments.main`` (the jackknife
+    file written here with tensor_io), the base grid at full width
+    (``compare_als_cals`` at 200^3, ranks 1-20 x 20, 50 forced iterations,
+    buckets 4/8/12/16/20, "highest") and the scale sweep at the paper's
+    500^3 float32, cut in depth (``EXP_SWEEP``). Every engine run is
+    checked against the committed tables' picks (``EngineRuns``); no table
+    may miss (no autotune), no comparison may mismatch, the 500^3 sweep
+    must derive its layouts in the loop ("recompute"), every number must be
+    finite."""
+    import shutil
+
+    from cp_cals_tpu_torch import AlsParams, CalsParams, experiments
+    from cp_cals_tpu_torch.utils.roofline import device_peaks, mxu_utilization
+
+    shutil.rmtree(os.path.dirname(EXP_FILE), ignore_errors=True)
+    shutil.rmtree(EXP_DIR, ignore_errors=True)
+    write_jk_file(EXP_FILE)
+    t_phase = time.perf_counter()
+    out = {}
+    try:
+        with EngineRuns() as runs:
+            t0 = time.perf_counter()
+            out["quick"] = experiments.main(
+                ["--quick", "--jk", "--jk-scale", "--scale-sweep", "--defrag", "--nnls", "--jk-file", EXP_FILE,
+                 "--out", EXP_DIR])
+            out["quick_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            x, queue = experiments.make_workload(EXP_BASE_MODES, 1, 20, 20, device=dev)
+            tag = "x".join(map(str, EXP_BASE_MODES))
+            out[tag] = experiments.compare_als_cals(
+                x, queue, CalsParams(max_iterations=EXP_BASE_ITERS, force_max_iter=True, bucket_ranks=EXP_BUCKETS),
+                AlsParams(max_iterations=EXP_BASE_ITERS, force_max_iter=True), out_dir=EXP_DIR, tag=tag, device=dev)
+            out[tag]["leg_s"] = time.perf_counter() - t0
+            del x, queue
+            print(f"experiments base grid {tag}: {out[tag]}", flush=True)
+            t0 = time.perf_counter()
+            out["scale_sweep"] = experiments.scale_sweep(device=dev, **EXP_SWEEP)
+            out["scale_sweep"]["leg_s"] = time.perf_counter() - t0
+            print(f"experiments scale sweep {EXP_SWEEP}: {out['scale_sweep']}", flush=True)
+    finally:
+        shutil.rmtree(os.path.dirname(EXP_FILE), ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["runs"], out["autotunes"] = runs.runs, runs.autotunes
+    out["launches_by_label"] = runs.launches_by_label()
+
+    quick = out["quick"]
+    comparisons = {"quick " + k: quick[k] for k in ("50x50x50", "nnls")}
+    comparisons[tag] = out[tag]
+    for name, res in comparisons.items():
+        if res["n_mismatched"]:
+            raise AssertionError(f"experiments {name}: {res['n_mismatched']} of {res['n_models']} models apart "
+                                 f"from their batched ALS beyond the 1e-1 check")
+    if runs.autotunes:
+        raise AssertionError(f"experiments: {runs.autotunes} autotunes inside the harness (a table misses; "
+                             f"python3 tools/lut_tables.py measures chip_smoke.experiment_tables())")
+    for name, sweep in (("quick scale sweep", quick["scale_sweep"]), ("scale sweep", out["scale_sweep"])):
+        if sweep["lut_dispatch"]["heuristic"] or sweep["lut_dispatch"]["nearest"]:
+            raise AssertionError(f"experiments {name}: lookup decisions {sweep['lut_dispatch']}, all exact expected")
+        if "hbm_measured" not in sweep:
+            raise AssertionError(f"experiments {name}: no hbm_measured on the card")
+    if out["scale_sweep"]["mode_layouts_resolved"] != "recompute":
+        raise AssertionError(f"experiments scale sweep: layouts {out['scale_sweep']['mode_layouts_resolved']}, "
+                             f"expected 'recompute' at {EXP_SWEEP['modes']}")
+    with open(os.path.join(EXP_DIR, "experiments.json")) as fh:
+        if json.load(fh) != json.loads(json.dumps(quick)):
+            raise AssertionError("experiments: experiments.json is not the quick run's results")
+    finite_numbers("experiments", {k: v for k, v in out.items() if k != "runs"})
+    finite_numbers("experiments runs", [{k: v for k, v in r.items() if k != "picks"} for r in out["runs"]])
+
+    sheet = device_peaks(dev)
+    sweep = out["scale_sweep"]
+    out["mxu_utilization_high"] = mxu_utilization(sweep["mttkrp_tflops"], "high", dev)
+    print(f"experiments: peaks measured bf16 {quick['peak_bf16_tflops']} TFLOP/s (data sheet "
+          f"{sheet['bf16_tflops']}), fp32 {quick['peak_f32_tflops']} (data sheet {sheet['fp32_tflops']}); "
+          f"500^3 sweep {sweep['models_per_sec']} models/s, mttkrp {sweep['mttkrp_tflops']} TFLOP/s, "
+          f"mxu_utilization at 'high' {out['mxu_utilization_high']:.4f}; peak HBM "
+          f"{sweep['hbm_measured']['peak_bytes_in_use'] / 2**30:.2f} GiB of "
+          f"{sweep['hbm_measured']['bytes_limit'] / 2**30:.2f}; {len(runs.runs)} engine runs checked against the "
+          f"tables; phase {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2976,6 +3239,7 @@ def main() -> int:
     jk_ls = jk_line_search_phase(x_np, kt5)
     debug = debug_phase()
     entry_pts = entry_point_phase(x_np, dev)
+    exps = experiments_phase(dev)
     probe = probe_phase(dev)
 
     # Each kernel at the launch mix of the engine run that drives it: the
@@ -3071,6 +3335,10 @@ def main() -> int:
             library_graph_ms=None if any(m["library_graph_ms"] is None for m in mix) else mean("library_graph_ms"),
         ))
 
+    # Each kernel's launches in the experiment harness's engine runs, by run.
+    for entry in kernels:
+        entry["experiments_launches"] = exps["launches_by_label"].get(entry["name"], {})
+
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -3083,7 +3351,7 @@ def main() -> int:
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
                        multi_device=multi,
                        mttkrp_j1_mix=j1_mix, nnls=nnls, line_search=ls, jk_line_search=jk_ls, debug=debug,
-                       entry_points=entry_pts,
+                       entry_points=entry_pts, experiments=exps,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

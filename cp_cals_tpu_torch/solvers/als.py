@@ -4,11 +4,11 @@
 task-parallel baseline): all models iterate in lock step until every one
 has converged, and a converged model is frozen by a select, so each
 trajectory is the one ``cp_als`` would give it. ``cp_als`` runs one model
-as a batch of one through the same batched iteration, so on the card it
-goes through the kernels (the JAX package uses its unbatched iteration
-there). Both loop on the host with one small fetch per iteration (the JAX
-package runs a device ``while_loop``; a captured ALS loop is ROADMAP queue
-1 item 3), stop per iteration or by the mixed-tier check
+through the unbatched iteration, as the JAX package does, which runs it
+as a batch of one through the batched iteration, so on the card it goes
+through the kernels. Both loop on the host with one small fetch per
+iteration (the JAX package runs a device ``while_loop``; a captured ALS
+loop is ROADMAP queue 1 item 3), stop per iteration or by the mixed-tier check
 (``tol_check_interval``), take tensors of any order, and return host NumPy
 Ktensors, fetched once at the end.
 """
@@ -39,10 +39,11 @@ class AlsReport:
     converged: bool
 
 
-def _run_batched(x, kt_b: Ktensor, params: AlsParams, dev, jk_fiber=None, x_norm_model=None):
+def _run(x, kt_b: Ktensor, params: AlsParams, dev, jk_fiber=None, x_norm_model=None, batched: bool = True):
     """Lock-step ALS of a [B]-batched host Ktensor until every model has
-    converged; converged models are frozen. Returns the final state with
-    every leaf on the host (NumPy)."""
+    converged; converged models are frozen. With ``batched=False`` one model
+    without the batch axis, through the unbatched iteration. Returns the
+    final state with every leaf on the host (NumPy)."""
     check_supported(params)
     np_dtype = _queue_dtype([kt_b])
     dt = _DTYPES[np_dtype]
@@ -59,7 +60,7 @@ def _run_batched(x, kt_b: Ktensor, params: AlsParams, dev, jk_fiber=None, x_norm
     state = init_state(kt, x_norm, jk_fiber=jk_fiber, x_norm_model=x_norm_model,
                        nnls=params.update_method == UpdateMethod.NNLS,
                        line_search=params.line_search, mixed_tol=params.tol_check_interval > 0)
-    iteration = make_iteration(params, batched=True, has_jk=has_jk)
+    iteration = make_iteration(params, batched=batched, has_jk=has_jk)
     prepared = iteration.prepare(x)
     while not bool(state.converged.all()):
         new = iteration(x, state, x_norm, prepared)
@@ -67,7 +68,8 @@ def _run_batched(x, kt_b: Ktensor, params: AlsParams, dev, jk_fiber=None, x_norm
     return tree_map(lambda t: t.cpu().numpy(), state)
 
 
-def _report(state, i: int) -> AlsReport:
+def _report(state, i) -> AlsReport:
+    """Model ``i`` of a final host state (``()`` for an unbatched state)."""
     return AlsReport(
         iters=int(state.iters[i]), fit=float(state.fit[i]),
         approx_error=float(state.approx_error[i]), converged=bool(state.converged[i]),
@@ -92,11 +94,10 @@ def cp_als(
     "cpu" to run the plain PyTorch versions of the kernels.
     """
     dev = resolve_device(device)
-    kt_b = Ktensor(tuple(_to_numpy(f)[None] for f in kt0.factors), _to_numpy(kt0.lam)[None])
-    xnm = None if x_norm_model is None else np.asarray([float(x_norm_model)])
-    final = _run_batched(x, kt_b, params, dev, jk_fiber=jk_fiber, x_norm_model=xnm)
-    kt = Ktensor(tuple(f[0] for f in final.kt.factors), final.kt.lam[0])
-    return kt, _report(final, 0)
+    kt = Ktensor(tuple(_to_numpy(f) for f in kt0.factors), _to_numpy(kt0.lam))
+    xnm = None if x_norm_model is None else float(x_norm_model)
+    final = _run(x, kt, params, dev, jk_fiber=jk_fiber, x_norm_model=xnm, batched=False)
+    return final.kt, _report(final, ())
 
 
 def cp_batched_als(
@@ -116,7 +117,7 @@ def cp_batched_als(
             tuple(np.stack([_to_numpy(kt.factors[n]) for kt in kts]) for n in range(len(kts[0].factors))),
             np.stack([_to_numpy(kt.lam) for kt in kts]),
         )
-    final = _run_batched(x, kt_b, params, dev)
+    final = _run(x, kt_b, params, dev)
     b = final.iters.shape[0]
     results = [Ktensor(tuple(f[i] for f in final.kt.factors), final.kt.lam[i]) for i in range(b)]
     return results, [_report(final, i) for i in range(b)]

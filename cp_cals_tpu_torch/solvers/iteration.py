@@ -1,5 +1,6 @@
 """One batched ALS iteration over a SolverState (port of the main-path
-subset of ``cp_cals_tpu/solvers/iteration.py:57-501``).
+subset of ``cp_cals_tpu/solvers/iteration.py:57-501``); the unbatched
+iteration of one model runs it as a batch of one.
 
 Per mode: the MTTKRP by the mode's method (``mttkrp_methods``, the
 engine's per-bucket picks from the lookup table; without them
@@ -99,7 +100,7 @@ from ..ops.mttkrp import (
     resolve_batched_method,
 )
 from ..ops.update import padded_hadamard, update_factor_nnls, update_factor_unconstrained
-from .state import BIG_ERROR, HiState, LsState, SolverState, tree_where
+from .state import BIG_ERROR, HiState, LsState, SolverState, tree_map, tree_where
 
 
 class Held(tuple):
@@ -181,12 +182,21 @@ def make_iteration(
 
     tp: None, or the ``parallel.sharding.TpRows`` of a mesh that splits
     mode 0 (module docstring).
+
+    batched=False takes the JAX package's unbatched state (factors
+    ``[I_n, R]``, lam ``[R]``, scalar counters and flags) and runs it as a
+    batch of one through the batched iteration: the leading axis is added
+    to every leaf, and dropped again from the result.
     """
     if not batched:
-        raise NotImplementedError(
-            "the unbatched iteration is not ported: cp_als runs one model as a "
-            "batch of one (ROADMAP section 3)"
-        )
+        step = make_iteration(params, True, mttkrp_methods, has_jk, tp)
+
+        def unbatched(x, state: SolverState, x_norm_full, prepared=None) -> SolverState:
+            out = step(x, tree_map(lambda t: t.unsqueeze(0), state), x_norm_full, prepared)
+            return tree_map(lambda t: t[0], out)
+
+        unbatched.prepare = step.prepare
+        return unbatched
     check_supported(params)
     precision = params.precision
     mttkrp_prec = params.mttkrp_precision or precision

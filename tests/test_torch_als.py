@@ -1,8 +1,9 @@
 """The port's single-model and batched ALS against the JAX package, on the
 CPU in float64 at the 1e-11 band of tests/test_als.py.
 
-The port runs ``cp_als`` as a batch of one through its batched iteration
-(the JAX package uses its unbatched one), with each of the three solves.
+Both packages run ``cp_als`` through their unbatched iteration (the
+port's runs a batch of one through its batched iteration), with each of
+the three solves.
 JAX runs ``solve_method="pallas"`` as "gj": its kernel cannot run inside
 its solvers on the CPU, and both are the same unpivoted Gauss-Jordan
 inverse up to rounding. JAX runs the twostep MTTKRP with the dimension
@@ -26,6 +27,8 @@ MODES = (9, 8, 7)
 CASES = {
     "tol": dict(tol=1e-9, max_iterations=200),
     "forced": dict(max_iterations=12, force_max_iter=True),
+    # The monotonicity hook on a converging fit (tests/test_als.py): no rise.
+    "debug": dict(tol=1e-9, max_iterations=200, debug=True),
 }
 
 
@@ -56,9 +59,13 @@ def assert_same_model(kp, kj, tol=TOL):
 def test_cp_als_fp64_matches_jax(case, solve):
     """The forced case runs a jackknife fiber with its leave-one-out norm."""
     x, (kt0,) = make_problem(0)
+    from cp_cals_tpu_torch.solvers.iteration import MONOTONICITY_VIOLATIONS
+
     jk = dict(jk_fiber=4, x_norm_model=float(np.linalg.norm(np.delete(x, 4, axis=0)))) if case == "forced" else {}
+    MONOTONICITY_VIOLATIONS.clear()
     kp, rp = cp_als(x, kt0, AlsParams(solve_method=solve, **CASES[case]), device="cpu", **jk)
     kj, rj = jax_cp_als(jnp.asarray(x), jkt(kt0), jax_params(solve, **CASES[case]), **jk)
+    assert not MONOTONICITY_VIOLATIONS
     assert (rp.iters, rp.converged) == (rj.iters, rj.converged)
     np.testing.assert_allclose([rp.fit, rp.approx_error], [rj.fit, rj.approx_error], atol=TOL)
     assert_same_model(kp, kj)
@@ -112,6 +119,48 @@ def test_cp_als_float32_and_torch_inputs():
     assert abs(rp.fit - r64.fit) < 1e-4
 
 
-def test_unbatched_iteration_is_not_ported():
-    with pytest.raises(NotImplementedError, match="batch of one"):
-        make_iteration(AlsParams(), batched=False)
+@pytest.mark.parametrize("debug", [False, True])
+def test_unbatched_iteration_matches_jax(debug):
+    """make_iteration(batched=False) steps JAX's unbatched state (factors
+    [I_n, R], scalar leaves) as JAX's unbatched iteration does, for 5
+    float64 iterations from one state, at 1e-12. With debug=True the state
+    is tests/test_als.py's monotonicity case: iteration 5 with a previous
+    error of 0, so the first step records a rise in both packages, with a
+    warning, and the next steps none."""
+    from cp_cals_tpu.solvers.iteration import MONOTONICITY_VIOLATIONS as JAX_VIOLATIONS
+    from cp_cals_tpu.solvers.iteration import make_iteration as jax_make_iteration
+    from cp_cals_tpu.solvers.state import init_state as jax_init_state
+    from cp_cals_tpu_torch.solvers.iteration import MONOTONICITY_VIOLATIONS
+    from cp_cals_tpu_torch.solvers.state import init_state
+
+    x, (kt0,) = make_problem(4)
+    x_norm = float(np.linalg.norm(x))
+    xj, xp = jnp.asarray(x), torch.from_numpy(x)
+    sj = jax_init_state(jkt(kt0), jnp.asarray(x_norm))
+    sp = init_state(Ktensor(tuple(torch.from_numpy(f) for f in kt0.factors), torch.from_numpy(kt0.lam)),
+                    torch.tensor(x_norm, dtype=torch.float64))
+    if debug:
+        sj = sj._replace(iters=jnp.asarray(5, jnp.int32), approx_error=jnp.asarray(0.0, xj.dtype))
+        sp = sp._replace(iters=torch.tensor(5, dtype=torch.int32), approx_error=torch.tensor(0.0, dtype=xp.dtype))
+    step_j = jax_make_iteration(jax_params("gj", debug=debug), batched=False)
+    step_p = make_iteration(AlsParams(debug=debug), batched=False)
+    JAX_VIOLATIONS.clear()
+    MONOTONICITY_VIOLATIONS.clear()
+    for it in range(5):
+        if debug and it == 0:
+            with pytest.warns(UserWarning, match="error increased"):
+                sj = step_j(xj, sj, jnp.asarray(x_norm))
+                np.asarray(sj.fit)
+            with pytest.warns(UserWarning, match="error increased"):
+                sp = step_p(xp, sp, torch.tensor(x_norm, dtype=torch.float64))
+        else:
+            sj = step_j(xj, sj, jnp.asarray(x_norm))
+            sp = step_p(xp, sp, torch.tensor(x_norm, dtype=torch.float64))
+        assert sp.kt.factors[0].shape == MODES[:1] + (3,) and sp.iters.ndim == 0
+        assert (int(sp.iters), bool(sp.converged)) == (int(sj.iters), bool(sj.converged))
+        np.testing.assert_allclose([float(sp.fit), float(sp.approx_error)],
+                                   [float(sj.fit), float(sj.approx_error)], atol=1e-12)
+        for fp, fj in zip(sp.kt.factors + (sp.kt.lam,), sj.kt.factors + (sj.kt.lam,)):
+            np.testing.assert_allclose(fp.numpy(), np.asarray(fj), atol=1e-12)
+    assert len(MONOTONICITY_VIOLATIONS) == len(JAX_VIOLATIONS) == (1 if debug else 0)
+    np.testing.assert_allclose(MONOTONICITY_VIOLATIONS, JAX_VIOLATIONS, atol=1e-12)

@@ -980,3 +980,20 @@ def test_autotune_on_a_miss_then_auto_hits_the_entries(dev, monkeypatch):
             want["fused" if m == "pallas" else m] += rep.engine_iterations[r]
     assert launches.routes() == want
     assert fm.fused_mttkrp_tc.launches == want["fused"]
+
+
+def test_compare_als_cals_on_the_card(dev, tmp_path):
+    """The experiment harness's ALS-vs-CALS comparison (the quick base grid,
+    50^3) on the card: the target drawn there, CALS through the kernels
+    (the fp32 MTTKRP at "highest"), no model apart from its batched ALS."""
+    from cp_cals_tpu_torch import experiments
+
+    x, queue = experiments.make_workload((50, 50, 50), 1, 3, 2)
+    assert x.is_cuda and x.dtype == torch.float32
+    _zero()
+    res = experiments.compare_als_cals(
+        x, queue, CalsParams(max_iterations=5, force_max_iter=True, bucket_ranks=(4, 8, 12, 16, 20)),
+        AlsParams(max_iterations=5, force_max_iter=True), out_dir=str(tmp_path), tag="50x50x50")
+    assert res["n_models"] == 6 and res["n_mismatched"] == 0
+    assert fm.fused_mttkrp_fp32.launches > 0 and fe.epilogue_apply.launches > 0
+    assert (tmp_path / "cals_50x50x50.csv").exists()

@@ -5,7 +5,9 @@
 
 For every bucket chip_smoke.py runs under mttkrp_method=AUTO
 (``chip_smoke.auto_tables``: the bench workload in 3-D and 4-D, the NNLS
-run, the README command's CALS and jackknife buckets, at their tiers), it
+run, the README command's CALS and jackknife buckets, and every engine run
+of the experiment harness, quick, full width and full size, at their
+tiers), it
 autotunes the (B, R, tier) entries the card's table lacks
 (``utils/lut.autotune``: each method replayed from a CUDA graph, the least
 of ``--reps``, the 10 % margin toward the twostep) into
