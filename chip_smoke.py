@@ -61,6 +61,16 @@ the result lines are printed):
    (off, on, on, off); the three cross-checked like "highest". A small
    float64 problem on the card: the gates send it to the twostep and the
    unfused path (no kernel launches), against the same run on the CPU.
+   Every engine run of the script runs its buckets in one thread, the
+   engine's default (4 threads ran the bench workload slower on the card,
+   PERF.md); phase 4a and the cuda tests hold 4 threads to it.
+4a. Bucket threads: the bench workload at the bench tiers and at
+   "highest", bucket_threads=1 and 4 in turns (1, 4, 4, 1, 1, 4): every
+   threaded run bit for bit the first serial run, with equal launches,
+   routes, and captures, replays and stats fetches per bucket; each run's
+   wall and phase times printed, and one profiled run of
+   each thread count (tools/profile_engine.py's profile_run): the device's
+   busy share, the host's time in launch calls and in synchronising calls.
 4b. N-D: the bench workload with a fourth mode of 8 (299x301x41x8, 29.5 M
    entries; the same 400 models, buckets and budget; 10 forced
    iterations) at "highest" and at the bench tiers. Every mode takes the
@@ -229,6 +239,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1066,6 +1077,68 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, per_ste
     return results, rep, out
 
 
+THREAD_TURNS = (1, 4, 4, 1, 1, 4)  # bucket_threads of phase 4a's runs, in turns
+
+
+def tool(name: str):
+    """The module tools/<name>.py of this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"tools_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bucket_threads_phase(x_np, queue) -> dict:
+    """Phase 4a (module docstring): serial and threaded buckets in turns,
+    held bit for bit and count for count; walls, phase times, and a
+    profiled run of each."""
+    profile_engine = tool("profile_engine")
+    out = {}
+    for name, tiers in (("bench-tiers", BENCH_TIERS), ("highest", {})):
+        runs = []
+        for t in THREAD_TURNS:
+            res, rep, run = engine_run(x_np, queue, tiers, f"{name} bucket_threads={t}", bucket_threads=t)
+            runs.append((t, res, rep, run))
+        _, res1, rep1, run1 = runs[0]
+
+        def per_bucket(rep):
+            return {r: {k: c[k] for k in ("captures", "replays", "stats_fetches", "polish_sweeps")}
+                    for r, c in rep.loop_counts.items()}
+
+        for t, res, rep, run in runs[1:]:
+            label = f"{name}: bucket_threads={t} vs the first serial run"
+            assert_bit_identical(label, (res1, rep1), (res, rep))
+            if (run["launches"], run["routes"], per_bucket(rep)) != (run1["launches"], run1["routes"],
+                                                                      per_bucket(rep1)):
+                raise AssertionError(f"{label}: launches {run['launches']} routes {run['routes']} loop "
+                                     f"{per_bucket(rep)} vs {run1['launches']} {run1['routes']} {per_bucket(rep1)}")
+        walls = {t: [r[3]["wall_s"] for r in runs if r[0] == t] for t in (1, 4)}
+        phases = {t: [{str(b): pt for b, pt in r[2].phase_times.items()} for r in runs if r[0] == t]
+                  for t in (1, 4)}
+        prof = {}
+        for t in (1, 4):
+            _, _, summary = profile_engine.profile_run(torch.from_numpy(x_np).cuda(), queue,
+                                                          bench_params(**tiers, bucket_threads=t))
+            prof[t] = {k: summary[k] for k in ("wall_s", "device_busy_ms", "device_busy_share", "host_launch_ms",
+                                               "host_sync_ms", "kernels_launched")}
+        for t in (1, 4):
+            med = sorted(walls[t])[1]
+            print(f"bucket threads {name} t={t}: walls {walls[t]} s (median {med:.4f}), "
+                  f"profiled: wall {prof[t]['wall_s']:.4f}s, device busy {prof[t]['device_busy_ms']:.2f} ms "
+                  f"= {prof[t]['device_busy_share']:.3f} of wall, host in launch calls "
+                  f"{prof[t]['host_launch_ms']:.2f} ms, in synchronising calls {prof[t]['host_sync_ms']:.2f} ms",
+                  flush=True)
+            print(f"bucket threads {name} t={t} phase times (s, by bucket, last run): "
+                  + "; ".join(f"{b}: " + ", ".join(f"{k} {v:.4f}" for k, v in pt.items())
+                              for b, pt in phases[t][-1].items()), flush=True)
+        out[name] = dict(turns=list(THREAD_TURNS), walls_s=walls, phase_times=phases,
+                         profile=prof, launches=run1["launches"], routes=run1["routes"], loop=per_bucket(rep1))
+    return out
+
+
 def assert_bit_identical(name: str, a, b) -> None:
     """Every model's fit, iteration count, error and factors equal bit for
     bit between two engine runs (results, report)."""
@@ -1168,13 +1241,19 @@ class Recorder:
     """Observes the calls of one kernel's wrapper during one run, where the
     run makes them: ``module.attr`` is swapped for a recording function
     while the run lasts (the wrapper's own counts stay its own). Its
-    tallies go into ``launches.TALLIES``, so a CUDA-graph replay advances
-    them as it advances the wrappers' counts: ``shapes`` counts launches by
-    ``key``, replays included. ``first`` holds copies of the first inputs
-    of each key, taken at an eager call (the graph loop runs every captured
+    tallies (``launches.Tally``, counted per thread) go into
+    ``launches.TALLIES``, so a CUDA-graph replay advances them as it
+    advances the wrappers' counts: ``shapes`` counts launches by ``key``,
+    replays included. ``first`` holds copies of the first inputs of each
+    key, taken at an eager call (the graph loop runs every captured
     iteration eagerly first, as its warm-up), the call's arguments in the
     order of ``key``'s parameters, defaults filled in; ``keep`` says which
-    arguments stay by reference (ones nothing writes to)."""
+    arguments stay by reference (ones nothing writes to). The engine's
+    bucket threads call at once: a call is recorded under a lock, ``n``
+    counts every call and ``mine()`` the calling thread's (a bucket's calls
+    come in its thread in the iteration's order). The eager iterations of
+    ``precompile_buckets`` (``solvers/cals.py:_warm_programs``, on zero
+    models) are not the run's calls and are not recorded."""
 
     module, attr, keep, n_first = None, None, (), 3
 
@@ -1189,35 +1268,58 @@ class Recorder:
 
         from cp_cals_tpu_torch import launches
 
+        from cp_cals_tpu_torch.solvers import cals
+
         self.mod = importlib.import_module(self.module)
         self.real = getattr(self.mod, self.attr)
-        self.shapes, self.first, self.n = {}, {}, 0
+        self.real_warm, self.warming = cals._warm_programs, False
+
+        def warm(*a, **k):
+            self.warming = True
+            try:
+                return self.real_warm(*a, **k)
+            finally:
+                self.warming = False
+
+        cals._warm_programs = warm
+        self.shapes, self.first, self.n = launches.Tally(), {}, 0
+        self.lock, self.local = threading.Lock(), threading.local()
         self.tallies = [self.shapes]
         launches.TALLIES.extend(self.tallies)
 
         sig = inspect.signature(self.key)
 
         def record(*args, **kw):
-            key = self.key(*args, **kw)
-            if key is not None:
-                captured = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
-                self.shapes[key] = self.shapes.get(key, 0) + 1
-                if key not in self.first and not captured:
-                    bound = sig.bind(*args, **kw)
-                    bound.apply_defaults()
-                    self.first[key] = tuple(a if i in self.keep else copied(a)
-                                            for i, a in enumerate(bound.args[:self.n_first]))
-                self.seen(self.n, captured, args)
-                self.n += 1
+            if self.warming:
+                return self.real(*args, **kw)
+            with self.lock:
+                key = self.key(*args, **kw)
+                if key is not None:
+                    captured = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+                    self.shapes.add(key)
+                    if key not in self.first and not captured:
+                        bound = sig.bind(*args, **kw)
+                        bound.apply_defaults()
+                        self.first[key] = tuple(a if i in self.keep else copied(a)
+                                                for i, a in enumerate(bound.args[:self.n_first]))
+                    self.seen(self.n, captured, args)
+                    self.n += 1
+                    self.local.n = self.mine() + 1
             return self.real(*args, **kw)
 
         setattr(self.mod, self.attr, record)
         return self
 
+    def mine(self) -> int:
+        """The calls recorded so far in the calling thread."""
+        return getattr(self.local, "n", 0)
+
     def __exit__(self, *exc):
         from cp_cals_tpu_torch import launches
+        from cp_cals_tpu_torch.solvers import cals
 
         setattr(self.mod, self.attr, self.real)
+        cals._warm_programs = self.real_warm
         for t in self.tallies:
             launches.TALLIES.remove(t)
 
@@ -1242,7 +1344,7 @@ class SpdRecorder(Recorder):
         super().__enter__()
         from cp_cals_tpu_torch import launches
 
-        self.calls, self.written = [], {}
+        self.calls, self.written = [], launches.Tally()
         self.tallies.append(self.written)
         launches.TALLIES.append(self.written)
         return self
@@ -1252,8 +1354,8 @@ class SpdRecorder(Recorder):
 
     def seen(self, n, captured, args):
         (h,) = args
-        self.written[n] = 1
-        self.calls.append((captured, n % 3, h if captured else h.clone()))  # modes in turn
+        self.written.add(n)
+        self.calls.append((captured, self.mine() % 3, h if captured else h.clone()))  # modes in turn
 
     @property
     def snaps(self) -> list:
@@ -1291,7 +1393,7 @@ class CubeMttkrpRecorder(MttkrpRecorder):
     def key(self, x3, u1, u2, precision="highest", pred=None):
         if pred is not None:
             raise AssertionError("a predicated MTTKRP call in a run recorded by its calls' order")
-        return (u1.shape[0], u1.shape[2], self.n % 3, precision)
+        return (u1.shape[0], u1.shape[2], self.mine() % 3, precision)
 
 
 def jk_run(name: str, run, per_step: dict, checked: str | None = None) -> tuple:
@@ -3201,6 +3303,7 @@ def main() -> int:
     res_h, rep_h, run_h = engine_run(x_np, queue, BENCH_TIERS, "headline", **HEADLINE)
     check = cross_check(x_np, queue, {"highest": (res_a, rep_a), "bench-tiers": (res_b, rep_b)}, picks_of(run_a))
     check.update(cross_check(x_np, queue, {"headline": (res_h, rep_h)}, picks_of(run_h), **HEADLINE))
+    threads = bucket_threads_phase(x_np, queue)
 
     # The other MTTKRP routes, the layout policies and the dimension tree on
     # the bench tensor (3-D), each checked.
@@ -3344,7 +3447,7 @@ def main() -> int:
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                        build_s=build_s, shapes=rows, table=table,
                        engine={"highest": run_a, "bench_tiers": run_b, "bench_tiers_iter": run_i,
-                               "headline": run_h},
+                               "headline": run_h}, bucket_threads=threads,
                        other_routes={"twostep": run_t, "krp_gemm": run_k, "bench_tiers_recompute": run_r,
                                      "dimtree": run_d, "dimtree_walls": dimtree_walls},
                        float64_on_card=f64, nd=nd, widened=wide,

@@ -38,8 +38,8 @@ def parse_args(argv=None):
     p.add_argument("--buffer-size", type=int, default=4200)
     p.add_argument("--line-search", action="store_true")
     p.add_argument("--nnls", action="store_true")
-    p.add_argument("--bucket-threads", type=int, default=4,
-                   help="accepted and not used: buckets run one after another "
+    p.add_argument("--bucket-threads", type=int, default=1,
+                   help="host threads that run a wave's buckets, each on its own CUDA stream "
                         "(config.CalsParams.bucket_threads)")
     p.add_argument("--bucket-ranks", default=None,
                    help="comma list of bucket rank classes, e.g. 4,8,16")

@@ -75,8 +75,11 @@ class CalsParams:
     """Concurrent-ALS parameters (fields of cp_cals_tpu.config.CalsParams).
 
     ``buffer_size`` is the global padded-column budget split across rank
-    buckets; ``bucket_threads`` is accepted and not used yet (buckets run
-    one after another, ROADMAP queue 1 item 1).
+    buckets; ``bucket_threads`` host threads run the buckets of a wave,
+    each bucket on a CUDA stream of its own (one on a mesh;
+    ``solvers/cals.py``). Its default is 1, where the JAX package's is 4:
+    on the H100 four threads ran the bench workload 1.65-1.92x slower
+    than one (PERF.md), so threads are asked for, not assumed.
     """
 
     max_iterations: int = 200
@@ -103,7 +106,7 @@ class CalsParams:
     mode_layouts: str = "auto"
     sync_mode: str = "evict"
     evict_batch: int = 1
-    bucket_threads: int = 4
+    bucket_threads: int = 1
     tail_compaction_depth: int = 2
     result_wire_dtype: Optional[str] = None
     dimtree: str = "auto"

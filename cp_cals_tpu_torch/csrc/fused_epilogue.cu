@@ -356,17 +356,18 @@ apply_kernel(const float* __restrict__ g, const float* __restrict__ hinv,
   }
 }
 
-// The card's shared memory per block (opt-in), read once per device.
+// The card's shared memory per block (opt-in), read once per device (two
+// threads that read it at once store the same value).
 int smem_optin() {
-  static int optin[MAX_DEVICES] = {};
+  static std::atomic<int> optin[MAX_DEVICES];
   const int dev = current_device();
-  int v = dev >= 0 ? optin[dev] : 0;
+  int v = dev >= 0 ? optin[dev].load(std::memory_order_relaxed) : 0;
   if (v == 0) {
     int d = 0;
     if (cudaGetDevice(&d) != cudaSuccess ||
         cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, d) != cudaSuccess)
       return 0;
-    if (dev >= 0) optin[dev] = v;
+    if (dev >= 0) optin[dev].store(v, std::memory_order_relaxed);
   }
   return v;
 }
@@ -410,7 +411,7 @@ extern "C" int apply_launch(const float* g, const float* hinv,
   const int ns = gram_slices(I, R, optin);
   const size_t smem = (size_t)apply_smem_floats(I, R, ns) * sizeof(float);
   if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  static size_t smem_set[MAX_DEVICES] = {};
+  static std::atomic<size_t> smem_set[MAX_DEVICES];  // per device: the largest size allowed so far
   int code = allow_smem((const void*)apply_kernel, smem, smem_set);
   if (code) return code;
   apply_kernel<<<B, APPLY_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -436,22 +436,23 @@ mttkrp_tc_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restri
 }
 
 // cuTensorMapEncodeTiled, looked up once through the CUDA runtime (no link
-// against libcuda).
+// against libcuda); the static's initialisation is thread-safe (C++11), so
+// concurrent first launches look it up once.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
+  static const EncodeTiled fn = [] {
     cudaDriverEntryPointQueryResult found;
     void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+                       cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
   return fn;
 }
 
@@ -477,7 +478,7 @@ int launch(const CUtensorMap& map, const float* u1, const float* u2, float* dst,
            const int* pred, cudaStream_t s) {
   auto kernel = mttkrp_tc_kernel<NC, HIGH>;
   const size_t smem = smem_bytes(NC, HIGH, kspan);
-  static size_t smem_set[MAX_DEVICES] = {};  // per device: the largest size allowed so far
+  static std::atomic<size_t> smem_set[MAX_DEVICES];  // per device: the largest size allowed so far
   const int e = allow_smem((const void*)kernel, smem, smem_set);
   if (e != 0) return e;
   dim3 grid((C + NC - 1) / NC, (I + TM - 1) / TM, splits);

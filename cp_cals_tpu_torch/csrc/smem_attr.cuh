@@ -4,6 +4,9 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace {
 
 constexpr int MAX_DEVICES = 64;
@@ -17,14 +20,22 @@ inline int current_device() {
 
 // Allows `fn` `bytes` of dynamic shared memory on the current device. The
 // attribute is set per device, so `done` (a static array of the caller's,
-// one slot per device) keeps the largest size set so far on each.
-inline int allow_smem(const void* fn, size_t bytes, size_t* done) {
+// one slot per device) keeps the largest size set so far on each. Host
+// threads launch at once (the engine's bucket threads): a size is stored
+// (release) only after its attribute is set, and read (acquire) before a
+// launch skips the set, so no launch starts before its size is allowed;
+// the sets themselves take one lock, so a smaller size never overwrites a
+// larger one.
+inline int allow_smem(const void* fn, size_t bytes, std::atomic<size_t>* done) {
   if (bytes <= 48 * 1024) return 0;
   const int dev = current_device();
-  if (dev >= 0 && bytes <= done[dev]) return 0;
+  if (dev >= 0 && bytes <= done[dev].load(std::memory_order_acquire)) return 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  if (dev >= 0 && bytes <= done[dev].load(std::memory_order_relaxed)) return 0;
   const cudaError_t e =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess && dev >= 0) done[dev] = bytes;
+  if (e == cudaSuccess && dev >= 0) done[dev].store(bytes, std::memory_order_release);
   return (int)e;
 }
 

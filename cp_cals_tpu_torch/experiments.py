@@ -24,7 +24,6 @@ so partial runs add to it.
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import os
 import subprocess
@@ -70,13 +69,15 @@ def compare_als_cals(x, queue, cals_params, als_params, out_dir=None,
     """CALS vs batched-ALS on identical inputs with error cross-checking
     (reference experiments_utils.cpp:69-193, tolerance 1e-1 + NaN screen).
 
-    warm=True runs each side once untimed first. The port compiles nothing
-    ahead (it has no ``precompile_buckets``), so that run stands in for
-    it: the nvcc build, the lookup table's misses, the allocator's growth
-    and the first graph captures. The timed CALS run still captures its
-    graphs, as a user's second call does."""
+    warm=True runs ``precompile_buckets`` (the nvcc build and the lookup
+    table's misses) and each side once untimed first, as the JAX package
+    does (the allocator's growth and the first graph captures). The timed
+    CALS run still captures its graphs, as a user's second call does."""
+    from .solvers.cals import precompile_buckets
+
     dev = resolve_device(device)
     if warm:
+        precompile_buckets(x, queue, cals_params, device=dev)
         solvers.cp_cals(x, queue, cals_params, device=dev)
     t0 = time.perf_counter()
     _, rep = solvers.cp_cals(x, queue, cals_params, device=dev)
@@ -241,24 +242,6 @@ def jackknife_real_experiment(path, ranks=(4, 5, 6), tol=1e-6,
     }
 
 
-def warm_buckets(x_shape, queue, params: CalsParams, dtype=torch.float32, device=None) -> None:
-    """What stands in for the JAX package's ``precompile_buckets``: the
-    kernels' build (on the card) and each bucket's MTTKRP methods at the
-    engine's allocation (``solvers/cals.py:_resolve_bucket_methods``: the
-    lookup table, autotuned on the card where it misses). ``cp_cals``
-    resolves the same buckets again, from the table."""
-    from . import _build
-    from .solvers.cals import _resolve_bucket_methods, allocate_bucket_batches, bucket_rank
-
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        _build.load("fused_mttkrp.cu")  # builds every source at once
-    demands = collections.Counter(bucket_rank(kt.rank, params.bucket_ranks) for kt in queue)
-    for wave in allocate_bucket_batches(dict(demands), params.buffer_size):
-        for r, b in wave.items():
-            _resolve_bucket_methods(tuple(x_shape), r, b, params, dtype, dev)
-
-
 def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=20,
                 max_iter=50, dtype=torch.float32, seed=7,
                 mode_layouts="auto", device=None):
@@ -268,15 +251,15 @@ def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=20,
     iterations, models/s + achieved MTTKRP TFLOP/s (the padded columns'
     ALS FLOPs over the wall).
 
-    ``warmup_s`` times ``warm_buckets`` (the kernels' build and each
-    bucket's table resolution). ``lut_dispatch`` counts the table's
+    ``warmup_s`` times ``precompile_buckets`` (the kernels' build, each
+    bucket's table resolution and the norm prologue). ``lut_dispatch`` counts the table's
     decisions (``utils/lut.LOOKUP_STATS``) over the warm-up and the run.
     ``hbm_measured`` (on the card only) reads the caching allocator after
     the run: the bytes allocated now and at the peak since the run began
     (the captured graphs' pools included), and the card's memory.
     """
     from .ops.mttkrp import als_iteration_flops
-    from .solvers.cals import bucket_rank
+    from .solvers.cals import bucket_rank, precompile_buckets
     from .utils import lut
 
     dev = resolve_device(device)
@@ -298,7 +281,7 @@ def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=20,
     )
     lut.reset_lookup_stats()
     t0 = time.perf_counter()
-    warm_buckets(modes, queue, params, dtype, dev)
+    precompile_buckets(x, queue, params, device=dev)
     warm_s = time.perf_counter() - t0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

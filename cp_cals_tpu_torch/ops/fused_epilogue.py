@@ -38,7 +38,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, launches
 from ..ktensor import scale_jk_rows
 from .error import _df_add, _two_prod, fast_error_from_cols
 from .gramians import gramian, hadamard_all, hadamard_but_one
@@ -112,6 +112,7 @@ def epilogue_apply_plain(g, hinv, iters, jk_fiber, zero_jk: bool, err_inputs=Non
 # ------------------------------------------------------------------ kernels
 
 
+@functools.cache  # once: concurrent first calls would race on the argtypes
 def _lib():
     lib = _build.load("fused_epilogue.cu")
     if lib.hinv_launch.argtypes is None:
@@ -141,6 +142,7 @@ def _check_rank(name: str, r: int) -> None:
         raise ValueError(f"{name}: rank {r} above the kernel's maximum {MAX_R}")
 
 
+@launches.wrapper()
 def normal_inverse(grams, rank_mask: torch.Tensor, skip: int) -> torch.Tensor:
     """H^-1 of padded_hadamard(hadamard_but_one(grams, skip), rank_mask).
 
@@ -181,11 +183,8 @@ def normal_inverse(grams, rank_mask: torch.Tensor, skip: int) -> torch.Tensor:
         _build.stream_ptr(dev),
     )
     _build.check(code, "normal_inverse")
-    normal_inverse.launches += 1
+    normal_inverse.count()
     return out
-
-
-normal_inverse.launches = 0
 
 
 def _pointers(tensors):
@@ -228,6 +227,7 @@ def _apply_fits(index: int, i_n: int, r: int) -> bool:
     return _lib().apply_smem_bytes(i_n, r) <= _smem_optin(index)
 
 
+@launches.wrapper()
 def epilogue_apply(
     g: torch.Tensor, hinv: torch.Tensor, iters: torch.Tensor,
     jk_fiber: torch.Tensor, zero_jk: bool, err_inputs=None,
@@ -289,8 +289,5 @@ def epilogue_apply(
         err.data_ptr() if err is not None else None, b, i_n, r, int(zero_jk), _build.stream_ptr(dev),
     )
     _build.check(code, "epilogue_apply")
-    epilogue_apply.launches += 1
+    epilogue_apply.count()
     return f, lam, gm, err
-
-
-epilogue_apply.launches = 0

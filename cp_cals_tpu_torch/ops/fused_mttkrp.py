@@ -51,7 +51,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, launches
 
 TIERS = ("highest", "high", "default")
 PLANES = {"default": 1, "high": 2}  # bf16 planes of the held X at the bf16 tiers
@@ -250,13 +250,7 @@ def _check_pred(name, dev, pred):
         raise ValueError(f"{name}: pred must be a one-element int32 tensor on {dev}")
 
 
-def _count(fn, pred) -> None:
-    if pred is None:
-        fn.launches += 1
-    else:
-        fn.predicated += 1
-
-
+@functools.cache  # once: concurrent first calls would race on the argtypes
 def _lib_fp32():
     lib = _build.load("fused_mttkrp.cu")
     if lib.fused_mttkrp_launch.argtypes is None:
@@ -273,6 +267,7 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
+@launches.wrapper(predicated=True)
 def fused_mttkrp_fp32(
     x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, pred: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -312,13 +307,11 @@ def fused_mttkrp_fp32(
         pred.data_ptr() if pred is not None else None, _build.stream_ptr(dev),
     )
     _build.check(code, "fused_mttkrp")
-    _count(fused_mttkrp_fp32, pred)
+    fused_mttkrp_fp32.count(pred is not None)
     return out
 
 
-fused_mttkrp_fp32.launches = fused_mttkrp_fp32.predicated = 0
-
-
+@functools.cache
 def _lib_tc():
     lib = _build.load("fused_mttkrp_tc.cu")
     if lib.fused_mttkrp_tc_launch.argtypes is None:
@@ -359,6 +352,7 @@ def tc_plan(index: int, j: int, i: int, kp: int, c: int, planes: int) -> tuple[i
     return nc, kspan, ksplits, -(-j // jchunk), jchunk
 
 
+@launches.wrapper(predicated=True)
 def fused_mttkrp_tc(
     x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, precision: str,
     pred: torch.Tensor | None = None,
@@ -400,11 +394,8 @@ def fused_mttkrp_tc(
         pred.data_ptr() if pred is not None else None, _build.stream_ptr(dev),
     )
     _build.check(code, "fused_mttkrp_tc")
-    _count(fused_mttkrp_tc, pred)
+    fused_mttkrp_tc.count(pred is not None)
     return out
-
-
-fused_mttkrp_tc.launches = fused_mttkrp_tc.predicated = 0
 
 
 _GRID_YZ = 65535  # the largest grid y and z of a launch (row tiles; k and j splits)

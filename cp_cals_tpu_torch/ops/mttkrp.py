@@ -33,6 +33,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..launches import Tally
 from .fused_mttkrp import fused_mttkrp_supported, mttkrp_batched_fused, prepare_mode_tensor
 from .khatri_rao import khatri_rao_chain
 
@@ -40,7 +41,7 @@ PRECISIONS = ("highest", "high", "default")
 # bf16 twostep intermediate at the "default" tier (mttkrp_batched_twostep),
 # as the JAX package's TS_COMPACT_INTERMEDIATE.
 TS_COMPACT_INTERMEDIATE: bool = True
-ROUTES = {"fused": 0, "twostep": 0, "krp_gemm": 0, "dimtree": 0}
+ROUTES = Tally(fixed=("fused", "twostep", "krp_gemm", "dimtree"))  # MTTKRP results by route
 
 
 def _others(n_modes: int, mode: int) -> list[int]:
@@ -263,12 +264,12 @@ def mttkrp_batched(x: torch.Tensor, factors, mode: int, method: str = "krp_gemm"
     if method != asked:
         prepared = None
     if method == "pallas":
-        ROUTES["fused"] += 1
+        ROUTES.add("fused")
         return mttkrp_batched_fused(x, factors, mode, prepared, precision, pred)
     if method in ("krp_gemm", "auto"):
-        ROUTES["krp_gemm"] += 1
+        ROUTES.add("krp_gemm")
         return mttkrp_batched_krp(x, factors, mode, precision, prepared)
-    ROUTES["twostep"] += 1
+    ROUTES.add("twostep")
     return mttkrp_batched_twostep(x, factors, mode, precision, prepared)
 
 
@@ -319,5 +320,5 @@ def dimtree_ttv(t: torch.Tensor, factors, mode: int, precision: str = "highest")
     u = factors[other].permute(1, 0, 2).reshape(t.shape[other - 1], b * r)
     tb = t.reshape(i1, i2, b * r).movedim(-1, 0)  # [C, I1, I2]
     g = _ttv(tb, u, other, precision).to(factors[other].dtype)  # [C, I_mode]
-    ROUTES["dimtree"] += 1
+    ROUTES.add("dimtree")
     return g.reshape(b, r, -1).permute(0, 2, 1).contiguous()

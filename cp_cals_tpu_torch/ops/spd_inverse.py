@@ -19,11 +19,12 @@ float32, ``R <= MAX_R`` and a contiguous ``[B, R, R]`` batch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, launches
 
 MAX_R = 64  # csrc/gj_elim.cuh: GJ_MAX_R
 # csrc/gj_elim.cuh: the warp path's largest R, models (warps) per block on
@@ -70,6 +71,7 @@ def spd_inverse_plain(h: torch.Tensor) -> torch.Tensor:
     return inv
 
 
+@functools.cache  # once: concurrent first calls would race on the argtypes
 def _lib():
     lib = _build.load("spd_inverse.cu")
     if lib.spd_inverse_launch.argtypes is None:
@@ -90,6 +92,7 @@ def built_plan(b: int, r: int) -> GjPlan:
     return GjPlan(("warp", "block")[path], blocks.value, threads.value)
 
 
+@launches.wrapper()
 def spd_inverse(h: torch.Tensor) -> torch.Tensor:
     """H^-1 of a batched SPD matrix. h: [B, R, R] -> [B, R, R]."""
     dev = h.device
@@ -111,8 +114,5 @@ def spd_inverse(h: torch.Tensor) -> torch.Tensor:
         return out
     code = _lib().spd_inverse_launch(h.data_ptr(), out.data_ptr(), b, r, _build.stream_ptr(dev))
     _build.check(code, "spd_inverse")
-    spd_inverse.launches += 1
+    spd_inverse.count()
     return out
-
-
-spd_inverse.launches = 0

@@ -24,6 +24,7 @@ an elementwise op. The result goes to ``chiprun_out/overhead_probe.json``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import subprocess
 import time
@@ -31,7 +32,7 @@ from pathlib import Path
 
 import torch
 
-from . import _build
+from . import _build, launches
 from .device import resolve_device
 
 N = 50
@@ -44,6 +45,7 @@ def probe_copy_plain(x: torch.Tensor) -> torch.Tensor:
     return x * 0.999
 
 
+@functools.cache
 def _lib():
     lib = _build.load("probe_copy.cu")
     if lib.probe_copy_launch.argtypes is None:
@@ -54,6 +56,7 @@ def _lib():
     return lib
 
 
+@launches.wrapper()
 def probe_copy(x: torch.Tensor) -> torch.Tensor:
     """``x * 0.999`` for a float32 tensor: the plain version on the CPU, the
     copy kernel on the card."""
@@ -69,11 +72,8 @@ def probe_copy(x: torch.Tensor) -> torch.Tensor:
         return out
     code = _lib().probe_copy_launch(x.data_ptr(), out.data_ptr(), x.numel(), _build.stream_ptr(dev))
     _build.check(code, "probe_copy")
-    probe_copy.launches += 1
+    probe_copy.count()
     return out
-
-
-probe_copy.launches = 0
 
 
 def _bodies(dev):

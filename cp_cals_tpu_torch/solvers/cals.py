@@ -5,10 +5,32 @@ Models are padded to a rank bucket and packed into batched slots
 ``[B, I_n, R]``; one global padded-column budget (``buffer_size``) is split
 across buckets (``allocate_bucket_batches``). Each bucket runs lock-step
 ALS iterations until at least one live model converges, then the host
-evicts converged models (one packed fetch of their true-rank columns, their
-lam and the eviction stats), refills the vacated slots from the queue by a
-masked select, and repeats. Padded columns and vacant slots are inert, so
-concurrency is invisible to each model's trajectory.
+evicts converged models (their eviction stats, and one packed gather of
+their true-rank columns and lam), refills the vacated slots from the queue
+by a masked select, and repeats. Padded columns and vacant slots are inert,
+so concurrency is invisible to each model's trajectory.
+
+The buckets of a wave run in ``bucket_threads`` host threads (the JAX
+engine's design, ``cp_cals_tpu/solvers/cals.py:cp_cals``), the widest
+bucket first, each bucket on a CUDA stream of its own with its own graph
+memory pool and pinned buffers (its thread's, which the buckets a thread
+runs one after another share), so that one bucket's host work (stats
+fetches, evictions, refills, captures) runs while another's iterations run
+on the card. Python holds the GIL, so host work overlaps device work, not
+other host work. Buckets share no state on the device: a threaded run's
+results are the serial run's bit for bit, and its launch counts
+(``launches.py``, per thread) the same. On a mesh the buckets run one after
+another (the SPMD host loop's collectives keep program order). The default
+is one thread (the JAX package's is 4): on the H100 the bench workload is
+bound by host Python, and four threads ran it 1.65-1.92x slower than one
+(PERF.md).
+
+Each eviction round fetches its stats, lam and factors in one fetch and
+stores its models at once. The JAX engine defers the factors' fetch to a
+pool of 4 threads and times their collection after the last bucket
+(``CalsReport.materialize_s``); on the H100 a deferred round was no faster
+(one sync a round either way, for a payload of a few KB; PERF.md),
+so ``materialize_s`` reads 0 here.
 
 The bucket loop is ``graph_loop.ChunkLoop`` by default (``sync_mode=
 "evict"``): the run-until-evict loop in chunks of iterations, each chunk
@@ -31,7 +53,8 @@ block.
 host in ``sync_mode="iter"`` (as JAX does), from a device buffer read with
 each chunk's stats fetch in the chunk loop (``graph_loop``), where a
 tol-driven chunk's iterations past the last live model's stop are
-recorded too (they ran). ``checkpoint_dir`` snapshots each bucket (its
+recorded too (they ran); records of threaded buckets interleave, each
+with its bucket. ``checkpoint_dir`` snapshots each bucket (its
 ``SolverState``, slot metadata and finished models, the JAX engine's files
 and keys) after every eviction round, after the round's refill, kill and
 tail compaction; ``resume`` rebuilds a bucket's loop from its snapshot,
@@ -41,8 +64,9 @@ Under ``mttkrp_method=AUTO`` every bucket takes its MTTKRP methods per
 mode from the lookup table at its (rank, allocated batch), for its fast
 tier and, where they differ, for its polish tier
 (``_resolve_bucket_methods``); on the card a missing entry is autotuned and
-stored first, every bucket's before any bucket runs, so no autotune times
-against a running bucket. The held X layouts are one per (mode, method,
+stored first, every bucket's before any bucket runs (serially, before any
+thread starts), so no autotune times against a running bucket. The held X
+layouts are one per (mode, method,
 tier) that some bucket needs, shared by the buckets that agree, and kept
 until the call returns, since the captured graphs read them: at most one
 per method and mode, and the fused kernels' at a second tier where the
@@ -68,26 +92,29 @@ resume loads it on every rank, each keeping its own slots and rows. Under
 batch and never autotunes (ranks would time against each other and write
 one table at once).
 
-Differences from the JAX engine (ROADMAP section 3): buckets run one after
-another (``bucket_threads`` is accepted and not used); results are fetched
-synchronously.
+``precompile_buckets`` warms, ahead of a timed call, what a first call
+pays for (the JAX package's name and arguments; PyTorch compiles nothing).
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import contextlib
 import dataclasses
-import functools
 import itertools
 import json
 import os
+import queue as queue_mod
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from .. import _build, launches
 from ..config import CalsParams, UpdateMethod, check_supported
 from ..device import resolve_device
 from ..ktensor import Ktensor, RandomKtensorSpec, scale_jk_rows, spec_block
@@ -120,6 +147,8 @@ class CalsReport:
     engine_iterations: dict = field(default_factory=dict)
     models: list = field(default_factory=list)
     phase_times: dict = field(default_factory=dict)
+    # The JAX engine's seconds collecting deferred results; 0 here, where
+    # every eviction round fetches at once (module docstring).
     materialize_s: float = 0.0
     # bucket rank -> the loop's counts: graph captures and replays, stats
     # fetches (one per chunk, per polish check, per eviction round), polish
@@ -418,6 +447,158 @@ class SpecAhead:
 # ------------------------------------------------------------------ engine
 
 
+class _Worker(NamedTuple):
+    """What one bucket thread lends the bucket it runs: its CUDA stream
+    (None on the CPU), the call's graph pool of that stream (``Graphs``:
+    the buckets of one worker run one after another, so their graphs never
+    replay at once; None where nothing is captured) and a pinned buffer
+    each way."""
+
+    stream: object
+    graphs: Graphs | None
+    uploader: Pinned
+    fetcher: Pinned
+
+
+_STREAMS: dict = {}  # device index -> (the bucket threads' streams, made once; their lock)
+_STREAMS_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _bucket_streams(dev: torch.device, n: int):
+    """``n`` distinct CUDA streams of ``dev`` for the bucket threads (Nones
+    on the CPU), the same ones in every call: the caching allocator keeps
+    its free blocks per stream and PyTorch a cuBLAS workspace per handle
+    and stream, so streams taken anew from PyTorch's pool in every call
+    would hold device memory anew. A call holds the device's streams until
+    its buckets have ended, and a call from another thread waits for them:
+    a capture on a stream takes in every thread's work on it."""
+    if dev.type != "cuda":
+        yield [None] * n
+        return
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with _STREAMS_LOCK:
+        have, busy = _STREAMS.setdefault(index, ([], threading.Lock()))
+    with busy:
+        for _ in range(64):  # PyTorch's pool cycles through 32 streams of a priority
+            if len(have) >= n:
+                break
+            s = torch.cuda.Stream(index)
+            if all(s.cuda_stream != h.cuda_stream for h in have):
+                have.append(s)
+        if len(have) < n:
+            raise RuntimeError(f"no {n} distinct CUDA streams for the bucket threads")
+        yield have[:n]
+
+
+def _run_device(device, mesh, shard_mode0: bool) -> torch.device:
+    """The device of a run: ``device`` (None: the card), or on a mesh the
+    mesh's (``device`` must be None or that device)."""
+    if mesh is None:
+        if shard_mode0:
+            raise ValueError("shard_mode0 needs a mesh")
+        return resolve_device(device)
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+    return mesh.device
+
+
+def _bucket_methods(x_shape: tuple, r: int, b: int, params: CalsParams, dtype, dev, mesh, rows: tuple):
+    """``_resolve_bucket_methods`` of a bucket at this rank's block of X
+    (``x_shape``, ``rows`` = (r0, r1, I0)) and share of its batch ``b``; a
+    mesh run never autotunes."""
+    shard = Shard(mesh, b, rows)
+    return _resolve_bucket_methods(x_shape, r, shard.hi - shard.lo, params, dtype, dev, autotune=mesh is None)
+
+
+def precompile_buckets(
+    x,
+    queue: Sequence[Ktensor | RandomKtensorSpec],
+    params: CalsParams = CalsParams(),
+    has_jk: bool = False,
+    mesh=None,
+    shard_mode0: bool = False,
+    device=None,
+) -> None:
+    """Warm, ahead of a timed ``cp_cals`` of these arguments, what its
+    first call would pay for (port of
+    ``cp_cals_tpu/solvers/cals.py:precompile_buckets``, which compiles
+    every bucket's programs ahead; PyTorch compiles nothing): the kernels'
+    build (nvcc, on the card), every bucket's MTTKRP methods at its
+    allocated batch, one bucket after another (the lookup table, autotuned
+    on the card where it misses: ``_resolve_bucket_methods``, as
+    ``cp_cals`` resolves them, so the call finds exact entries and times
+    nothing), the norm prologue (with ``has_jk`` the leave-one-out norms),
+    and one eager iteration of every bucket's program, and of its polish,
+    on a state of zero models at the bucket's batch (``_warm_programs``:
+    on the H100 a first call after the rest still spent about half a
+    second more than a later one on the kernels' and PyTorch's first
+    launches, which such an iteration takes on itself; PERF.md), whose
+    launches leave no trace in the launch and route counts. Results do not
+    change. Idempotent: a process warms the norms and programs of given
+    shapes, methods and params once (``_WARMED``), so a repeated call only
+    looks its methods up again. On a mesh every rank calls it with the same
+    arguments (the norm prologue and a tp iteration sum over the tp
+    group)."""
+    check_supported(params)
+    dev = _run_device(device, mesh, shard_mode0)
+    if not queue:
+        return
+    x = torch.as_tensor(x)
+    modes = tuple(x.shape)
+    t_dtype = _DTYPES[_queue_dtype(queue)]
+    if dev.type == "cuda":
+        _build.load("fused_mttkrp.cu")  # builds every kernel source at once
+    tp = tp_rows(mesh, modes[0], shard_mode0)
+    r0, r1 = (tp.start, tp.stop) if tp is not None else (0, modes[0])
+    block = (r1 - r0,) + modes[1:]
+    demands = collections.Counter(bucket_rank(kt.rank, params.bucket_ranks) for kt in queue)
+    buckets = [(r, b) for wave in allocate_bucket_batches(dict(demands), params.buffer_size) for r, b in wave.items()]
+    methods = [_bucket_methods(block, r, b, params, t_dtype, dev, mesh, (r0, r1, modes[0])) for r, b in buckets]
+    shards = [(r, Shard(mesh, b, (r0, r1, modes[0]))) for r, b in buckets]
+    key = (str(dev), modes, t_dtype, (r0, r1), tuple((r, s.lo, s.hi) for r, s in shards),
+           tuple(methods), params, has_jk)
+    if key in _WARMED:
+        return
+    x = x[r0:r1].to(device=dev, dtype=t_dtype).contiguous()
+    x_norm, _ = _norms(x, has_jk, tp)
+    before = launches.snapshot()
+    try:
+        _warm_programs(x, x_norm, shards, methods, params, has_jk, tp)
+    finally:
+        launches.take_added(before)  # no trace in the launch and route counts, as the autotune's
+    _WARMED.add(key)
+
+
+_WARMED: set = set()  # what precompile_buckets has warmed in this process (its key)
+
+
+def _warm_programs(x, x_norm, buckets: list, methods: list, params: CalsParams, has_jk: bool, tp) -> None:
+    """One eager iteration of each bucket's program (``buckets``: (rank,
+    shard of its batch); ``methods``: its resolved MTTKRP methods), and of
+    its polish where ``cp_cals`` runs one, on a state of zero models (an
+    all-False rank mask: an identity normal matrix), as the JAX package's
+    ``precompile_buckets`` runs each program once."""
+    nnls = params.update_method == UpdateMethod.NNLS
+    params = dataclasses.replace(params, debug=False)  # the debug hook would record the zero models
+    p_params = dataclasses.replace(params, mttkrp_precision=None, line_search=False, tol_check_interval=0)
+    chunked = params.sync_mode == "evict" and not params.always_evict_first
+    layouts: dict = {}
+    for (r, shard), (fast, polish) in zip(buckets, methods):
+        b = shard.hi - shard.lo
+        kt = Ktensor(tuple(torch.zeros((b, m, r), dtype=x.dtype, device=x.device) for m in x.shape),
+                     torch.zeros((b, r), dtype=x.dtype, device=x.device))
+        mask = torch.zeros((b, r), dtype=torch.bool, device=x.device)
+        state = init_state(kt, x_norm, rank_mask=mask, nnls=nnls, line_search=params.line_search,
+                           mixed_tol=params.tol_check_interval > 0, tp=tp)
+        runs = [(params, fast)]
+        if chunked and params.polish_iters > 0:
+            runs.append((p_params, polish or fast))
+        for p, m in runs:
+            it = make_iteration(p, batched=True, mttkrp_methods=m, has_jk=has_jk, tp=tp)
+            it(x, state, x_norm, it.prepare(x, layouts))
+
+
 def cp_cals(
     x,
     queue: Sequence[Ktensor | RandomKtensorSpec],
@@ -457,16 +638,13 @@ def cp_cals(
     batch splits over dp, and with ``shard_mode0`` the tensor's mode 0 over
     tp. The run is on the mesh's device (``device`` must be None or that
     device). Every rank returns the whole result list.
+
+    The buckets of a wave run in ``params.bucket_threads`` threads, each
+    on a stream of its own (one thread on a mesh); a bucket's exception
+    raises from here.
     """
     check_supported(params)
-    if mesh is None:
-        if shard_mode0:
-            raise ValueError("shard_mode0 needs a mesh")
-        dev = resolve_device(device)
-    else:
-        dev = mesh.device
-        if device is not None and torch.device(device) != dev:
-            raise ValueError(f"device {device} is not the mesh's device {dev}")
+    dev = _run_device(device, mesh, shard_mode0)
     if not queue:
         return [], CalsReport()
     x = torch.as_tensor(x)
@@ -512,9 +690,7 @@ def cp_cals(
         bucket's MTTKRP methods (at this rank's block of X and share of the
         batch); buckets of the same methods share them."""
         if (r, b) not in resolved:
-            shard = Shard(mesh, b, (r0, r1, modes[0]))
-            resolved[(r, b)] = _resolve_bucket_methods(tuple(x.shape), r, shard.hi - shard.lo, params, t_dtype,
-                                                       dev, autotune=mesh is None)
+            resolved[(r, b)] = _bucket_methods(tuple(x.shape), r, b, params, t_dtype, dev, mesh, (r0, r1, modes[0]))
         key = resolved[(r, b)]
         if key not in programs:
             methods, polish_methods = key
@@ -527,7 +703,8 @@ def cp_cals(
             programs[key] = (iteration, iteration.prepare(x, layouts), polish)
         return programs[key]
 
-    # Every bucket's methods (autotuned on a miss) before any bucket runs.
+    # Every bucket's methods (autotuned on a miss) before any bucket runs,
+    # in this thread: no autotune times against a running bucket.
     for wave in waves:
         for r, b in wave.items():
             bucket_program(r, b)
@@ -590,11 +767,10 @@ def cp_cals(
             line_search=params.line_search, mixed_tol=mixed_tol, tp=tp,
         )
 
-    # The graphs are freed when the call ends. A debug run reads the device
-    # on the host in every iteration, so it is never captured; nor is an
-    # iteration that sums over a tp group (its collectives).
-    graphs = Graphs(dev) if chunked and dev.type == "cuda" and not params.debug and tp is None else None
-    uploader, fetcher = Pinned(dev), Pinned(dev)  # the call's pinned buffers, one each way
+    # A debug run reads the device on the host in every iteration, so it is
+    # never captured; nor is an iteration that sums over a tp group (its
+    # collectives).
+    captured = chunked and dev.type == "cuda" and not params.debug and tp is None
     if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
 
@@ -655,18 +831,33 @@ def cp_cals(
             "bucket_rank": r, "done": done_meta,
         }, leaves=leaves)
 
+    def store_results(lam: np.ndarray, factors: list, done: list) -> None:
+        """The models of ``done`` ((id, packed column offset, rank) each) out
+        of an eviction round's packed lam and factors, into ``results``."""
+        kt_np = Ktensor(tuple(f.astype(np_dtype, copy=False) for f in factors), lam.astype(np_dtype, copy=False))
+        for i, off, rank in done:
+            results[i] = _unpack_cols(kt_np, off, rank)
+
+    def evict(loop, slot_idx: np.ndarray, col_idx: np.ndarray, done: list) -> np.ndarray:
+        """An eviction round's host stats [5, B], and its models' lam and
+        factors in the packed columns (``_evict_col_indices``) stored into
+        ``results``, by one fetch."""
+        loop.counts["stats_fetches"] += 1
+        stats, lam, *factors = fetch_evicted(loop, slot_idx, col_idx)
+        store_results(lam, factors, done)
+        return stats
+
     def fetch_evicted(loop, slot_idx: np.ndarray, col_idx: np.ndarray) -> list:
         """The evicted models' stats [5, B], lam and factors in the packed
-        columns (``_evict_col_indices``), as host arrays in the run's
-        dtypes (``_split_payload``), by one fetch. On a mesh each rank
-        fetches the columns of its own slots (the rest read slot 0 and are
-        zeroed) and its rows of factor 0, placed in zero-filled whole
-        arrays, which one host all-reduce sums."""
+        columns, as host arrays in the run's dtypes (``_split_payload``), by
+        one fetch. On a mesh each rank fetches the columns of its own slots
+        (the rest read slot 0 and are zeroed) and its rows of factor 0,
+        placed in zero-filled whole arrays, which one host all-reduce
+        sums."""
         shard = loop.shard
-        loop.counts["stats_fetches"] += 1
         mine = shard.local(slot_idx)
         local_idx = np.where(mine, slot_idx - shard.lo, 0)
-        idx = uploader.upload(np.stack([local_idx, col_idx]))
+        idx = loop.uploader.upload(np.stack([local_idx, col_idx]))
         flat, layout = _evicted_payload(loop.state, idx, params.result_wire_dtype)
         stats, lam, *factors = _split_payload(loop.fetcher.fetch(flat), layout)
         if shard.trivial:
@@ -683,12 +874,15 @@ def cp_cals(
                 whole.append(np.where(cols[:, None], f, 0).astype(f.dtype))
         return shard.assemble(whole)
 
-    def run_bucket(r: int, dq: collections.deque, b: int):
+    def run_bucket(worker: _Worker, r: int, dq: collections.deque, b: int):
+        """One bucket's whole run at its allocated batch ``b``, on its
+        worker's stream (the current one), pinned buffers and graph pool."""
         iteration, prepared, polish = bucket_program(r, b)
         models: list[CalsModelReport] = []
         pt = {"setup": 0.0, "solve": 0.0, "evict": 0.0, "capture": 0.0}
         counts = dict(captures=0, replays=0, stats_fetches=0, polish_sweeps=0, checkpoints=0, capture_s=0.0)
         t0 = time.perf_counter()
+        _, graphs, uploader, fetcher = worker
         ahead = SpecAhead(dq, r, modes, t_dtype, uploader, b)
         b_wave, n_compactions = b, 0
         paths = None
@@ -719,16 +913,10 @@ def cp_cals(
         pt["setup"] = time.perf_counter() - t0
         engine_iters = rounds = 0
         flops_per_col = als_iteration_flops(modes, r, 1) / r
-        unpack = None  # the last round's results, unpacked while the device runs the next
-
-        def unpack_results(kt_np, done):
-            for i, off, rank in done:
-                results[i] = _unpack_cols(kt_np, off, rank)
 
         while any(m is not None for m in slot_meta):
             t0 = time.perf_counter()
-            stats, k = loop.advance(params.evict_batch, unpack)
-            unpack = None
+            stats, k = loop.advance(params.evict_batch)
             first = engine_iters + 1
             engine_iters += k
             if trace is not None:
@@ -756,12 +944,9 @@ def cp_cals(
             keep = np.ones(b, bool)
             if evicted:
                 slot_idx, col_idx, offs = _evict_col_indices(evicted, slot_meta)
-                stats, lam, *factors = fetch_evicted(loop, slot_idx, col_idx)
-                kt_np = Ktensor(tuple(f.astype(np_dtype, copy=False) for f in factors),
-                                lam.astype(np_dtype, copy=False))
+                stats = evict(loop, slot_idx, col_idx, [(slot_meta[s][0], offs[s], slot_meta[s][1]) for s in evicted])
                 refill_slots: list = []
                 refill_items: list = []
-                done = []
                 for slot in evicted:
                     i, rank, _ = slot_meta[slot]
                     rep_m = CalsModelReport(
@@ -770,7 +955,6 @@ def cp_cals(
                     )
                     models.append(rep_m)
                     done_meta.append([i, rank, rep_m.iters, rep_m.fit, rep_m.approx_error])
-                    done.append((i, offs[slot], rank))
                     slot_meta[slot] = None
                     if dq:
                         item = dq.popleft()
@@ -779,10 +963,6 @@ def cp_cals(
                         refill_items.append(item)
                     else:
                         keep[slot] = False
-                unpack = functools.partial(unpack_results, kt_np, done)
-                if paths is not None:
-                    unpack()  # the done archive is whole after every round
-                    unpack = None
                 if refill_slots:
                     # Batched refill: one build of the fresh models' rows
                     # (this rank's slots' only), written into their slots.
@@ -817,28 +997,72 @@ def cp_cals(
                 rounds += 1
                 if max_rounds_per_bucket is not None and rounds >= max_rounds_per_bucket:
                     break
-        if unpack is not None:
-            unpack()
         pt["capture"] = counts.pop("capture_s")
         counts["spec_builds"] = ahead.builds
         pt["solve"] -= pt["capture"]
         return models, pt, engine_iters, counts
 
-    for wave in waves:
-        # Largest-work-first order, as in the JAX engine.
-        items = sorted(
-            ((r, buckets[r], b) for r, b in wave.items()),
-            key=lambda t: (-t[0] * t[2], t[0]),
-        )
-        for r, dq, b in items:
-            models, pt, engine_iters, counts = run_bucket(r, dq, b)
-            report.models.extend(models)
-            report.phase_times[r] = pt
-            if trace is not None:
-                for k, v in pt.items():
-                    trace.phase_totals[k] += v
-            report.engine_iterations[r] = report.engine_iterations.get(r, 0) + engine_iters
-            report.loop_counts[r] = counts
+    # One worker per bucket thread (``_Worker``), each lent to one bucket at
+    # a time, so a running bucket has its stream, graph pool and pinned
+    # buffers to itself. The streams first wait on this call's stream, which
+    # made x, the norms and the held layouts, and the call's stream waits on
+    # them before the call returns. No record_stream is needed: what the
+    # call's stream allocated lives until the call returns, after that
+    # wait, and a bucket frees only what its own stream allocated, which
+    # only later work of that stream can reuse.
+    most = 1 if mesh is not None else max(1, min(params.bucket_threads, max(len(w) for w in waves)))
+
+    def on_worker(item):
+        """``run_bucket`` of ``item`` with a free worker."""
+        worker = workers.get()
+        try:
+            if dev.type != "cuda":
+                return run_bucket(worker, *item)
+            with torch.cuda.device(dev), torch.cuda.stream(worker.stream):
+                return run_bucket(worker, *item)
+        finally:
+            workers.put(worker)
+
+    def in_thread(item):
+        """``on_worker`` in a bucket thread, whose counts then join the
+        threads' common part (the thread ends with its executor)."""
+        try:
+            return on_worker(item)
+        finally:
+            launches.retire_thread()
+
+    with _bucket_streams(dev, most) as streams:
+        workers: queue_mod.SimpleQueue = queue_mod.SimpleQueue()
+        for s in streams:
+            workers.put(_Worker(s, Graphs() if captured else None, Pinned(dev), Pinned(dev)))
+        if dev.type == "cuda":
+            call_stream = torch.cuda.current_stream(dev)
+            for s in streams:
+                s.wait_stream(call_stream)
+        for wave in waves:
+            # Largest-work-first order, as in the JAX engine: the widest
+            # bucket starts first.
+            items = sorted(
+                ((r, buckets[r], b) for r, b in wave.items()),
+                key=lambda t: (-t[0] * t[2], t[0]),
+            )
+            n_threads = min(most, len(items))
+            if n_threads > 1:
+                with concurrent.futures.ThreadPoolExecutor(n_threads, "cals-bucket") as ex:
+                    outs = list(ex.map(in_thread, items))
+            else:
+                outs = [on_worker(item) for item in items]
+            for (r, _, _), (models, pt, engine_iters, counts) in zip(items, outs):
+                report.models.extend(models)
+                report.phase_times[r] = pt
+                if trace is not None:
+                    for k, v in pt.items():
+                        trace.phase_totals[k] += v
+                report.engine_iterations[r] = report.engine_iterations.get(r, 0) + engine_iters
+                report.loop_counts[r] = counts
+        if dev.type == "cuda":
+            for s in streams:
+                call_stream.wait_stream(s)
 
     report.models.sort(key=lambda m: m.id)
     # Unfinished models (max_rounds_per_bucket) are None.

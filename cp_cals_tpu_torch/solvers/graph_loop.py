@@ -9,11 +9,12 @@ place for the whole bucket; the host runs the loop in chunks of iterations
 and reads the packed eviction stats once per chunk, with one copy into
 pinned memory. On the card one iteration (the iteration, the freeze
 select, the copy back into the buffers, the packed stats) is captured once
-per (bucket rank, batch) into a CUDA graph, after one eager iteration on a
-side stream has filled every cache the kernel wrappers keep (built
-libraries, shared-memory attributes, launch plans), and a chunk of n
-iterations is n replays. Capture has no fallback: a failure raises. On the
-CPU the same loop runs eagerly.
+per (bucket rank, batch) into a CUDA graph, after one eager iteration has
+filled every cache the kernel wrappers keep (built libraries,
+shared-memory attributes, launch plans) and the thread's cuBLAS workspace
+for the stream, and a chunk of n iterations is n replays. Both run on the
+bucket's own stream, in the bucket's thread (``Graphs``). Capture has no
+fallback: a failure raises. On the CPU the same loop runs eagerly.
 
 Chunk length (``chunk_length``), from the slots' iteration counts, which
 the host knows from the last fetch:
@@ -149,24 +150,28 @@ def chunk_length(params, iters: np.ndarray, live: np.ndarray) -> int:
 
 
 class Graph:
-    """``fn`` captured once into a CUDA graph on a side stream, and what one
-    replay adds to the launch counts (``launches.py``: what the capture,
-    which launches nothing, added; the counts are put back). ``pool`` is a
-    memory pool the graph may share with others that are never replayed at
-    once and keep nothing between replays in it."""
+    """``fn`` captured once into a CUDA graph on the current stream (not
+    the default stream), and what one replay adds to the launch counts
+    (``launches.py``: what the capture, which launches nothing, added in
+    this thread; the counts are put back). ``pool`` is a memory pool the
+    graph may share with others that are never replayed at once and keep
+    nothing between replays in it.
 
-    def __init__(self, fn, device: torch.device, pool=None, stream=None):
+    The capture runs in ``thread_local`` error mode: the engine's other
+    bucket threads go on fetching, synchronising and allocating while it
+    is open, which the default global mode forbids to every thread of the
+    process (the capture would fail). Calls of this thread that a capture
+    forbids still fail it. The caching allocator gives the pool only the
+    allocations made on the capturing stream."""
+
+    def __init__(self, fn, pool=None):
         before = launches.snapshot()
         self.graph = torch.cuda.CUDAGraph()
-        stream = stream or torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            self.graph.capture_begin(pool=pool)
-            try:
-                fn()
-            finally:
-                self.graph.capture_end()
-        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            self.graph.capture_end()
         self.per_replay = launches.take_added(before)
 
     def replay(self, n: int) -> None:
@@ -176,31 +181,23 @@ class Graph:
 
 
 class Graphs:
-    """The CUDA graphs of one engine call, kept until the call ends, in one
-    memory pool: a graph's pool holds only the temporaries of one replay,
-    and no two graphs are replayed at once. (A pool is released with its
-    last graph, so the graphs are held here and not by their loops.) One
-    side stream serves every warm-up and capture of the call: the caching
-    allocator keeps its blocks per stream, and a new stream for each would
-    allocate anew."""
+    """The CUDA graphs of one bucket thread of an engine call (the buckets
+    it runs one after another), kept until the call ends, in one memory
+    pool: a graph's pool holds only the temporaries of one replay, and no
+    two graphs of a thread are replayed at once, while another thread's
+    replay at the same time on its own stream (so each thread has its
+    pool). (A pool is released with its last graph, so the graphs are held
+    here and not by their loops, which tail compaction replaces.) The
+    warm-up and the capture run on the thread's stream, in the thread:
+    PyTorch keeps a cuBLAS handle per thread and its workspace per stream,
+    which the warm-up sets up outside the capture."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self):
         self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(device)
         self.graphs: list[Graph] = []
 
-    def warm_up(self, fn) -> None:
-        """One eager call on the side stream, ordered after and before the
-        current stream's work (the warm-up before a capture)."""
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            fn()
-        cur.wait_stream(self.stream)
-
     def capture(self, fn) -> Graph:
-        self.graphs.append(Graph(fn, self.device, self.pool, self.stream))
+        self.graphs.append(Graph(fn, self.pool))
         return self.graphs[-1]
 
 
@@ -349,13 +346,10 @@ class IterLoop(_Loop):
         self.state = new if rows is None else tree_map(
             lambda old, fresh: old.index_copy(0, rows, fresh), self.state, new)
 
-    def advance(self, evict_batch: int, overlap=None) -> tuple[np.ndarray, int]:
-        """One iteration; ``overlap`` (host work) runs while it is on the
-        device."""
+    def advance(self, evict_batch: int) -> tuple[np.ndarray, int]:
+        """One iteration."""
         self.state = self.iteration(self.x, self.state, self.x_norm, self.prepared)
         stats = pack_evict_stats(self.state)
-        if overlap is not None:
-            overlap()
         return self.fetch_stats(stats.reshape(-1).view(torch.uint8), stats)[0], 1
 
     def compacted(self, idx: list[int]) -> "IterLoop":
@@ -425,13 +419,13 @@ class ChunkLoop(_Loop):
 
     def _run(self, fn, graph_name: str, n: int) -> None:
         """``fn`` n times: eagerly on the CPU; on the card by replays of its
-        graph, captured after a first eager call on a side stream."""
+        graph, captured after a first eager call (``Graphs``)."""
         if self.graphs is None:
             for _ in range(n):
                 fn()
             return
         if getattr(self, graph_name) is None:
-            self.graphs.warm_up(fn)
+            fn()
             n -= 1
             t0 = time.perf_counter()
             setattr(self, graph_name, self.graphs.capture(fn))
@@ -440,11 +434,10 @@ class ChunkLoop(_Loop):
         getattr(self, graph_name).replay(n)
         self.counts["replays"] += n
 
-    def advance(self, evict_batch: int, overlap=None) -> tuple[np.ndarray, int]:
+    def advance(self, evict_batch: int) -> tuple[np.ndarray, int]:
         """Chunks until at least one live model has converged (or, with
         ``evict_batch > 1``, that many have or none is left unconverged).
-        On entry no live model is converged. ``overlap`` (host work) runs
-        while the first chunk is on the device. Returns (host stats [5, B],
+        On entry no live model is converged. Returns (host stats [5, B],
         iterations run)."""
         total = 0
         while True:
@@ -453,9 +446,6 @@ class ChunkLoop(_Loop):
             if self.traced:
                 self.trace_k.zero_()
             self._run(self._step, "step_graph", n)
-            if overlap is not None:
-                overlap()
-                overlap = None
             total += n
             stats, rows = self.fetch_stats(self.fetch_buf, self.stats)
             if self.traced:

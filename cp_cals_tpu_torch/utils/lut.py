@@ -32,21 +32,22 @@ import time
 
 import torch
 
+from ..launches import Tally
+
 _ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "lookup_tables")
 
 METHODS = ("krp_gemm", "twostep", "pallas")
 
 # Where the last per-mode method decisions came from (reset with
 # reset_lookup_stats): an exact table entry, the nearest-B*R entry of the
-# same table, or the heuristic.
-LOOKUP_STATS = {"exact": 0, "nearest": 0, "heuristic": 0}
+# same table, or the heuristic (a Tally: exact under threads).
+LOOKUP_STATS = Tally(fixed=("exact", "nearest", "heuristic"))
 
 _TUNE_LOCK = threading.Lock()
 
 
 def reset_lookup_stats() -> None:
-    for k in LOOKUP_STATS:
-        LOOKUP_STATS[k] = 0
+    LOOKUP_STATS.clear()
 
 
 def _tier(precision: str | None) -> str:
@@ -166,15 +167,15 @@ def lookup_methods(modes, rank: int, batch: int, precision: str = "high", dtype=
     for mode in range(len(modes)):
         m = table.get(_key(batch, rank, mode, precision))
         if m in METHODS:
-            LOOKUP_STATS["exact"] += 1
+            LOOKUP_STATS.add("exact")
             out.append(_screen(m, modes, mode, rank, batch, dtype, dev))
             continue
         m = _nearest(table, batch, rank, mode, precision)
         if m is not None:
-            LOOKUP_STATS["nearest"] += 1
+            LOOKUP_STATS.add("nearest")
             out.append(_screen(m, modes, mode, rank, batch, dtype, dev))
             continue
-        LOOKUP_STATS["heuristic"] += 1
+        LOOKUP_STATS.add("heuristic")
         out.append(heuristic_methods(modes, rank, batch, precision, dtype, dev)[mode])
     return tuple(out)
 

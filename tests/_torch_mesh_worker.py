@@ -92,14 +92,31 @@ def _run_step(case, mesh):
 
 
 def _run_cals(case, mesh):
+    """``cp_cals`` on the mesh; with the names of the threads whose bucket
+    loops packed eviction stats (``graph_loop.pack_evict_stats``)."""
+    import threading
+
+    from cp_cals_tpu_torch.solvers import graph_loop
     from cp_cals_tpu_torch.solvers.cals import cp_cals
 
+    threads = set()
+    real = graph_loop.pack_evict_stats
+
+    def spy(state):
+        threads.add(threading.current_thread().name)
+        return real(state)
+
     kw = {k: case[k] for k in ("jk_fibers", "checkpoint_dir", "resume", "max_rounds_per_bucket") if k in case}
-    res, rep = cp_cals(case["x"], case["queue"], case["params"], mesh=mesh, shard_mode0=case["tp"] > 1, **kw)
+    graph_loop.pack_evict_stats = spy
+    try:
+        res, rep = cp_cals(case["x"], case["queue"], case["params"], mesh=mesh, shard_mode0=case["tp"] > 1, **kw)
+    finally:
+        graph_loop.pack_evict_stats = real
     return dict(results=[None if kt is None else _host_kt(kt) for kt in res],
                 models=[(m.id, m.rank, m.iters, m.fit, m.approx_error) for m in rep.models],
                 engine_iterations=dict(rep.engine_iterations),
-                loop_counts={r: dict(c) for r, c in rep.loop_counts.items()}, counts=dict(mesh.counts))
+                loop_counts={r: dict(c) for r, c in rep.loop_counts.items()}, counts=dict(mesh.counts),
+                threads=sorted(threads))
 
 
 def _run_jk(case, mesh):

@@ -733,6 +733,94 @@ def test_graph_loop_matches_the_iter_loop(dev, tiers):
             np.testing.assert_array_equal(fa, fb)
 
 
+THREAD_CASES = {
+    "forced-highest": dict(max_iterations=6, force_max_iter=True, tail_compaction_depth=2),
+    "forced-bench-tiers": dict(max_iterations=6, force_max_iter=True, precision="high", mttkrp_precision="default"),
+    "tol-checks-polish": dict(tol=1e-5, max_iterations=30, precision="high", mttkrp_precision="default",
+                              tol_check_interval=5, polish_iters=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(THREAD_CASES))
+def test_threaded_buckets_match_serial_bit_for_bit(dev, case):
+    """bucket_threads=4 (each bucket on its own stream, captured while other
+    buckets run) against 1, in turns: every model's fit, iterations and
+    factors bit for bit, the launch counts and routes equal, and each
+    bucket's captures, replays and stats fetches."""
+    x, queue = _bench_problem(4, 3)
+    base = CalsParams(bucket_ranks=(4, 8, 12, 16, 20), buffer_size=600, **THREAD_CASES[case])
+    runs = []
+    for t in (1, 4, 4, 1):
+        _zero()
+        res, rep = cp_cals(x, queue, dataclasses.replace(base, bucket_threads=t))
+        runs.append((res, rep, _counts(), launches.routes()))
+    res1, rep1, counts1, routes1 = runs[0]
+    assert len(rep1.engine_iterations) == 5 and counts1["normal_inverse"] > 0
+    for res, rep, counts, routes in runs[1:]:
+        assert (counts, routes) == (counts1, routes1)
+        assert rep.engine_iterations == rep1.engine_iterations
+        assert {r: {k: c[k] for k in ("captures", "replays", "stats_fetches", "polish_sweeps")}
+                for r, c in rep.loop_counts.items()} == \
+            {r: {k: c[k] for k in ("captures", "replays", "stats_fetches", "polish_sweeps")}
+             for r, c in rep1.loop_counts.items()}
+        for a, b, ma, mb in zip(res1, res, rep1.models, rep.models):
+            assert (ma.iters, ma.fit, ma.approx_error) == (mb.iters, mb.fit, mb.approx_error)
+            for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
+                np.testing.assert_array_equal(fa, fb)
+
+
+def test_concurrent_calls_wait_for_the_bucket_streams(dev):
+    """Two cp_cals calls from two threads at once (4 bucket threads each):
+    the second waits for the device's bucket streams, and each equals a
+    lone call bit for bit, their launch counts twice the lone call's."""
+    import threading
+
+    x, queue = _bench_problem(4, 2)
+    params = CalsParams(bucket_ranks=(4, 8, 12, 16, 20), buffer_size=600, bucket_threads=4,
+                        **THREAD_CASES["forced-bench-tiers"])
+    _zero()
+    lone, _ = cp_cals(x, queue, params)
+    counts = _counts()
+    _zero()
+    outs = [None, None]
+
+    def call(i):
+        outs[i] = cp_cals(x, queue, params)[0]
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert _counts() == {k: 2 * n for k, n in counts.items()}
+    for res in outs:
+        for a, b in zip(lone, res):
+            for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
+                np.testing.assert_array_equal(fa, fb)
+
+
+def test_precompile_buckets_leaves_no_autotune_to_cp_cals(dev, monkeypatch):
+    """precompile_buckets on an empty table autotunes every bucket's
+    entries; a second call and the engine then hit them exactly and tune
+    nothing."""
+    from cp_cals_tpu_torch.solvers.cals import precompile_buckets
+
+    monkeypatch.delenv("CP_CALS_NO_AUTOTUNE")
+    x, queue = _bench_problem(6, 1)
+    params = CalsParams(max_iterations=3, force_max_iter=True, bucket_ranks=(4, 8, 12, 16, 20), buffer_size=200,
+                        precision="high", mttkrp_precision="default")
+    precompile_buckets(x, queue, params)
+
+    def refuse(*a, **k):
+        raise AssertionError("autotune after precompile_buckets")
+
+    monkeypatch.setattr(lut, "autotune", refuse)
+    precompile_buckets(x, queue, params)
+    lut.reset_lookup_stats()
+    _, rep = cp_cals(x, queue, params)
+    assert lut.LOOKUP_STATS == {"exact": 3 * len(rep.engine_iterations), "nearest": 0, "heuristic": 0}
+
+
 def test_graph_loop_with_checks_and_polish_matches_cpu(dev):
     """The fast tier's mixed-tier check and polish through the graph loop
     (tol-driven, refills): iterations within one check window of the CPU

@@ -229,7 +229,7 @@ def test_fused_gate_is_true_on_the_cpu():
 
 def test_counted_wrappers_are_every_wrapper_with_a_launch_count():
     """``launches.counted`` names every function of the port that keeps a
-    launch count, so a replay advances them all."""
+    launch count (a ``launches.Wrapper``), so a replay advances them all."""
     import importlib
     import pkgutil
 
@@ -239,7 +239,7 @@ def test_counted_wrappers_are_every_wrapper_with_a_launch_count():
     for info in pkgutil.walk_packages(cp_cals_tpu_torch.__path__, "cp_cals_tpu_torch."):
         mod = importlib.import_module(info.name)
         for name, obj in vars(mod).items():
-            if callable(obj) and hasattr(obj, "launches") and getattr(obj, "__module__", None) == info.name:
+            if isinstance(obj, launches.Wrapper) and getattr(obj, "__module__", None) == info.name:
                 found[name] = obj
     assert found == launches.counted()
 
@@ -250,7 +250,7 @@ def test_a_capture_counts_once_per_replay(replays):
     back and added again per replay (``graph_loop.Graph``)."""
     fm_fp32, fe_apply = launches.counted()["fused_mttkrp_fp32"], launches.counted()["epilogue_apply"]
     launches.reset()
-    tally = {("B", 4): 2}
+    tally = launches.Tally({("B", 4): 2})
     launches.TALLIES.append(tally)
     try:
         before = launches.snapshot()

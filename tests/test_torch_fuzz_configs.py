@@ -2,8 +2,11 @@
 counterpart of ``tests/test_fuzz_configs.py``): configurations drawn from
 that test's space, each run by the port's ``cp_cals`` in fresh processes
 over gloo on the CPU under a (dp, tp) mesh, held to the JAX package's
-mesh-free ``cp_cals`` of the same ``sync_mode`` at 1e-10 in float64 with
-equal iteration counts. The seeds are ones whose stops under
+mesh-free ``cp_cals`` of the same ``sync_mode`` and ``bucket_threads`` at
+1e-10 in float64 with equal iteration counts. On a mesh the port runs its
+buckets in one thread whatever ``bucket_threads`` says (the SPMD host
+loop's collectives keep program order), as the JAX engine does under
+several processes. The seeds are ones whose stops under
 NO_ERROR_CHECKING line search do not move with rounding (a revert decided
 by errors equal to 1e-13, where JAX's two loops part ways: ROADMAP queue 3,
 "Checked at this re-anchor"). Seed 0 (NNLS with that line search, checks
@@ -66,6 +69,8 @@ def sample_config(rng: random.Random) -> dict:
             evict_batch=rng.choice([1, 4, 16]),
             mode_layouts=rng.choice(["auto", "materialized", "recompute"]),
             dimtree=rng.choice(["auto", "on", "off"]),
+            # Drawn last, so the earlier draws are those the seeds were chosen by.
+            bucket_threads=rng.choice([1, 3]),
         ),
     }
 
@@ -91,7 +96,7 @@ def jax_params(p: CalsParams) -> jcfg.CalsParams:
         bucket_ranks=p.bucket_ranks, sync_mode=p.sync_mode, tail_compaction_depth=p.tail_compaction_depth,
         force_max_iter=p.force_max_iter, solve_method=p.solve_method, tol_check_interval=p.tol_check_interval,
         evict_batch=p.evict_batch, mode_layouts=p.mode_layouts, dimtree="on" if p.dimtree == "on" else "off",
-        mttkrp_method=jcfg.MttkrpMethod.TWOSTEP, epilogue="xla", bucket_threads=1)
+        mttkrp_method=jcfg.MttkrpMethod.TWOSTEP, epilogue="xla", bucket_threads=p.bucket_threads)
 
 
 def configs():
@@ -126,6 +131,17 @@ def test_random_config_on_a_mesh_matches_jax(ranks_out, seed):
         for a, b in zip(g["results"], res):
             for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
                 np.testing.assert_allclose(fa, np.asarray(fb), atol=TOL, err_msg=str(cfg))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_a_mesh_runs_its_buckets_in_one_thread(ranks_out, seed):
+    """Whatever ``bucket_threads`` the seed drew (1 or 3), every rank ran
+    its bucket loops in its main thread: the SPMD host loop's collectives
+    must keep program order on every rank."""
+    cfg = configs()[seed]
+    dp, tp = cfg["mesh"]
+    for got in ranks_out[dp * tp]:
+        assert got[seed]["threads"] == ["MainThread"], cfg
 
 
 def test_seed_0_parts_from_jax_at_a_revert_tie():

@@ -70,7 +70,12 @@ def _field_map(cls):
 
 @pytest.mark.parametrize("name", ["AlsParams", "CalsParams"])
 def test_params_fields_and_defaults_equal_jax(name):
-    assert _field_map(getattr(pcfg, name)) == _field_map(getattr(jcfg, name))
+    port, ref = _field_map(getattr(pcfg, name)), _field_map(getattr(jcfg, name))
+    if name == "CalsParams":
+        # The one intended difference: the port runs a wave's buckets in
+        # one thread unless asked for more (threads are slower on the card).
+        assert (port.pop("bucket_threads"), ref.pop("bucket_threads")) == (1, 4)
+    assert port == ref
 
 
 @pytest.mark.parametrize("name", ["UpdateMethod", "MttkrpMethod", "LineSearchMethod"])

@@ -192,4 +192,5 @@ def test_params_carry_over_from_jax():
         CalsParams(), mttkrp_method=pp.mttkrp_method, dimtree="off", epilogue="fused",
         precision="high", mttkrp_precision="default",
         bucket_ranks=(4, 8, 12, 16, 20), buffer_size=2880,
+        bucket_threads=4,  # JAX's default, carried over (the port's own is 1)
     )

@@ -2,7 +2,7 @@
 """Two readings of the experiment harness (cp_cals_tpu_torch/experiments.py)
 on the card.
 
-    python3 tools/experiments_witness.py [--skip-nnls] [--skip-profile]
+    python3 tools/experiments_witness.py [--skip-nnls] [--skip-profile] [--bucket-threads 4]
 
 1. The NNLS comparison at full size (``experiments.nnls_workload``: 100^3,
    100 models of ranks 1-10, 50 forced iterations at "high", block
@@ -16,7 +16,10 @@ on the card.
    and its engine call again under torch.profiler: the device's busy share
    of the wall and its time by kernel, so the layouts the loop derives each
    iteration ("recompute": X rounded to bf16 hi and lo planes in the fused
-   kernels' layout) show beside the MTTKRP.
+   kernels' layout) show beside the MTTKRP. The sweep's engine call runs at
+   each ``--bucket-threads`` count (a comma list, default 1, the engine's),
+   one after another, each with its peak allocated bytes
+   (``hbm_measured``).
 
 Writes chiprun_out/experiments_witness.json. Needs a CUDA card.
 """
@@ -85,15 +88,19 @@ def nnls_reading(dev) -> dict:
     return out
 
 
-def profile_reading(dev) -> dict:
+def profile_reading(dev, threads: int = 4) -> dict:
     """The cut 500^3 sweep once (which warms the build, the tables and the
-    allocator), its engine call captured; then that call again under
-    torch.profiler (the tensor's host draw left out)."""
+    allocator), its engine call at ``threads`` bucket threads captured; then
+    that call again under torch.profiler (the tensor's host draw left
+    out)."""
+    import dataclasses
+
     from cp_cals_tpu_torch import solvers
 
     call, real = {}, solvers.cp_cals
 
     def grab(x, queue, params, *a, **kw):
+        params = dataclasses.replace(params, bucket_threads=threads)
         call.update(x=x, queue=queue, params=params)
         return real(x, queue, params, *a, **kw)
 
@@ -104,7 +111,7 @@ def profile_reading(dev) -> dict:
         solvers.cp_cals = real
     prof = chip_smoke.profiled(lambda: cp_cals(call["x"], call["queue"], call["params"], device=dev))
     prof["sweep"] = sweep
-    print(f"500^3 sweep {chip_smoke.EXP_SWEEP}: {sweep}", flush=True)
+    print(f"500^3 sweep {chip_smoke.EXP_SWEEP} at bucket_threads={threads}: {sweep}", flush=True)
     print(f"its engine call profiled: wall {prof['wall_s']:.3f}s, device busy {prof['busy_ms']:.1f} ms "
           f"(share {prof['busy_share']:.3f}), {prof['kernels']} kernels", flush=True)
     for name, ms in prof["kernel_ms"].items():
@@ -116,6 +123,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--skip-nnls", action="store_true")
     p.add_argument("--skip-profile", action="store_true")
+    p.add_argument("--bucket-threads", default="1", help="comma list of the sweep's bucket_threads counts")
     args = p.parse_args(argv)
     dev = torch.device("cuda")
     out = {"card": chip_smoke.card_line()}
@@ -123,7 +131,7 @@ def main(argv=None) -> int:
     if not args.skip_nnls:
         out["nnls"] = nnls_reading(dev)
     if not args.skip_profile:
-        out["sweep_profile"] = profile_reading(dev)
+        out["sweep_profile"] = {t: profile_reading(dev, int(t)) for t in args.bucket_threads.split(",")}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "experiments_witness.json"), "w") as fh:
         json.dump(out, fh, indent=1, default=str)

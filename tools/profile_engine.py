@@ -3,12 +3,15 @@
 both bucket loops, and time the loop policies of the jackknife.
 
     python3 tools/profile_engine.py [--tiers bench|highest] [--out DIR] [--pairs N]
+                                    [--bucket-threads 1,4]
 
 Runs the bench workload of chip_smoke.py (299x301x41, 400 models of ranks
 1-20 x 20, buckets 4/8/12/16/20, buffer_size=2880, 10 forced iterations)
 through the device-paced graph loop (``sync_mode="evict"``) and the
-per-iteration loop (``sync_mode="iter"``): each once to warm up, once
-timed alone and once under torch.profiler. For each loop it prints the
+per-iteration loop (``sync_mode="iter"``), at each ``--bucket-threads``
+count in turns (default 1, the engine's; "1,4" profiles the serial and
+the threaded engine): each once to warm up, once timed alone and once
+under torch.profiler (``profile_run``). For each it prints the
 wall times (alone and profiled), the device
 busy share (union of the CUDA kernel intervals over the wall), device
 kernels per bucket-iteration, the host-to-device copy time, graph replays
@@ -17,8 +20,9 @@ and stats fetches per bucket-iteration, the host's time in launch calls
 synchronising calls, the device time and count of PyTorch's elementwise
 kernels, the device time of the normal inverse and by kernel name, and
 writes the summary and a Chrome trace to DIR (default chiprun_out/). Then
-both loops unprofiled in N alternating pairs (default 10): each loop's
-median wall and range, and the per-pair wall ratio. A last run of the
+every (loop, thread count) unprofiled in N rounds of turns (default 10):
+each one's median wall and range, and per round the wall ratios iter /
+graph and threaded / serial. A last run of the
 graph loop is profiled on the host only, with Python stacks, to count the
 PyTorch ops issued from ops/error.py.
 
@@ -56,18 +60,17 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchr
               "cudaStreamWaitEvent")
 
 
-def trace(x, queue, params, out_dir: str, label: str) -> dict:
-    """One profiled run of ``params`` after a warm-up; the summary."""
+def profile_run(x, queue, params):
+    """One run of ``params`` under torch.profiler: (the profiler, the
+    run's report, its summary: the wall, the device's busy time (the union
+    of the CUDA kernels' intervals, over every stream) and share of the
+    wall, kernels, the host's time in launch calls and in synchronising
+    calls, ...)."""
     from torch.profiler import ProfilerActivity, profile
 
     from cp_cals_tpu_torch import cp_cals
 
-    cp_cals(x, queue, params)  # warm-up: kernel build, cuBLAS and allocator state
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cp_cals(x, queue, params)  # the same run without the profiler's cost
-    torch.cuda.synchronize()
-    wall_plain = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, rep = cp_cals(x, queue, params)
@@ -94,8 +97,8 @@ def trace(x, queue, params, out_dir: str, label: str) -> dict:
     loop = chip_smoke.loop_totals(rep)
     elementwise = [n for n in by_name if "elementwise" in n]
     summary = dict(
-        loop=label, sync_mode=params.sync_mode, wall_s=wall, models_per_s=len(queue) / wall,
-        wall_unprofiled_s=wall_plain, models_per_s_unprofiled=len(queue) / wall_plain,
+        sync_mode=params.sync_mode, bucket_threads=params.bucket_threads, wall_s=wall,
+        models_per_s=len(queue) / wall,
         device_busy_ms=busy_us / 1e3, device_busy_share=busy_us / 1e6 / wall,
         h2d_ms=h2d_us / 1e3, kernels_launched=len(intervals), bucket_iterations=bucket_iters,
         kernels_per_bucket_iteration=len(intervals) / bucket_iters,
@@ -112,11 +115,28 @@ def trace(x, queue, params, out_dir: str, label: str) -> dict:
         normal_inverse_ms=sum(us for n, us in by_name.items() if "hinv_kernel" in n or "HadamardLoad" in n) / 1e3,
         top=[dict(name=n[:120], ms=us / 1e3, calls=count[n]) for n, us in by_name.most_common(20)],
     )
+    return prof, rep, summary
+
+
+def trace(x, queue, params, out_dir: str, label: str) -> dict:
+    """One profiled run of ``params`` after a warm-up and an unprofiled
+    run; the summary."""
+    from cp_cals_tpu_torch import cp_cals
+
+    cp_cals(x, queue, params)  # warm-up: kernel build, cuBLAS and allocator state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cp_cals(x, queue, params)  # the same run without the profiler's cost
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    prof, rep, summary = profile_run(x, queue, params)
+    summary.update(loop=label, wall_unprofiled_s=wall_plain, models_per_s_unprofiled=len(queue) / wall_plain)
+    wall, bucket_iters, loop = summary["wall_s"], summary["bucket_iterations"], chip_smoke.loop_totals(rep)
     prof.export_chrome_trace(os.path.join(out_dir, f"profile_engine_{label}.trace.json.gz"))
     print(f"[{label}] unprofiled wall {wall_plain:.4f}s ({len(queue) / wall_plain:.1f} models/s); "
           f"profiled wall {wall:.4f}s ({summary['models_per_s']:.1f} models/s), device busy "
           f"{summary['device_busy_ms']:.2f} ms = {summary['device_busy_share']:.3f} of wall, "
-          f"{len(intervals)} device kernels, {summary['kernels_per_bucket_iteration']:.1f} per "
+          f"{summary['kernels_launched']} device kernels, {summary['kernels_per_bucket_iteration']:.1f} per "
           f"bucket-iteration ({bucket_iters}); host-to-device copies {summary['h2d_ms']:.3f} ms; "
           f"{summary['replays_per_bucket_iteration']:.3f} replays and "
           f"{summary['stats_fetches_per_bucket_iteration']:.3f} stats fetches per bucket-iteration, "
@@ -129,31 +149,43 @@ def trace(x, queue, params, out_dir: str, label: str) -> dict:
     return summary
 
 
-def alternating_pairs(x, queue, params, n: int) -> dict:
-    """Unprofiled walls of the graph loop and the per-iteration loop in
-    ``n`` pairs, each pair the graph loop then the other (both warm): each
-    loop's walls, median and range, and the per-pair wall ratio
-    (iter / graph), median and range."""
+def alternating_pairs(x, queue, params, n: int, threads=(1,)) -> dict:
+    """Unprofiled walls of the graph loop and the per-iteration loop at
+    each thread count in ``n`` rounds, each round every variant in turn
+    (all warm): each variant's walls, median and range ("evict_t4", ...),
+    and per round the wall ratios iter / graph at each thread count and
+    threaded / serial (against the first count) of each loop, median and
+    range."""
     from cp_cals_tpu_torch import cp_cals
 
-    walls = {"evict": [], "iter": []}
+    walls = {(mode, t): [] for t in threads for mode in ("evict", "iter")}
     for _ in range(n):
-        for mode in walls:
+        for mode, t in walls:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            cp_cals(x, queue, dataclasses.replace(params, sync_mode=mode))
+            cp_cals(x, queue, dataclasses.replace(params, sync_mode=mode, bucket_threads=t))
             torch.cuda.synchronize()
-            walls[mode].append(time.perf_counter() - t0)
-    ratios = sorted(i / g for g, i in zip(walls["evict"], walls["iter"]))
-    out = {"ratio_iter_over_graph": dict(median=ratios[n // 2], min=ratios[0], max=ratios[-1], all=ratios)}
-    for mode, w in walls.items():
+            walls[(mode, t)].append(time.perf_counter() - t0)
+
+    def ratios(num, den) -> dict:
+        r = sorted(a / b for a, b in zip(walls[num], walls[den]))
+        return dict(median=r[n // 2], min=r[0], max=r[-1], all=r)
+
+    out = {}
+    for t in threads:
+        out[f"ratio_iter_over_graph_t{t}"] = ratios(("iter", t), ("evict", t))
+    for t in threads[1:]:
+        for mode in ("evict", "iter"):
+            out[f"ratio_t{t}_over_t{threads[0]}_{mode}"] = ratios((mode, t), (mode, threads[0]))
+    for (mode, t), w in walls.items():
         s = sorted(w)
-        out[mode] = dict(walls=w, median_s=s[n // 2], min_s=s[0], max_s=s[-1],
-                         models_per_s_median=len(queue) / s[n // 2])
-        print(f"pairs {mode}: median wall {s[n // 2]:.4f}s ({len(queue) / s[n // 2]:.1f} models/s), "
-              f"range {s[0]:.4f}-{s[-1]:.4f}s over {n}", flush=True)
-    print(f"pairs: wall ratio iter / graph median {ratios[n // 2]:.3f}, range {ratios[0]:.3f}-{ratios[-1]:.3f}",
-          flush=True)
+        out[f"{mode}_t{t}"] = dict(walls=w, median_s=s[n // 2], min_s=s[0], max_s=s[-1],
+                                   models_per_s_median=len(queue) / s[n // 2])
+        print(f"turns {mode} bucket_threads={t}: median wall {s[n // 2]:.4f}s "
+              f"({len(queue) / s[n // 2]:.1f} models/s), range {s[0]:.4f}-{s[-1]:.4f}s over {n}", flush=True)
+    for k, v in out.items():
+        if k.startswith("ratio"):
+            print(f"turns: wall {k} median {v['median']:.3f}, range {v['min']:.3f}-{v['max']:.3f}", flush=True)
     return out
 
 
@@ -250,8 +282,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiers", choices=sorted(TIERS), default="bench")
     ap.add_argument("--out", default="chiprun_out")
-    ap.add_argument("--pairs", type=int, default=10, help="alternating unprofiled runs of both loops")
+    ap.add_argument("--pairs", type=int, default=10, help="rounds of unprofiled runs of every variant in turn")
+    ap.add_argument("--bucket-threads", default="1", help="comma list of bucket_threads counts, e.g. 1,4")
     args = ap.parse_args()
+    threads = tuple(int(t) for t in args.bucket_threads.split(","))
     if not torch.cuda.is_available():
         print("profile_engine: CUDA is not available", file=sys.stderr)
         return 2
@@ -261,11 +295,13 @@ def main() -> int:
     x, rng = chip_smoke.bench_tensor()
     queue = chip_smoke.engine_queue(rng)
     params = chip_smoke.bench_params(**TIERS[args.tiers])
-    summary = dict(card=card, tiers=args.tiers, loops={})
-    for label, mode in (("graph", "evict"), ("iter", "iter")):
-        summary["loops"][label] = trace(x, queue, dataclasses.replace(params, sync_mode=mode), args.out,
-                                        f"{args.tiers}_{label}")
-    summary["pairs"] = alternating_pairs(x, queue, params, args.pairs)
+    summary = dict(card=card, tiers=args.tiers, bucket_threads=threads, loops={})
+    for t in threads:
+        for label, mode in (("graph", "evict"), ("iter", "iter")):
+            summary["loops"][f"{label}_t{t}"] = trace(
+                x, queue, dataclasses.replace(params, sync_mode=mode, bucket_threads=t), args.out,
+                f"{args.tiers}_{label}_t{t}")
+    summary["pairs"] = alternating_pairs(x, queue, params, args.pairs, threads)
     summary["error_py_ops"] = error_ops(x, queue, params)
     print(f"ops from ops/error.py (graph loop): {summary['error_py_ops']}", flush=True)
     summary["policies"] = policies(x)
