@@ -204,6 +204,28 @@ the result lines are printed):
    beyond the 1e-1 check; every number is finite. Printed: the measured
    matmul peaks beside the data sheet's, the 500^3 sweep's MTTKRP TFLOP/s
    and its tensor-core share at "high", its peak allocated bytes.
+6d. Stress (the JAX package's slow lane, tests/test_stress_oracle.py, at
+   full size; stress_phase). S1: 360 models of ranks 1-12 (30 each,
+   shuffled) on an exact rank-10 13x12x11 target, float64, tol 1e-5,
+   through a 30-column buffer (buckets 2/4/8/12: continuous eviction,
+   refill and tail compaction through the graph loop): cp_cals against
+   cp_als on every third model (queue indices 0, 3, ..., 357, cut by index
+   for the phase's time: STRESS_ALS_EVERY) and cp_batched_als on every
+   same-rank group,
+   equal iteration counts and reconstructions within 1e-11; no kernel
+   takes float64, so none may launch. Printed: eviction rounds, refills,
+   compactions, bucket-iterations, graph captures (and their seconds),
+   replays, each path's wall. S2: the same models and buffer in float32 at
+   "highest" with 30 forced iterations, each of the three paths launching
+   exactly the fp32 MTTKRP, normal inverse and apply 3 x its iterations,
+   against the float64 cp_cals run of those settings on the card and
+   against each other (STRESS_CROSS_TOL). S3: the reference-scale
+   jackknife (4 fitted rank-5 models of a 10x21x20 target, 40 replicates
+   through an 18-column buffer): jk_cp_cals, jk_cp_als and
+   jk_cp_batched_als in float64 within 1e-11 of each other, each replicate
+   compared through jk_to_regular; jk_cp_cals in float32 at "highest" (the
+   apply kernel zeroes the left-out row) against the float64 one
+   (JK_STRESS_CROSS_TOL).
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality and
    timed beside torch.mul, eager and replayed.
@@ -212,7 +234,8 @@ the result lines are printed):
    as "normal_inverse_k3" and "epilogue_apply_k3", at the 4-D run's launch
    mix; each rank's launches in phase 5c's runs as
    "multi_device_launches"; each kernel's launches in the experiment
-   harness's engine runs as "experiments_launches"), then the last line
+   harness's engine runs as "experiments_launches", and in the stress
+   phase's float32 runs as "stress_launches"), then the last line
    {"ok": true, "device": {...}}. The per-shape measurements go to
    chiprun_out/chip_smoke.json, the probe's to
    chiprun_out/overhead_probe.json.
@@ -3272,6 +3295,345 @@ def experiments_phase(dev) -> dict:
     return out
 
 
+# The stress phase: the JAX package's slow lane (tests/test_stress_oracle.py,
+# the reference's SimpleCorrectness and jackknife FunctionCorrectness at full
+# size) on the card. Every draw is the port's threefry (prng.py: JAX's keys,
+# the uniform draws bit for bit), made in float64 on the CPU, so the CPU tests
+# (tests/test_torch_stress.py, tests/test_torch_stress_oracle.py) and the card
+# start from the same inputs.
+STRESS_MODES = (13, 12, 11)  # the reference's stress tensor (test_cals.cpp:45)
+STRESS_COPIES = 30  # models of each rank 1-12: 360
+STRESS_ALS = dict(tol=1e-5, max_iterations=1000)
+STRESS_ENGINE = dict(buffer_size=30, bucket_ranks=(2, 4, 8, 12))  # the reference's stress budget
+STRESS_FORCED = dict(tol=1e-5, max_iterations=30, force_max_iter=True)  # S2: every path runs 30 iterations
+STRESS_TOL = 1e-11  # the reference's MODEL_DIFF_ACC: float64 paths against each other
+JK_STRESS_MODES = (10, 21, 20)
+JK_STRESS = dict(tol=1e-4, max_iterations=60, force_max_iter=True)
+JK_STRESS_ENGINE = dict(buffer_size=18, bucket_ranks=(5,))
+STRESS_PATHS = ("cp_cals", "cp_als", "cp_batched_als")
+# S1's sequential cp_als oracle runs on every STRESS_ALS_EVERY-th model of
+# the queue (indices 0, 3, ..., 357: 120 of the 360), a cut by index made
+# before any run: on an NVIDIA H100 80GB HBM3 at 700 W the float64 cp_als
+# of all 360 took 64.0 s of the phase's 113.5 s (PERF.md), over the
+# phase's 90 s budget.
+STRESS_ALS_EVERY = 3
+# S2's float32 paths at "highest" (the fp32 MTTKRP, normal-inverse and apply
+# kernels) against the float64 run of the same forced settings: the largest
+# |fit difference| and the largest reconstruction difference relative to
+# |X|, over the 360 models; two float32 paths against each other are held
+# to twice these (each within them of the float64 run). S3's float32
+# jk_cp_cals against the float64 one: the largest replicate reconstruction
+# difference relative to |X|, the left-out row dropped. Set from the port's
+# float32 CPU run against the float64 CPU run of the same settings
+# (tools/stress_bounds.py, 8 threads): S2 reads 3.157e-4 / 7.846e-5
+# (cp_cals; cp_als 2.326e-4 / 8.509e-6, cp_batched_als 2.550e-4 /
+# 1.152e-5; the paths against each other at most 2.921e-4 / 8.819e-5), S3
+# 2.452e-7. The fits differ at the float32 FastALS error's resolution (its
+# err^2 cancels to a few 1e-8 of |X|^2 on this exact rank-10 target); the
+# models of rank above 10 move most. The limits give the CPU readings about
+# 10x room for the card's other summation orders.
+STRESS_CROSS_TOL = (4e-3, 8e-4)
+JK_STRESS_CROSS_TOL = 3e-6
+
+
+def stress_workload(copies: int = STRESS_COPIES):
+    """The slow lane's SimpleCorrectness workload as host float64 NumPy: the
+    exact rank-10 target of key 0, and ``copies`` models of each rank 1-12
+    shuffled by ``random.Random(0)``, model i drawn from key 1000 + i.
+    Returns (x, ranks, models)."""
+    import random
+
+    from cp_cals_tpu_torch.ktensor import random_ktensor, to_host, to_tensor
+    from cp_cals_tpu_torch.prng import prng_key
+
+    x = to_tensor(random_ktensor(prng_key(0), STRESS_MODES, 10, dtype=torch.float64)).numpy()
+    ranks = [r for r in range(1, 13) for _ in range(copies)]
+    random.Random(0).shuffle(ranks)
+    kts = [to_host(random_ktensor(prng_key(1000 + i), STRESS_MODES, r, dtype=torch.float64))
+           for i, r in enumerate(ranks)]
+    return x, ranks, kts
+
+
+def jk_stress_problem(device):
+    """The slow lane's jackknife problem: the rank-5 10x21x20 target of key
+    3 (host float64) and four rank-5 models (keys 50-53) fitted by cp_als
+    on ``device`` with forced iterations. Returns (x, fitted host models)."""
+    from cp_cals_tpu_torch import AlsParams, cp_als
+    from cp_cals_tpu_torch.ktensor import random_ktensor, to_tensor
+    from cp_cals_tpu_torch.prng import prng_key
+
+    x = to_tensor(random_ktensor(prng_key(3), JK_STRESS_MODES, 5, dtype=torch.float64)).numpy()
+    inits = [random_ktensor(prng_key(50 + i), JK_STRESS_MODES, 5, dtype=torch.float64) for i in range(4)]
+    return x, [cp_als(x, kt0, AlsParams(**JK_STRESS), device=device)[0] for kt0 in inits]
+
+
+def as_float32(x, kts):
+    """A float64 problem cast to float32 (the target and the models)."""
+    from cp_cals_tpu_torch import Ktensor
+
+    return x.astype(np.float32), [Ktensor(tuple(f.astype(np.float32) for f in kt.factors),
+                                          kt.lam.astype(np.float32)) for kt in kts]
+
+
+class ChurnCounts:
+    """The engine's eviction rounds, evicted models, refills, refilled slots
+    and tail compactions while the block runs: its calls of
+    ``_evict_col_indices``, ``_Loop.refill`` and ``ChunkLoop.compacted``
+    (solvers/cals.py, solvers/graph_loop.py) counted."""
+
+    def __enter__(self):
+        from cp_cals_tpu_torch.solvers import cals, graph_loop
+
+        self.counts = dict(eviction_rounds=0, evicted=0, refills=0, refilled_slots=0, compactions=0)
+        self.real = (cals._evict_col_indices, graph_loop._Loop.refill, graph_loop.ChunkLoop.compacted)
+        evict_cols, refill, compacted = self.real
+        c = self.counts
+
+        def counted_evict_cols(evicted, slot_meta):
+            c["eviction_rounds"] += 1
+            c["evicted"] += len(evicted)
+            return evict_cols(evicted, slot_meta)
+
+        def counted_refill(loop, slots, fresh):
+            c["refills"] += 1
+            c["refilled_slots"] += len(slots)
+            return refill(loop, slots, fresh)
+
+        def counted_compacted(loop, idx):
+            c["compactions"] += 1
+            return compacted(loop, idx)
+
+        cals._evict_col_indices = counted_evict_cols
+        graph_loop._Loop.refill = counted_refill
+        graph_loop.ChunkLoop.compacted = counted_compacted
+        return self.counts
+
+    def __exit__(self, *exc):
+        from cp_cals_tpu_torch.solvers import cals, graph_loop
+
+        cals._evict_col_indices, graph_loop._Loop.refill, graph_loop.ChunkLoop.compacted = self.real
+
+
+def timed_call(dev, fn):
+    """``fn()`` from launch counts at 0: (its result, wall seconds, launches)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def stress_paths(x, ranks, kts, als: dict, dev, paths=STRESS_PATHS, als_every: int = 1, **tier) -> dict:
+    """``paths`` of the stress workload on ``dev``: cp_cals on the queue
+    ``kts`` (STRESS_ENGINE's budget, MTTKRP pinned to the fused kernels,
+    which take the twostep in float64), cp_als on every ``als_every``-th
+    model, cp_batched_als on each same-rank group, each with ALS settings
+    ``als`` and ``tier``. Each path's host results, iteration counts and
+    fits, in the order of its ``index`` (the queue indices it ran), wall
+    and launches; the engine run's churn (``ChurnCounts``), graph loop
+    counts, capture seconds and bucket-iterations."""
+    from cp_cals_tpu_torch import AlsParams, CalsParams, cp_als, cp_batched_als, cp_cals
+
+    out = {}
+    if "cp_cals" in paths:
+        with ChurnCounts() as churn:
+            (res, rep), wall, counts = timed_call(
+                dev, lambda: cp_cals(x, kts, CalsParams(**als, **STRESS_ENGINE, **tier, **pinned()), device=dev))
+        if len(res) != len(kts) or any(kt is None for kt in res):
+            raise AssertionError("stress cp_cals: missing results")
+        out["cp_cals"] = dict(
+            index=list(range(len(kts))), results=res, iters=[m.iters for m in rep.models],
+            fits=[m.fit for m in rep.models], wall_s=wall, launches=counts, churn=dict(churn), loop=loop_totals(rep), steps=sum(rep.engine_iterations.values()),
+            bucket_iterations=dict(rep.engine_iterations),
+            capture_s=sum(pt.get("capture", 0.0) for pt in rep.phase_times.values()))
+    params = AlsParams(**als, **tier)
+    if "cp_als" in paths:
+        index = list(range(0, len(kts), als_every))
+        fits, wall, counts = timed_call(dev, lambda: [cp_als(x, kts[i], params, device=dev) for i in index])
+        out["cp_als"] = dict(index=index, results=[kt for kt, _ in fits], iters=[r.iters for _, r in fits],
+                             fits=[r.fit for _, r in fits], wall_s=wall, launches=counts,
+                             steps=sum(r.iters for _, r in fits))
+    if "cp_batched_als" in paths:
+        groups: dict = {}
+        for i, r in enumerate(ranks):
+            groups.setdefault(r, []).append(i)
+
+        def batched():
+            got = {}
+            for idx in groups.values():
+                res, reps = cp_batched_als(x, [kts[i] for i in idx], params, device=dev)
+                got.update(zip(idx, zip(res, reps)))
+            return [got[i] for i in range(len(kts))]
+
+        fits, wall, counts = timed_call(dev, batched)
+        out["cp_batched_als"] = dict(
+            index=list(range(len(kts))), results=[kt for kt, _ in fits], iters=[r.iters for _, r in fits],
+            fits=[r.fit for _, r in fits], wall_s=wall, launches=counts,
+            steps=sum(max(fits[i][1].iters for i in idx) for idx in groups.values()))
+    return out
+
+
+def path_diffs(a: dict, b: dict, x_norm: float | None = None) -> dict:
+    """Two stress paths' largest |fit difference| and reconstruction
+    difference (absolute, or relative to ``x_norm``) over the models ``b``
+    ran (``a`` ran every model), and the models whose iteration counts
+    differ, as (queue index, a's count, b's count)."""
+    scale = 1.0 if x_norm is None else x_norm
+    a_res, a_fits, a_iters = ([a[k][i] for i in b["index"]] for k in ("results", "fits", "iters"))
+    rec = max(float(np.linalg.norm(dense(p) - dense(q))) / scale for p, q in zip(a_res, b["results"]))
+    fit = max(abs(p - q) for p, q in zip(a_fits, b["fits"]))
+    iters = [(i, p, q) for i, p, q in zip(b["index"], a_iters, b["iters"]) if p != q]
+    return dict(max_fit_diff=fit, max_recon_diff=rec, iteration_mismatches=iters)
+
+
+def stress_s1(dev) -> tuple:
+    """S1: the slow lane's SimpleCorrectness at full size in float64 on
+    ``dev`` (no kernel takes float64: the twostep and the unfused
+    epilogue): cp_cals against cp_als on every STRESS_ALS_EVERY-th model
+    and against cp_batched_als on every same-rank group, equal iteration
+    counts, the reconstructions within STRESS_TOL."""
+    x, ranks, kts = stress_workload()
+    runs = stress_paths(x, ranks, kts, STRESS_ALS, dev, als_every=STRESS_ALS_EVERY)
+    out = {p: {k: v for k, v in r.items() if k != "results"} for p, r in runs.items()}
+    cals = runs["cp_cals"]
+    index = runs["cp_als"]["index"]
+    print(f"stress S1: the cp_als oracle on one model in {STRESS_ALS_EVERY}, queue indices {index[0]}, "
+          f"{index[1]}, ..., {index[-1]} ({len(index)} of {len(kts)}; ranks {sorted(set(ranks[i] for i in index))}), "
+          f"cut by index before any run for the phase's time budget", flush=True)
+    for other in ("cp_als", "cp_batched_als"):
+        d = out["cp_cals vs " + other] = path_diffs(cals, runs[other])
+        print(f"stress S1 float64 cp_cals vs {other} ({len(runs[other]['index'])} models): "
+              f"{len(d['iteration_mismatches'])} iteration mismatches (index, rank, cp_cals's, {other}'s) "
+              f"{[(i, ranks[i], p, q) for i, p, q in d['iteration_mismatches']]}, "
+              f"worst |reconstruction diff| {d['max_recon_diff']:.3e}", flush=True)
+    print(f"stress S1 float64 ({len(kts)} models, buffer {STRESS_ENGINE['buffer_size']}): cp_cals "
+          f"{cals['wall_s']:.3f}s, cp_als {runs['cp_als']['wall_s']:.3f}s, cp_batched_als "
+          f"{runs['cp_batched_als']['wall_s']:.3f}s; churn {cals['churn']}, bucket-iterations "
+          f"{cals['bucket_iterations']}, {cals['loop']['captures']} graph captures in {cals['capture_s']:.3f}s, "
+          f"{cals['loop']['replays']} replays, {cals['loop']['stats_fetches']} stats fetches; mean iterations "
+          f"{np.mean(cals['iters']):.2f} (from {min(cals['iters'])} to {max(cals['iters'])})", flush=True)
+    for p, r in runs.items():
+        if any(r["launches"].values()):
+            raise AssertionError(f"stress S1 {p}: kernels launched in float64: {r['launches']}")
+    for other in ("cp_als", "cp_batched_als"):
+        d = out["cp_cals vs " + other]
+        if d["iteration_mismatches"] or not d["max_recon_diff"] < STRESS_TOL:
+            raise AssertionError(f"stress S1: cp_cals vs {other}: {d}")
+    return x, ranks, kts, out
+
+
+def s2_readings(runs: dict, ref: dict, x_norm: float) -> dict:
+    """S2's differences: each float32 path against the float64 run, and the
+    float32 paths against each other (relative to |X|)."""
+    out = {p + " vs float64": path_diffs(runs[p], ref, x_norm) for p in runs}
+    for i, p in enumerate(STRESS_PATHS):
+        for q in STRESS_PATHS[i + 1:]:
+            out[f"{p} vs {q}"] = path_diffs(runs[p], runs[q], x_norm)
+    return out
+
+
+def s3_reading(got, want, x_norm: float | None = None) -> float:
+    """The largest difference of two jackknives' replicate reconstructions,
+    each replicate without its left-out row (``jk_to_regular``): absolute,
+    or relative to ``x_norm``."""
+    from cp_cals_tpu_torch.ktensor import jk_to_regular
+
+    scale = 1.0 if x_norm is None else x_norm
+    worst = 0.0
+    for reps_a, reps_b in zip(got.results, want.results):
+        for f, (a, b) in enumerate(zip(reps_a, reps_b)):
+            ra, rb = jk_to_regular(a, f), jk_to_regular(b, f)
+            if not (np.isfinite(ra.factors[0]).all() and np.isfinite(rb.factors[0]).all()):
+                raise AssertionError(f"stress S3: replicate {f} keeps a non-finite row after jk_to_regular")
+            worst = max(worst, float(np.linalg.norm(dense(ra) - dense(rb))) / scale)
+    return worst
+
+
+def stress_phase(dev) -> dict:
+    """S1, S2 and S3 on ``dev`` (module docstring, phase 6d); raises on any
+    failure."""
+    from cp_cals_tpu_torch import AlsParams, CalsParams, jk_cp_als, jk_cp_batched_als, jk_cp_cals
+
+    t_phase = time.perf_counter()
+    x, ranks, kts, out = stress_s1(dev)
+    out = {"S1": out}
+
+    # S2: float32 at "highest" with forced iterations, against the float64
+    # run of the same settings on the card.
+    highest = dict(precision="highest")
+    ref = stress_paths(x, ranks, kts, STRESS_FORCED, dev, paths=("cp_cals",))["cp_cals"]
+    x32, kts32 = as_float32(x, kts)
+    runs = stress_paths(x32, ranks, kts32, STRESS_FORCED, dev, **highest)
+    s2 = {p: {k: v for k, v in r.items() if k != "results"} for p, r in runs.items()}
+    s2["float64 cp_cals"] = {k: v for k, v in ref.items() if k != "results"}
+    s2["diffs"] = s2_readings(runs, ref, float(np.linalg.norm(x)))
+    for p, r in runs.items():
+        print(f"stress S2 float32 {p}: wall {r['wall_s']:.3f}s, launches {r['launches']}, {r['steps']} "
+              f"iterations (bucket-iterations for cp_cals, every model's for cp_als, every group's for "
+              f"cp_batched_als)", flush=True)
+    for k, d in s2["diffs"].items():
+        print(f"stress S2 {k}: max |fit diff| {d['max_fit_diff']:.3e}, max reconstruction diff / |X| "
+              f"{d['max_recon_diff']:.3e}", flush=True)
+    print(f"stress S2 float64 cp_cals (the reference): wall {ref['wall_s']:.3f}s; float32 cp_cals churn "
+          f"{runs['cp_cals']['churn']}, {runs['cp_cals']['loop']['captures']} graph captures in "
+          f"{runs['cp_cals']['capture_s']:.3f}s, {runs['cp_cals']['loop']['replays']} replays", flush=True)
+    for p, r in runs.items():
+        check_launches(f"stress S2 {p}", r["launches"], fused("highest"), r["steps"])
+        if set(r["iters"]) != {STRESS_FORCED["max_iterations"]}:
+            raise AssertionError(f"stress S2 {p}: iterations {set(r['iters'])}")
+    for k, d in s2["diffs"].items():
+        lim = STRESS_CROSS_TOL if k.endswith("float64") else tuple(2 * t for t in STRESS_CROSS_TOL)
+        if not (d["max_fit_diff"] <= lim[0] and d["max_recon_diff"] <= lim[1]):
+            raise AssertionError(f"stress S2 {k}: {d} beyond {lim}")
+    out["S2"] = s2
+
+    # S3: the jackknife at the reference's scale, float64 across the three
+    # drivers, then float32 jk_cp_cals (the apply kernel's row zero).
+    xj, fitted = jk_stress_problem(dev)
+    engine = CalsParams(**JK_STRESS, **JK_STRESS_ENGINE, **pinned())
+    als = AlsParams(**JK_STRESS)
+    s3 = {}
+    jk = {}
+    for name, fn in (("jk_cp_cals", lambda: jk_cp_cals(xj, fitted, engine, device=dev)),
+                     ("jk_cp_als", lambda: jk_cp_als(xj, fitted, als, device=dev)),
+                     ("jk_cp_batched_als", lambda: jk_cp_batched_als(xj, fitted, als, device=dev))):
+        jk[name], wall, counts = timed_call(dev, fn)
+        s3[name] = dict(wall_s=wall, launches=counts)
+        if any(counts.values()):
+            raise AssertionError(f"stress S3 {name}: kernels launched in float64: {counts}")
+    s3["float64 cp_cals vs cp_als"] = s3_reading(jk["jk_cp_cals"], jk["jk_cp_als"])
+    s3["float64 cp_als vs cp_batched_als"] = s3_reading(jk["jk_cp_als"], jk["jk_cp_batched_als"])
+    xj32, fitted32 = as_float32(xj, fitted)
+    got, wall, counts = timed_call(dev, lambda: jk_cp_cals(
+        xj32, fitted32, CalsParams(**JK_STRESS, **JK_STRESS_ENGINE, **highest, **pinned()), device=dev))
+    rep = got.cals_report
+    steps = sum(rep.engine_iterations.values())
+    s3["float32 jk_cp_cals"] = dict(wall_s=wall, launches=counts, bucket_iterations=steps,
+                                    loop=loop_totals(rep))
+    s3["float32 vs float64"] = s3_reading(got, jk["jk_cp_cals"], float(np.linalg.norm(xj)))
+    n_reps = sum(len(r) for r in got.results)
+    walls = ", ".join(f"{k} {s3[k]['wall_s']:.3f}s" for k in jk)
+    print(f"stress S3 ({len(fitted)} fitted rank-5 models, {n_reps} replicates, buffer "
+          f"{JK_STRESS_ENGINE['buffer_size']}): float64 worst |reconstruction diff| cp_cals vs cp_als "
+          f"{s3['float64 cp_cals vs cp_als']:.3e}, cp_als vs cp_batched_als "
+          f"{s3['float64 cp_als vs cp_batched_als']:.3e}; walls {walls}; float32 jk_cp_cals at 'highest' "
+          f"{wall:.3f}s, launches {counts}, {steps} bucket-iterations, against float64: max reconstruction "
+          f"diff / |X| {s3['float32 vs float64']:.3e}", flush=True)
+    check_launches("stress S3 float32 jk_cp_cals", counts, fused("highest"), steps)
+    for k in ("float64 cp_cals vs cp_als", "float64 cp_als vs cp_batched_als"):
+        if not s3[k] < STRESS_TOL:
+            raise AssertionError(f"stress S3 {k}: {s3[k]:.3e}")
+    if not s3["float32 vs float64"] <= JK_STRESS_CROSS_TOL:
+        raise AssertionError(f"stress S3 float32 vs float64: {s3['float32 vs float64']:.3e}")
+    out["S3"] = s3
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"stress phase: {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3343,6 +3705,7 @@ def main() -> int:
     debug = debug_phase()
     entry_pts = entry_point_phase(x_np, dev)
     exps = experiments_phase(dev)
+    stress = stress_phase(dev)
     probe = probe_phase(dev)
 
     # Each kernel at the launch mix of the engine run that drives it: the
@@ -3438,9 +3801,14 @@ def main() -> int:
             library_graph_ms=None if any(m["library_graph_ms"] is None for m in mix) else mean("library_graph_ms"),
         ))
 
-    # Each kernel's launches in the experiment harness's engine runs, by run.
+    # Each kernel's launches in the experiment harness's engine runs, by
+    # run, and in the stress phase's float32 runs, by path.
     for entry in kernels:
         entry["experiments_launches"] = exps["launches_by_label"].get(entry["name"], {})
+        entry["stress_launches"] = {f"S2 {p}": stress["S2"][p]["launches"].get(entry["name"], 0)
+                                    for p in STRESS_PATHS}
+        entry["stress_launches"]["S3 jk_cp_cals"] = stress["S3"]["float32 jk_cp_cals"]["launches"].get(
+            entry["name"], 0)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -3454,7 +3822,7 @@ def main() -> int:
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
                        multi_device=multi,
                        mttkrp_j1_mix=j1_mix, nnls=nnls, line_search=ls, jk_line_search=jk_ls, debug=debug,
-                       entry_points=entry_pts, experiments=exps,
+                       entry_points=entry_pts, experiments=exps, stress=stress,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -259,6 +259,37 @@ def scale_jk_rows(f0: Tensor, fiber, value: float = 0.0) -> Tensor:
     return torch.where(hit[..., None], f0 * value, f0)
 
 
+def _cat(parts: Sequence, axis: int):
+    """Concatenate torch tensors (``torch.cat``) or host arrays (NumPy)."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(list(parts), dim=axis)
+    return np.concatenate([np.asarray(p) for p in parts], axis=axis)
+
+
+def set_jk_fiber(kt: Ktensor, fiber, value: float = 0.0) -> Ktensor:
+    """Scale row ``fiber`` of the mode-0 factor (the jackknife left-out
+    sample; reference ``Ktensor::set_jk_fiber``, the JAX package's
+    ``set_jk_fiber``): ``scale_jk_rows`` on factor 0, one fiber per model
+    for batched models, a fiber below 0 a no-op. A host (NumPy) model
+    stays on the host."""
+    f0 = kt.factors[0]
+    if isinstance(f0, torch.Tensor):
+        f0_new = scale_jk_rows(f0, fiber, value)
+    else:
+        f0_new = scale_jk_rows(torch.from_numpy(np.asarray(f0)), np.asarray(fiber), value).numpy()
+    return Ktensor((f0_new,) + tuple(kt.factors[1:]), kt.lam)
+
+
+def jk_to_regular(kt: Ktensor, fiber: int) -> Ktensor:
+    """Drop row ``fiber`` of factor 0: the (I0-1)-row model of a jackknife
+    replicate (reference ``Ktensor::to_regular``, the JAX package's
+    ``jk_to_regular``), leading batch dims kept. Takes torch tensors or the
+    host (NumPy) models the jackknife drivers return, and exports them."""
+    f0 = kt.factors[0]
+    f0_new = _cat([f0[..., :fiber, :], f0[..., fiber + 1 :, :]], -2)
+    return Ktensor((f0_new,) + tuple(kt.factors[1:]), kt.lam)
+
+
 def pad_rank(kt: Ktensor, target_rank: int) -> Ktensor:
     """Zero-pad factor columns and lam up to ``target_rank``."""
     r = kt.rank
@@ -274,3 +305,11 @@ def pad_rank(kt: Ktensor, target_rank: int) -> Ktensor:
 def truncate_rank(kt: Ktensor, rank: int) -> Ktensor:
     """Drop padded columns (inverse of ``pad_rank``)."""
     return Ktensor(tuple(f[..., :rank] for f in kt.factors), kt.lam[..., :rank])
+
+
+def concatenate_ktensors(kts: Sequence[Ktensor]) -> Ktensor:
+    """Column-concatenate same-shape models into one wide Ktensor
+    (reference ``utils.cpp:18-38``, the JAX package's
+    ``concatenate_ktensors``): factors and lam along the last axis."""
+    factors = tuple(_cat([kt.factors[m] for kt in kts], -1) for m in range(kts[0].n_modes))
+    return Ktensor(factors, _cat([kt.lam for kt in kts], -1))

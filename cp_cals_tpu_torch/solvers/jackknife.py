@@ -30,7 +30,7 @@ import torch
 
 from ..config import AlsParams, CalsParams
 from ..device import resolve_device
-from ..ktensor import Ktensor
+from ..ktensor import Ktensor, jk_to_regular
 from ..utils.lsap import solve_lsap
 from .als import cp_als
 from .cals import CalsReport, _to_numpy, cp_cals, precompile_buckets
@@ -234,7 +234,7 @@ def jk_cp_als(x, fitted: list[Ktensor], params: AlsParams = AlsParams(), device=
         reps = []
         for fiber in range(kt_ref.factors[0].shape[-2]):
             x_jk = np.delete(x_np, fiber, axis=0)
-            kt0 = Ktensor((np.delete(kt_ref.factors[0], fiber, axis=0),) + tuple(kt_ref.factors[1:]), kt_ref.lam)
+            kt0 = jk_to_regular(kt_ref, fiber)
             kt_fit, _ = cp_als(x_jk, kt0, params, device=dev)
             kt_fit = to_host_model(kt_fit)
             # Re-insert a NaN row at the fiber so the shapes match

@@ -225,7 +225,7 @@ def test_fidelity_pin_rules():
     [(dict(checkpoint_dir="ckpt"), "item 8"), (dict(resume=True), "item 8"),
      (dict(mesh=True), "item 10"), (dict(shard_mode0=True), "item 10")],
 )
-def test_unported_jk_options_raise(kwargs, item, tmp_path):
+def test_jk_options_run(kwargs, item, tmp_path):
     """The options that raised until their items were ported now run:
     checkpoint and resume (item 8) give the plain run's replicates, and so
     does a mesh (item 10; here the single-process 1 x 1 mesh, the
