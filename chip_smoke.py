@@ -226,6 +226,22 @@ the result lines are printed):
    compared through jk_to_regular; jk_cp_cals in float32 at "highest" (the
    apply kernel zeroes the left-out row) against the float64 one
    (JK_STRESS_CROSS_TOL).
+6e. Studies (the fidelity studies, cp_cals_tpu_torch/studies/, at full
+   width, 299x301x41; studies_phase). The port's float64 oracles on the
+   card (no kernel takes float64, so none may launch), each held to the
+   JAX package's committed float64 oracle of the same study:
+   convergence_run (6 models) and bench_tol (400 models) with equal
+   iteration counts and fits within 1e-9, jk_fidelity_study's SE bands
+   (299 replicates) within 1e-6 at the p99 of |dse| / se64 per mode. Then the float32 runs through the kernels,
+   each launching exactly its path's kernels (3 x (bucket-iterations +
+   polish sweeps), the mixed-tier check's MTTKRP once per bucket-iteration
+   as a predicated launch): convergence_run at "highest", at a "default"
+   MTTKRP with a plain stop (printed only) and with tol_check_interval=5
+   and polish 2; jk_fidelity_study's f32_high, f32_high_xla and
+   f32_default_polish_conv on all 299 replicates, compare's table printed;
+   bench_tol's card leg at the script's defaults; bench_external_cpd's
+   card row. Each float32 reading against the committed oracle, held to
+   STUDY_BOUNDS (tools/study_bounds.py).
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality and
    timed beside torch.mul, eager and replayed.
@@ -235,7 +251,8 @@ the result lines are printed):
    mix; each rank's launches in phase 5c's runs as
    "multi_device_launches"; each kernel's launches in the experiment
    harness's engine runs as "experiments_launches", and in the stress
-   phase's float32 runs as "stress_launches"), then the last line
+   phase's float32 runs as "stress_launches", and in the studies phase's
+   float32 runs as "study_launches"), then the last line
    {"ok": true, "device": {...}}. The per-shape measurements go to
    chiprun_out/chip_smoke.json, the probe's to
    chiprun_out/overhead_probe.json.
@@ -3634,6 +3651,260 @@ def stress_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ studies phase
+# The fidelity studies (cp_cals_tpu_torch/studies/) at full width, against
+# the JAX package's committed float64 oracles (data/benchmarks/, run on the
+# CPU).
+STUDY_DIR = os.path.join("chiprun_out", "studies_phase")  # the studies' .npz bands of this run
+STUDY_F64_FIT_TOL = 1e-9  # the port's float64 oracles on the card against JAX's: |fit difference|
+STUDY_SE_TOL = 1e-6  # ... and the p99 over entries of |se - se64| / se64, per mode
+# convergence_run's float32 configurations: "highest" and a "default"
+# MTTKRP, both with a plain stop, and the "default" MTTKRP made tol-safe by
+# the mixed-tier check and polished. The plain-stop "default" is known to
+# stop on the bf16 tier's noise: printed, not bounded.
+STUDY_CONV = {
+    "highest": {},
+    "default": dict(mttkrp_precision="default"),
+    "default mixed": dict(mttkrp_precision="default", tol_check=5, polish=2),
+}
+STUDY_JK_TIERS = ("high", "high_xla", "default_polish_conv")
+# The float32 readings' limits, from the port's float32 CPU runs of the same
+# legs (tools/study_bounds.py, the kernels' plain versions, 6 threads)
+# against the committed oracles: each is the CPU reading times 10, rounded
+# up to one significant digit, for the card's other summation orders (the
+# stress phase's precedent). The CPU read: convergence "highest" 2.878e-6,
+# "default mixed" 2.045e-6; SE p99 by mode f32_high and f32_high_xla
+# 0.028 / 0.079 / 0.382 (the plain versions of the fused and the unfused
+# epilogue are one computation on the CPU), f32_default_polish_conv 5.93 /
+# 6.36 / 20.87; bench_tol median 1.876e-6, p99 9.547e-5; the external row
+# 2.342e-5. bench_tol's largest delta and its count of deltas above 1e-2
+# are printed with each such model's direction, not bounded: a landing in
+# another local minimum is a discrete event of a tol-driven float32
+# trajectory (on the CPU model 82, rank 5, fits 0.9501 against float64's
+# 0.5796: the float32 run found the better basin), which the p99 of 400
+# models does not see.
+STUDY_BOUNDS = {
+    "convergence highest": {"max_abs_fit_delta": 3e-5},
+    "convergence default mixed": {"max_abs_fit_delta": 3e-5},
+    "jk f32_high": {"dtype_err_over_scatter_p99": [0.3, 0.8, 4.0]},
+    "jk f32_high_xla": {"dtype_err_over_scatter_p99": [0.3, 0.8, 4.0]},
+    "jk f32_default_polish_conv": {"dtype_err_over_scatter_p99": [60.0, 70.0, 300.0]},
+    "bench_tol": {"median_abs_fit_delta_vs_f64": 2e-5, "p99_abs_fit_delta_vs_f64": 1e-3},
+    "external_cpd": {"max_abs_fit_diff_vs_torch": 3e-4},
+}
+
+
+def study_models(rep) -> list:
+    return [{"id": m.id, "rank": m.rank, "iters": m.iters, "fit": float(m.fit)} for m in rep.models]
+
+
+def oracle_partings(name: str, models: list, oracle: list) -> dict:
+    """A float64 run's models against a committed oracle's, by id: the
+    models whose iteration counts differ (id, rank, the port's, JAX's)
+    and the largest |fit difference|."""
+    om = {m["id"]: m for m in oracle}
+    if set(om) != {m["id"] for m in models}:
+        raise AssertionError(f"{name}: the run's model ids differ from the committed oracle's")
+    mism = [(m["id"], m["rank"], m["iters"], om[m["id"]]["iters"]) for m in models if m["iters"] != om[m["id"]]["iters"]]
+    fit = max(abs(m["fit"] - om[m["id"]]["fit"]) for m in models)
+    return dict(n_models=len(models), iteration_mismatches=mism, max_fit_diff=fit)
+
+
+def check_partings(name: str, d: dict) -> None:
+    if d["iteration_mismatches"] or not d["max_fit_diff"] <= STUDY_F64_FIT_TOL:
+        raise AssertionError(f"studies {name}: float64 against the committed oracle: {d}")
+
+
+def study_f64(dev) -> dict:
+    """The three float64 oracles on ``dev``, each against the committed one
+    (module docstring, phase 6e); raises on any failure."""
+    from cp_cals_tpu_torch.studies import bench_tol as bt
+    from cp_cals_tpu_torch.studies import convergence_run as cr
+    from cp_cals_tpu_torch.studies import jk_fidelity_study as jk
+    from cp_cals_tpu_torch.studies._common import committed_oracle
+
+    out = {}
+    x64, q64 = cr.workload()
+    (_, rep, _), wall, counts = timed_call(
+        dev, lambda: cr.run(x64, q64, cr.params(**pinned()), torch.float64, dev, warm=False))
+    out["convergence"] = dict(wall_s=wall, launches=counts, **oracle_partings(
+        "convergence", study_models(rep), committed_oracle("convergence_f64.json")["models"]))
+    r, wall, counts = timed_call(dev, lambda: jk.run(torch.float64, "f64", device=dev, out_dir=STUDY_DIR, **pinned()))
+    se64 = committed_oracle("jk_fidelity_f64.npz")
+    p99 = [float(np.quantile(np.abs(b - se64[f"se{m}"]) / np.maximum(se64[f"se{m}"], 1e-12), 0.99))
+           for m, b in enumerate(r["bands"])]
+    iters = [m.iters for m in r["report"].cals_report.models]
+    out["jk_fidelity"] = dict(wall_s=wall, launches=counts, n_replicates=len(iters), se_rel_p99=p99,
+                              iters=[min(iters), max(iters)])
+    x_np, specs = bt.workload()
+    o, wall, counts = timed_call(dev, lambda: bt.run_oracle(x_np, specs, bt.oracle_params(**pinned()), dev))
+    out["bench_tol"] = dict(wall_s=wall, engine_s=o["wall_s"], launches=counts, **oracle_partings(
+        "bench_tol", o["models"], committed_oracle("bench_tol_f64.json")["models"]))
+    out["bench_tol"]["model_iterations"] = sum(m["iters"] for m in o["models"])
+    for name in ("convergence", "bench_tol"):
+        d = out[name]
+        print(f"studies float64 {name} on {dev.type} vs the committed JAX oracle: {d['n_models']} models, "
+              f"{len(d['iteration_mismatches'])} iteration mismatches (id, rank, port's, JAX's) "
+              f"{d['iteration_mismatches']}, max |fit diff| {d['max_fit_diff']:.3e}; wall {d['wall_s']:.3f}s", flush=True)
+    d = out["jk_fidelity"]
+    print(f"studies float64 jk_fidelity on {dev.type}: {d['n_replicates']} replicates ({d['iters'][0]} to "
+          f"{d['iters'][1]} iterations), p99 |se - se64| / se64 by mode vs the committed bands "
+          f"{[f'{v:.3e}' for v in p99]}; wall {d['wall_s']:.3f}s", flush=True)
+    for name, d in out.items():
+        if any(d["launches"].values()):
+            raise AssertionError(f"studies float64 {name}: kernels launched in float64: {d['launches']}")
+    check_partings("convergence", out["convergence"])
+    check_partings("bench_tol", out["bench_tol"])
+    if not max(p99) <= STUDY_SE_TOL:
+        raise AssertionError(f"studies float64 jk_fidelity: SE bands against the committed ones: {p99}")
+    return out
+
+
+def study_launch_check(name: str, params, rep, counts: dict, routes: dict, card: bool) -> None:
+    """A study run with the MTTKRP pinned to the fused kernels: 3 MTTKRP
+    launches per bucket-iteration at the fast tier and per polish sweep at
+    ``precision``, the mixed-tier check's once per bucket-iteration as a
+    predicated launch, the fused epilogue 3 x (bucket-iterations + polish
+    sweeps) unless the run takes the unfused one (``table_counts`` of
+    all-fused picks); the MTTKRP results by route to match. Off the
+    ``card`` (where no launch is counted) the routes alone."""
+    picks = {r: (("pallas",) * 3, None) for r in rep.engine_iterations}
+    kernels, predicated, want_routes = table_counts(picks, rep, params, 3, epilogue=params.epilogue != "xla")
+    if card:
+        # A tier with no polish sweeps (or no check) launches none of its kernel.
+        check_counts(name, counts, {k: v for k, v in kernels.items() if v}, predicated)
+    check_route_counts(name, routes, want_routes)
+
+
+def study_fp32(dev) -> dict:
+    """The float32 legs of the studies on ``dev`` (module docstring, phase
+    6e), each reading against the committed float64 oracle. On the CPU
+    (tools/study_bounds.py) the runs' routes are checked and their readings
+    made, without the untimed warm runs."""
+    from cp_cals_tpu_torch import cp_cals, launches
+    from cp_cals_tpu_torch.solvers.cals import precompile_buckets
+    from cp_cals_tpu_torch.studies import bench_external_cpd as be
+    from cp_cals_tpu_torch.studies import bench_tol as bt
+    from cp_cals_tpu_torch.studies import convergence_run as cr
+    from cp_cals_tpu_torch.studies import jk_fidelity_study as jk
+    from cp_cals_tpu_torch.studies._common import committed_oracle
+
+    card = dev.type == "cuda"
+    out = {}
+
+    def counted(name, params, fn, rep_of):
+        got, wall, counts = timed_call(dev, fn)
+        routes = launches.routes()
+        rep = rep_of(got)
+        study_launch_check(f"studies {name}", params, rep, counts, routes, card)
+        steps = sum(rep.engine_iterations.values())
+        out[name] = dict(wall_s=wall, launches=counts, routes=routes, bucket_iterations=steps,
+                         polish_sweeps=loop_totals(rep)["polish_sweeps"])
+        return got
+
+    x64, q64 = cr.workload()
+    conv64 = committed_oracle("convergence_f64.json")["models"]
+    for tag, kw in STUDY_CONV.items():
+        params = cr.params(**kw, **pinned())
+        if card:
+            cr.run(x64, q64, params, torch.float32, dev, warm=False)
+        _, rep, _ = counted(f"convergence {tag}", params,
+                            lambda: cr.run(x64, q64, params, torch.float32, dev, warm=False), lambda g: g[1])
+        models = study_models(rep)
+        out[f"convergence {tag}"].update(cr.compare(models, conv64), iters=[m["iters"] for m in models])
+
+    se64 = committed_oracle("jk_fidelity_f64.npz")
+    bands = {}
+    for tier in STUDY_JK_TIERS:
+        tag = jk.tag_of(False, tier)
+        params = jk.tier_params(tier, **pinned())
+        r = counted(f"jk {tag}", params, lambda: jk.run(torch.float32, tag, tier, device=dev, out_dir=STUDY_DIR,
+                                                        **pinned()),
+                    lambda g: g["report"].cals_report)
+        bands[tag] = {f"se{m}": b for m, b in enumerate(r["bands"])}
+        iters = [m.iters for m in r["report"].cals_report.models]
+        out[f"jk {tag}"].update(mean_iters=float(np.mean(iters)), engine_s=r["wall_s"])
+    for tag, rows in jk.compare_bands(se64, bands).items():
+        out[f"jk {tag}"]["rows"] = rows
+        out[f"jk {tag}"]["dtype_err_over_scatter_p99"] = [row["dtype_err_over_scatter_p99"] for row in rows]
+
+    x_np, specs = bt.workload()
+    params = bt.card_params(environ={}, **pinned())
+    if card:
+        xq = torch.from_numpy(x_np.astype(np.float32)).to(dev)
+        precompile_buckets(xq, specs, params, device=dev)
+        cp_cals(xq, specs, params, device=dev)
+    _, rep, wall = counted("bench_tol", params, lambda: bt.run_card(x_np, specs, params, 1, dev, warm=False),
+                           lambda g: g[1])
+    models = [{"id": m.id, "rank": m.rank, "fit": m.fit, "iters": m.iters} for m in rep.models]
+    out["bench_tol"].update(bt.compare(models, committed_oracle("bench_tol_f64.json")["models"], bt.MODES, wall),
+                            engine_s=wall, models_per_sec=len(specs) / wall,
+                            mean_iters=float(np.mean([m["iters"] for m in models])))
+
+    x, inits = be.build_workload()
+    ref_fits = committed_oracle("external_cpd.json")["contenders"]["torch_cpu_fp64"]["fits"]
+    params = be.card_params(**pinned())
+    if card:
+        xq = torch.from_numpy(x.astype(np.float32)).to(dev)
+        queue = be.queue_at(inits, np.float32)
+        precompile_buckets(xq, queue, params, device=dev)
+        cp_cals(xq, queue, params, device=dev)
+    row = counted("external_cpd", params, lambda: be.card_row(x, inits, ref_fits, dev, reps=1, warm=False, **pinned()),
+                  lambda g: g["report"])
+    out["external_cpd"].update({k: v for k, v in row.items() if k not in ("report", "device")}, engine_s=row["wall_s"])
+    return out
+
+
+def study_lines(fp32: dict) -> None:
+    for name, d in fp32.items():
+        if name.startswith("convergence"):
+            what = (f"max |fit delta| {d['max_abs_fit_delta']:.3e}, mean {d['mean_abs_fit_delta']:.3e}, iteration "
+                    f"ratio mean {d['mean_iters_ratio_vs_f64']:.3f} max {d['max_iters_ratio_vs_f64']:.3f}, "
+                    f"iterations {d['iters']}")
+        elif name.startswith("jk"):
+            what = (f"dtype_err_over_scatter_p99 by mode {[f'{v:.3f}' for v in d['dtype_err_over_scatter_p99']]}, "
+                    f"mean iterations {d['mean_iters']:.2f}")
+        elif name == "bench_tol":
+            what = (f"{d['models_per_sec']:.1f} models/s, |fit delta| median {d['median_abs_fit_delta_vs_f64']:.3e} "
+                    f"p99 {d['p99_abs_fit_delta_vs_f64']:.3e} max {d['max_abs_fit_delta_vs_f64']:.3e}, "
+                    f"n_delta_gt_1e-2 {d['n_delta_gt_1e-2']}, iteration ratio mean "
+                    f"{d['mean_iters_ratio_vs_f64']:.3f} max {d['max_iters_ratio_vs_f64']:.3f}, vs_baseline "
+                    f"{d['vs_baseline']:.3f}; beyond 1e-2 (id, rank, fit, float64 fit) "
+                    f"{[(w['id'], w['rank'], w['fit'], w['fit_f64']) for w in d['worst_models'] if w['delta'] > 1e-2]}")
+        else:
+            what = f"{d['models_per_sec']:.1f} models/s, max |fit diff| vs torch float64 {d['max_abs_fit_diff_vs_torch']:.3e}"
+        print(f"studies float32 {name}: {what}; wall {d['wall_s']:.3f}s, {d['bucket_iterations']} bucket-iterations, "
+              f"{d['polish_sweeps']} polish sweeps, launches {d['launches']}", flush=True)
+
+
+def check_study_bounds(fp32: dict) -> None:
+    for name, limits in STUDY_BOUNDS.items():
+        for key, lim in limits.items():
+            got = fp32[name][key]
+            pairs = zip(got, lim) if isinstance(got, list) else [(got, lim)]
+            if not all(v <= w for v, w in pairs):
+                raise AssertionError(f"studies {name}: {key} {got} beyond {lim}")
+
+
+def studies_phase(dev) -> dict:
+    """The fidelity studies on ``dev`` (module docstring, phase 6e); raises
+    on any failure."""
+    from cp_cals_tpu_torch.studies import jk_fidelity_study as jk
+
+    t_phase = time.perf_counter()
+    out = {"float64": study_f64(dev)}
+    fp32 = study_fp32(dev)
+    study_lines(fp32)
+    print("studies jk compare (dtype_err_over_scatter_p99 by mode): " + "; ".join(
+        f"{jk.tag_of(False, t)} {[round(v, 3) for v in fp32['jk ' + jk.tag_of(False, t)]['dtype_err_over_scatter_p99']]}"
+        for t in STUDY_JK_TIERS), flush=True)
+    out["float32"] = fp32
+    check_study_bounds(fp32)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"studies phase: {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3706,6 +3977,7 @@ def main() -> int:
     entry_pts = entry_point_phase(x_np, dev)
     exps = experiments_phase(dev)
     stress = stress_phase(dev)
+    studies = studies_phase(dev)
     probe = probe_phase(dev)
 
     # Each kernel at the launch mix of the engine run that drives it: the
@@ -3809,6 +4081,11 @@ def main() -> int:
                                     for p in STRESS_PATHS}
         entry["stress_launches"]["S3 jk_cp_cals"] = stress["S3"]["float32 jk_cp_cals"]["launches"].get(
             entry["name"], 0)
+        entry["study_launches"] = {}
+        for leg, d in studies["float32"].items():
+            entry["study_launches"][leg] = d["launches"].get(entry["name"], 0)
+            if d["launches"].get(entry["name"] + ".predicated"):
+                entry["study_launches"][leg + " (predicated)"] = d["launches"][entry["name"] + ".predicated"]
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -3822,7 +4099,7 @@ def main() -> int:
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
                        multi_device=multi,
                        mttkrp_j1_mix=j1_mix, nnls=nnls, line_search=ls, jk_line_search=jk_ls, debug=debug,
-                       entry_points=entry_pts, experiments=exps, stress=stress,
+                       entry_points=entry_pts, experiments=exps, stress=stress, studies=studies,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

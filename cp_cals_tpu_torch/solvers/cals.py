@@ -173,13 +173,16 @@ def _resolve_bucket_methods(
     with it. On the card a missing exact entry is autotuned and stored
     first (``utils/lut.ensure_methods``), unless ``CP_CALS_NO_AUTOTUNE`` is
     set, or ``autotune`` is False (a mesh run); on the CPU the table (or
-    the heuristic) is read and nothing is timed."""
+    the heuristic) is read and nothing is timed. A float64 run reads and
+    never autotunes: the table is keyed by tier, not dtype, so a float64
+    measurement would stand for the float32 runs of that shape."""
     if params.mttkrp_method.value != "auto":
         return None, None
     from ..utils.lut import ensure_methods, lookup_methods
 
     dev = torch.device(device)
-    tune = autotune and dev.type == "cuda" and not os.environ.get("CP_CALS_NO_AUTOTUNE")
+    tune = (autotune and dev.type == "cuda" and dtype == torch.float32
+            and not os.environ.get("CP_CALS_NO_AUTOTUNE"))
     get = ensure_methods if tune else lookup_methods
     fast_tier = params.mttkrp_precision or params.precision
     methods = get(tuple(x_shape), r, b, precision=fast_tier, dtype=dtype, device=dev)

@@ -119,10 +119,17 @@ def to_host_model(kt: Ktensor) -> Ktensor:
 
 def _pin_jk_fidelity(params: CalsParams, dev: torch.device) -> CalsParams:
     """The statistics-fidelity defaults of jackknife runs; explicit settings
-    are honoured.
+    are honoured. Both rest on the jackknife standard-error study
+    (``studies/jk_fidelity_study.py``): on an NVIDIA H100 (700 W) the p99
+    over parameters of the float32 SE error over the jackknife scatter, by
+    mode, read 0.003 / 0.008 / 0.054 at "high" with both pins
+    (``f32_high``), 0.025 / 0.061 / 0.292 on the unfused epilogue
+    (``f32_high_xla``) and 0.039 / 0.134 / 0.636 with the dimension tree
+    (``f32_high_dimtree``; PERF.md §6, "Fidelity on the H100").
 
-    - dimtree "auto" -> "off" (the shared-TTM reduction order moves the
-      standard-error bands; the port has no dimension tree yet either).
+    - dimtree "auto" -> "off": the shared-TTM reduction order moves the
+      bands. (The port's "auto" is off already, ``config.resolve_dimtree``;
+      the pin keeps jackknife runs off should that rule change.)
     - epilogue "auto" -> "fused" on the card with the Gauss-Jordan solve
       only: a non-GJ solve_method must not be replaced by the kernels'
       Gauss-Jordan inverse. (The JAX package pins "fused" on the TPU only.)

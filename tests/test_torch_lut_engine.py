@@ -126,3 +126,17 @@ def test_auto_without_a_table_equals_explicit_pallas(tmp_path, monkeypatch, shap
         assert (mp.id, mp.iters, mp.fit, mp.approx_error) == (ma.id, ma.iters, ma.fit, ma.approx_error)
         for fp, fa in zip(kp.factors + (kp.lam,), ka.factors + (ka.lam,)):
             assert np.array_equal(fp, fa)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_only_float32_runs_autotune_on_the_card(monkeypatch, dtype):
+    """The table is keyed by tier, not dtype: on the card a float32 bucket
+    ensures (autotunes) its entries, a float64 bucket only reads them."""
+    from cp_cals_tpu_torch.solvers import cals
+
+    calls = []
+    for name in ("ensure_methods", "lookup_methods"):
+        monkeypatch.setattr(lut, name, lambda *a, name=name, **k: calls.append(name) or ("twostep",) * 3)
+    monkeypatch.delenv("CP_CALS_NO_AUTOTUNE", raising=False)
+    cals._resolve_bucket_methods((299, 301, 41), 8, 64, CalsParams(), dtype, "cuda")
+    assert calls == ["ensure_methods" if dtype == torch.float32 else "lookup_methods"]
