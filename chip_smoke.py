@@ -242,6 +242,27 @@ the result lines are printed):
    bench_tol's card leg at the script's defaults; bench_external_cpd's
    card row. Each float32 reading against the committed oracle, held to
    STUDY_BOUNDS (tools/study_bounds.py).
+6f. Profiles (the component profiles and kernel A/Bs,
+   cp_cals_tpu_torch/profiles/, at the JAX scripts' widths: 299x301x41,
+   B = 96, R = 20, and update_variants' four (B, R) cases;
+   profiles_phase): the full iteration chained on its state, the MTTKRP by
+   krp_gemm and by the twostep per mode at every tier, the update's
+   components and the matmul probes (profile_iteration); the ablation's
+   four stages; the iteration with epilogue "xla" against "fused", the
+   normal inverse and the apply with and without the error against their
+   unfused counterparts (profile_epilogue_ab); the update by Cholesky,
+   Gauss-Jordan and the SPD-inverse kernel and both normalize + gramian
+   tails (profile_update_variants); the twostep against the fused MTTKRP
+   per mode in turns (bench_pallas_ab); the fused MTTKRP's plans swept per
+   mode at every tier against the twostep (tune_pallas_mttkrp). Each body
+   is chained steps replayed from a CUDA graph and timed with CUDA events.
+   Before it is timed each kernel is held against its plain version on the
+   same inputs: the MTTKRP at the iteration's layouts, per mode of the A/B
+   and at every swept plan of the three tiers, the normal inverse and the
+   apply with and without the error, the SPD inverse at the four cases,
+   and the iteration's state after one step fused against unfused. Each
+   run launches exactly its kernels (replays counted); the JSONs go to
+   chiprun_out/profiles/.
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality and
    timed beside torch.mul, eager and replayed.
@@ -251,8 +272,9 @@ the result lines are printed):
    mix; each rank's launches in phase 5c's runs as
    "multi_device_launches"; each kernel's launches in the experiment
    harness's engine runs as "experiments_launches", and in the stress
-   phase's float32 runs as "stress_launches", and in the studies phase's
-   float32 runs as "study_launches"), then the last line
+   phase's float32 runs as "stress_launches", in the studies phase's
+   float32 runs as "study_launches", and in each profile's run as
+   "profile_launches"), then the last line
    {"ok": true, "device": {...}}. The per-shape measurements go to
    chiprun_out/chip_smoke.json, the probe's to
    chiprun_out/overhead_probe.json.
@@ -1417,7 +1439,7 @@ class MttkrpRecorder(Recorder):
 
     module, attr, keep = "cp_cals_tpu_torch.ops.fused_mttkrp", "fused_mttkrp", (0,)
 
-    def key(self, x3, u1, u2, precision="highest", pred=None):
+    def key(self, x3, u1, u2, precision="highest", pred=None, plan=None):
         # the target mode's I: [.., J, I, Kp] at the bf16 tiers, [J, K, I] at "highest"
         i = x3.shape[-1] if precision == "highest" else x3.shape[-2]
         return None if pred is not None else (u1.shape[0], u1.shape[2], MODES.index(i), precision)
@@ -1430,7 +1452,7 @@ class CubeMttkrpRecorder(MttkrpRecorder):
     off the fused kernels, the places shift, and every place of a cube has
     the same shapes)."""
 
-    def key(self, x3, u1, u2, precision="highest", pred=None):
+    def key(self, x3, u1, u2, precision="highest", pred=None, plan=None):
         if pred is not None:
             raise AssertionError("a predicated MTTKRP call in a run recorded by its calls' order")
         return (u1.shape[0], u1.shape[2], self.mine() % 3, precision)
@@ -3905,6 +3927,66 @@ def studies_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ profiles (6f)
+
+PROFILE_REPS = 2  # timed replays of each body in the phase (the scripts' 3 to 7)
+PROFILE_TUNE_LOOP = 20  # chained steps per replay of the plan sweep (its command line: 100)
+# The runs of the phase (module, its arguments) and the kernels each
+# launches on the card, each at least once; no other kernel may launch.
+PROFILE_RUNS = {
+    "profile_iteration": (["--components", "--precisions", "highest,high,default", "--reps", str(PROFILE_REPS)],
+                          ("fused_mttkrp_tc", "normal_inverse", "epilogue_apply")),
+    "profile_ablation": (["--reps", str(PROFILE_REPS)], ()),
+    "profile_epilogue_ab": (["--reps", str(PROFILE_REPS)], ("fused_mttkrp_tc", "normal_inverse", "epilogue_apply")),
+    "profile_update_variants": (["--reps", str(PROFILE_REPS)], ("spd_inverse",)),
+    "bench_pallas_ab": (["20", "96", "3", "high"], ("fused_mttkrp_tc",)),
+    "tune_pallas_mttkrp": (["--precisions", "highest,high,default", "--reps", "3", "--n-loop",
+                            str(PROFILE_TUNE_LOOP)], ("fused_mttkrp_fp32", "fused_mttkrp_tc")),
+}
+
+
+def profiles_phase(dev) -> dict:
+    """The component profiles and kernel A/Bs (cp_cals_tpu_torch/profiles/)
+    on ``dev`` at the scripts' widths (module docstring, phase 6f); raises
+    on any failure. Each profile holds every kernel it launches against
+    the plain version on the same inputs before it times it (its readings
+    in ``checks``), and writes its JSON to chiprun_out/profiles/. Each run
+    starts with the launch counts at 0 (replays counted): the kernels of
+    PROFILE_RUNS each launch, no other does, and bench_pallas_ab's fused
+    kernel exactly (check + warm-up + (1 + reps) replays of N_LOOP) per
+    mode."""
+    import importlib
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, (argv, kernels) in PROFILE_RUNS.items():
+        mod = importlib.import_module(f"cp_cals_tpu_torch.profiles.{name}")
+        args = mod.parser().parse_args(argv + ["--device", dev.type])
+        checks = {}
+        run = (lambda: mod.run(args)) if name == "profile_ablation" else (lambda: mod.run(args, checks))
+        res, wall, counts = timed_call(dev, run)
+        if dev.type == "cuda":
+            for k, v in counts.items():
+                if (k in kernels) != (v > 0):
+                    raise AssertionError(f"profiles {name}: {k} launched {v} times; expected launches of {kernels}")
+            if name == "bench_pallas_ab":
+                want = 3 * (2 + (1 + args.reps) * mod.N_LOOP)
+                if counts["fused_mttkrp_tc"] != want:
+                    raise AssertionError(f"profiles bench_pallas_ab: {counts['fused_mttkrp_tc']} launches, "
+                                         f"expected {want}")
+        out[name] = dict(result=res, checks=checks, launches=counts, wall_s=wall)
+        print(f"profiles {name}: {wall:.1f}s, launches {({k: v for k, v in counts.items() if v})}", flush=True)
+    ab = out["profile_epilogue_ab"]["result"]
+    print(f"profiles: iteration fused {ab['iteration_fused_ms']} ms, xla {ab['iteration_xla_ms']} ms per step "
+          f"(B=96, R=20, 'high')", flush=True)
+    for row in out["tune_pallas_mttkrp"]["result"]["summary"]:
+        print(f"profiles tune m{row['mode']} {row['tier']}: twostep {row['twostep_ms']}, planner "
+              f"{row['planner_name']} {row['planner_ms']}, best {row['best_name']} {row['best_ms']} (ms)", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"profiles phase: {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3978,6 +4060,7 @@ def main() -> int:
     exps = experiments_phase(dev)
     stress = stress_phase(dev)
     studies = studies_phase(dev)
+    profiles = profiles_phase(dev)
     probe = probe_phase(dev)
 
     # Each kernel at the launch mix of the engine run that drives it: the
@@ -4086,6 +4169,8 @@ def main() -> int:
             entry["study_launches"][leg] = d["launches"].get(entry["name"], 0)
             if d["launches"].get(entry["name"] + ".predicated"):
                 entry["study_launches"][leg + " (predicated)"] = d["launches"][entry["name"] + ".predicated"]
+        entry["profile_launches"] = {name: d["launches"].get(entry["name"], 0)
+                                     for name, d in profiles.items() if name != "seconds"}
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -4099,7 +4184,7 @@ def main() -> int:
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
                        multi_device=multi,
                        mttkrp_j1_mix=j1_mix, nnls=nnls, line_search=ls, jk_line_search=jk_ls, debug=debug,
-                       entry_points=entry_pts, experiments=exps, stress=stress, studies=studies,
+                       entry_points=entry_pts, experiments=exps, stress=stress, studies=studies, profiles=profiles,
                        spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,14 @@ check's full-precision MTTKRP, ``solvers/iteration.py``) costs one empty
 launch instead of a host sync to decide it. Such launches count on the
 wrapper's ``predicated`` counter, apart from ``launches``. On the CPU the
 plain version ignores the predicate and always computes.
+
+Each kernel's plan (its tile, k ranges and j ranges; ``plan_fp32``,
+``plan_tc``) is the planner's unless the caller passes one (``plan=``, the
+counterpart of the Pallas kernel's ``db=``/``cj=``, which
+``profiles/tune_pallas_mttkrp.py`` sweeps). A given plan is checked in
+Python before the launch (``check_fp32_plan``, ``check_tc_plan``) and an
+illegal one raises ``ValueError``; no plan falls back to another. On the
+CPU the plain version ignores the plan, as it ignores the predicate.
 """
 
 from __future__ import annotations
@@ -230,6 +238,55 @@ def fp32_plan(index: int, j: int, i: int, k: int, c: int) -> tuple[int, ...]:
                      fp32_tiles_built(), _lib_fp32().fused_mttkrp_fp32_smem)
 
 
+def _check_splits(name: str, n: int, span: int, splits: int) -> None:
+    """``splits`` ranges of ``span`` cover ``n`` with no empty range."""
+    if span < 1 or splits < 1 or splits * span < n or (splits - 1) * span >= max(n, 1):
+        raise ValueError(f"fused_mttkrp plan: {splits} {name} ranges of {span} do not cover {name} = {n} "
+                         f"with none empty")
+
+
+def _check_plan(plan, stage: int, j: int, i: int, k: int, tm: int, smem: int, smem_block: int) -> tuple:
+    tile, kspan, ksplits, jsplits, jchunk = plan
+    if kspan % stage:
+        raise ValueError(f"fused_mttkrp plan {plan}: k per block {kspan} is not a multiple of the stage {stage}")
+    _check_splits("K", k, kspan, ksplits)
+    _check_splits("J", j, jchunk, jsplits)
+    if smem > smem_block:
+        raise ValueError(f"fused_mttkrp plan {plan}: {smem} bytes of shared memory, above the "
+                         f"{smem_block} a block may have")
+    if -(-i // tm) > _GRID_YZ or ksplits * jsplits > _GRID_YZ:
+        raise ValueError(f"fused_mttkrp plan {plan}: a grid of {-(-i // tm)} row tiles and "
+                         f"{ksplits * jsplits} splits is beyond the launch limit {_GRID_YZ}")
+    return plan
+
+
+def _as_plan(plan) -> tuple:
+    try:
+        out = tuple(int(v) for v in plan)
+    except (TypeError, ValueError):
+        out = ()
+    if len(out) != 5 or out != tuple(plan):
+        raise ValueError(f"fused_mttkrp plan {plan!r}: five integers expected")
+    return out
+
+
+def check_fp32_plan(plan, j: int, i: int, k: int, smem_block: int, tiles: dict | None = None,
+                    smem=fp32_smem) -> tuple:
+    """``plan`` (tile, k per block, k splits, j splits, j per split) of the
+    fp32 kernel for X [J, K, I] on a card of ``smem_block`` bytes of shared
+    memory per block, the tile table ``tiles`` (``FP32_TILES`` when None)
+    and its shared memory ``smem(tile, kspan)``, as a tuple; raises
+    ``ValueError`` unless the tile is in the table, the k per block is
+    whole 16-k stages, the k ranges cover K and the j ranges J with none
+    empty, the block's shared memory fits, and the grid's row tiles and
+    splits stay within its y and z limits."""
+    tiles = FP32_TILES if tiles is None else tiles
+    plan = _as_plan(plan)
+    if plan[0] not in tiles:
+        raise ValueError(f"fused_mttkrp plan {plan}: tile {plan[0]} is not one of the built tiles {sorted(tiles)}")
+    return _check_plan(plan, _FP32_TK, j, i, k, tiles[plan[0]][0], smem(plan[0], plan[1]), smem_block)
+
+
 def _check_factors(name, dev, u1, u2, j):
     b, j1, r = u1.shape
     for tname, t in (("u1", u1), ("u2", u2)):
@@ -267,13 +324,19 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
 @launches.wrapper(predicated=True)
 def fused_mttkrp_fp32(
-    x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, pred: torch.Tensor | None = None
+    x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, pred: torch.Tensor | None = None,
+    plan=None,
 ) -> torch.Tensor:
     """The "highest" tier: x3 the held float32 [J, K, I] layout (rows of
     stride Ip, a multiple of 4), u1 [B, J, R], u2 [B, K, R] -> G [B, I, R],
-    on the CUDA cores; ``pred`` as in the module docstring."""
+    on the CUDA cores; ``pred`` and ``plan`` as in the module docstring."""
     dev = x3.device
     if dev.type == "cpu":
         return fused_mttkrp_plain(x3, u1, u2, "highest")
@@ -298,7 +361,13 @@ def fused_mttkrp_fp32(
     out = torch.empty((b, i, r), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    tile, kspan, ksplits, jsplits, jchunk = fp32_plan(_device_index(dev), j, i, k, b * r)
+    index = _device_index(dev)
+    if plan is None:
+        plan = fp32_plan(index, j, i, k, b * r)
+    else:
+        plan = check_fp32_plan(plan, j, i, k, _smem_optin(index), fp32_tiles_built(),
+                               _lib_fp32().fused_mttkrp_fp32_smem)
+    tile, kspan, ksplits, jsplits, jchunk = plan
     work = _split_work(dev, ksplits * jsplits, i, b * r)
     code = _lib_fp32().fused_mttkrp_launch(
         x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),
@@ -322,44 +391,77 @@ def _lib_tc():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def tc_plan(index: int, j: int, i: int, kp: int, c: int, planes: int) -> tuple[int, ...]:
+def tc_smem(nc: int, high: bool, kspan: int) -> int:
+    """Shared memory of one tensor-core block (csrc/fused_mttkrp_tc.cu:
+    smem_bytes): the resident U2 slice [kspan, nc] and the X ring of
+    stages [64, 64], bf16, a plane each (two at "high"), then per stage
+    the U1 row [nc] fp32 and an mbarrier pair. A ``cuda`` test holds it
+    equal to the library's."""
+    stages = 4 if high else 8
+    return 2 * (2 if high else 1) * (nc * -(-kspan // _TC_KS) * _TC_KS + stages * _TC_TM * _TC_KS) + stages * (
+        4 * nc + 16)
+
+
+def plan_tc(
+    j: int, i: int, kp: int, c: int, planes: int, n_sm: int, smem_block: int, smem_sm: int,
+    smem=tc_smem,
+) -> tuple[int, ...]:
     """(column tile, k per block, k splits, j splits, j per split) of the
-    tensor-core kernel on card ``index``. K is split into the fewest ranges
+    tensor-core kernel on a card of ``n_sm`` SMs, ``smem_block`` bytes of
+    shared memory per block and ``smem_sm`` per SM, for the kernel's shared
+    memory ``smem(nc, high, kspan)``. K is split into the fewest ranges
     (of whole 64-k chunks) for which some tile's resident U2 slice fits in
     shared memory, one range in all but very long modes. The tile is the
     narrowest that covers all C columns, else the widest that fits. Then j
     is split into as many parts as keep the grid within one wave (as many
     blocks per SM as fit in its shared memory)."""
-    props = torch.cuda.get_device_properties(index)
-    smem = _lib_tc().fused_mttkrp_tc_smem
     chunks = max(1, -(-kp // _TC_KS))
     for ksplits in range(1, chunks + 1):
         kspan = -(-chunks // ksplits) * _TC_KS
-        fits = [nc for nc in _TC_NC if smem(nc, planes - 1, kspan) <= props.shared_memory_per_block_optin]
+        fits = [nc for nc in _TC_NC if smem(nc, planes - 1, kspan) <= smem_block]
         if fits:
             break
     else:
-        raise ValueError(f"fused_mttkrp: one 64-k range of U2 does not fit in shared memory on card {index}")
+        raise ValueError("fused_mttkrp: one 64-k range of U2 does not fit in shared memory")
     ksplits = -(-chunks * _TC_KS // kspan)  # no empty range
     covering = [nc for nc in fits if nc >= c]
     nc = covering[-1] if covering else fits[0]
-    per_sm = max(1, props.shared_memory_per_multiprocessor // (smem(nc, planes - 1, kspan) + 1024))
+    per_sm = max(1, smem_sm // (smem(nc, planes - 1, kspan) + 1024))
     tiles = -(-c // nc) * -(-i // _TC_TM) * ksplits
     # As many splits as fit in one wave of blocks: every block then runs at once.
-    want = max(1, min(j, per_sm * props.multi_processor_count // tiles))
+    want = max(1, min(j, per_sm * n_sm // tiles))
     jchunk = -(-j // want)
     return nc, kspan, ksplits, -(-j // jchunk), jchunk
+
+
+@functools.lru_cache(maxsize=None)
+def tc_plan(index: int, j: int, i: int, kp: int, c: int, planes: int) -> tuple[int, ...]:
+    """``plan_tc`` for card ``index`` (its properties read once), with the
+    built kernel's own shared-memory sizes."""
+    props = torch.cuda.get_device_properties(index)
+    return plan_tc(j, i, kp, c, planes, props.multi_processor_count, props.shared_memory_per_block_optin,
+                   props.shared_memory_per_multiprocessor, _lib_tc().fused_mttkrp_tc_smem)
+
+
+def check_tc_plan(plan, j: int, i: int, kp: int, planes: int, smem_block: int, smem=tc_smem) -> tuple:
+    """``plan`` (column tile, k per block, k splits, j splits, j per split)
+    of the tensor-core kernel for X [J, I, Kp] of ``planes`` bf16 planes,
+    as ``check_fp32_plan`` checks a plan of the fp32 kernel: the column
+    tile is one of ``_TC_NC`` and the k per block whole 64-k stages."""
+    plan = _as_plan(plan)
+    if plan[0] not in _TC_NC:
+        raise ValueError(f"fused_mttkrp plan {plan}: column tile {plan[0]} is not one of {_TC_NC}")
+    return _check_plan(plan, _TC_KS, j, i, kp, _TC_TM, smem(plan[0], planes - 1, plan[1]), smem_block)
 
 
 @launches.wrapper(predicated=True)
 def fused_mttkrp_tc(
     x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor, precision: str,
-    pred: torch.Tensor | None = None,
+    pred: torch.Tensor | None = None, plan=None,
 ) -> torch.Tensor:
     """The bf16 tiers: x3 the held layout (bf16 [J, I, Kp] at "default",
     [2, J, I, Kp] at "high"), u1 [B, J, R], u2 [B, K, R] -> G [B, I, R], on
-    the tensor cores; ``pred`` as in the module docstring."""
+    the tensor cores; ``pred`` and ``plan`` as in the module docstring."""
     dev = x3.device
     if dev.type == "cpu":
         return fused_mttkrp_plain(x3, u1, u2, precision)
@@ -385,7 +487,12 @@ def fused_mttkrp_tc(
     out = torch.empty((b, i, r), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    nc, kspan, ksplits, jsplits, jchunk = tc_plan(_device_index(dev), j, i, kp, b * r, planes)
+    index = _device_index(dev)
+    if plan is None:
+        plan = tc_plan(index, j, i, kp, b * r, planes)
+    else:
+        plan = check_tc_plan(plan, j, i, kp, planes, _smem_optin(index), _lib_tc().fused_mttkrp_tc_smem)
+    nc, kspan, ksplits, jsplits, jchunk = plan
     work = _split_work(dev, ksplits * jsplits, i, b * r)
     code = _lib_tc().fused_mttkrp_tc_launch(
         x3.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(),
@@ -443,23 +550,24 @@ def _card_takes(shape: tuple, mode: int, b: int, r: int, index: int) -> bool:
 
 def fused_mttkrp(
     x3: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,
-    precision: str = "highest", pred: torch.Tensor | None = None,
+    precision: str = "highest", pred: torch.Tensor | None = None, plan=None,
 ) -> torch.Tensor:
     """x3 the tier's held layout (``prepare_mode_tensor``), u1 [B, J, R],
-    u2 [B, K, R] -> G [B, I, R], through the tier's kernel."""
+    u2 [B, K, R] -> G [B, I, R], through the tier's kernel (``plan``: that
+    kernel's, or None for the planner's)."""
     if precision == "highest":
-        return fused_mttkrp_fp32(x3, u1, u2, pred)
-    return fused_mttkrp_tc(x3, u1, u2, precision, pred)
+        return fused_mttkrp_fp32(x3, u1, u2, pred, plan)
+    return fused_mttkrp_tc(x3, u1, u2, precision, pred, plan)
 
 
 def mttkrp_batched_fused(
     x: torch.Tensor, factors, mode: int,
     prepared: torch.Tensor | None = None, precision: str = "highest",
-    pred: torch.Tensor | None = None,
+    pred: torch.Tensor | None = None, plan=None,
 ) -> torch.Tensor:
     """Batched fused MTTKRP. factors: per-mode [B, I_m, R]; returns
     [B, I_mode, R]. ``prepared`` is ``prepare_mode_tensor(x, mode,
-    precision)``."""
+    precision)``; ``plan`` the tier's kernel's, or None for the planner's."""
     small, big = split_others(tuple(x.shape), mode)
     x3 = prepared if prepared is not None else prepare_mode_tensor(x, mode, precision)
-    return fused_mttkrp(x3, factors[small], factors[big], precision, pred)
+    return fused_mttkrp(x3, factors[small], factors[big], precision, pred, plan)

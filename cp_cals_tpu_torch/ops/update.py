@@ -42,8 +42,12 @@ def padded_hadamard(h: torch.Tensor, rank_mask: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_inverse(h: torch.Tensor) -> torch.Tensor:
-    """H^-1 of a batched SPD matrix via Cholesky and a triangular solve."""
-    chol = torch.linalg.cholesky(h)
+    """H^-1 of a batched SPD matrix via Cholesky and a triangular solve. The
+    factorization's status stays on the device (``cholesky_ex``; a failed
+    one gives NaN, as XLA's Cholesky does), so the solve reads nothing on
+    the host and can be captured into a CUDA graph."""
+    chol, info = torch.linalg.cholesky_ex(h)
+    chol = torch.where((info == 0)[..., None, None], chol, torch.nan)
     eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device).expand(h.shape)
     l_inv = torch.linalg.solve_triangular(chol, eye, upper=False)
     return torch.matmul(l_inv.transpose(-1, -2), l_inv)

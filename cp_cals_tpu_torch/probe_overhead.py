@@ -124,6 +124,13 @@ def _best(fn, reps: int = 4) -> float:
     return best
 
 
+def null_roundtrip_ms(dev) -> float:
+    """The null round trip on the card: the best of five fetches to the host
+    of a reduction of an [8, 128] tensor, in ms."""
+    z = torch.zeros((8, 128), device=dev)
+    return _best(lambda: _fetch(z), reps=5) * 1e3
+
+
 def _loop(body, a):
     for _ in range(N):
         a = body(a)
@@ -156,8 +163,7 @@ def run_probe(device=None) -> dict:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("the overhead probe measures the card; it has no CPU mode")
-    z = torch.zeros((8, 128), device=dev)
-    null = _best(lambda: _fetch(z), reps=5)
+    null = null_roundtrip_ms(dev) / 1e3
     res = {"device": torch.cuda.get_device_name(dev), "n_steps": N, "null_ms": null * 1e3}
 
     def per_step(fn) -> float:

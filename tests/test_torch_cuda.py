@@ -192,6 +192,48 @@ def test_fp32_planner_tables_match_the_built_kernel(dev):
     assert smem(max(fm.FP32_TILES) + 1, 16) == -1
 
 
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_swept_plans_match_plain(dev, precision):
+    """Every plan profiles/tune_pallas_mttkrp sweeps at this shape gives the
+    plain version's result; the planner's own plan, passed explicitly, gives
+    the planner's bits; an illegal plan raises before any launch."""
+    from cp_cals_tpu_torch.profiles import tune_pallas_mttkrp as tune
+
+    rng = np.random.default_rng(2)
+    modes, b, r = (70, 45, 33), 5, 7
+    x = torch.from_numpy(rng.normal(size=modes).astype(np.float32)).to(dev)
+    fs = [torch.from_numpy(rng.normal(size=(b, m, r)).astype(np.float32)).to(dev) for m in modes]
+    card = tune.card_of(dev)
+    for mode in range(3):
+        small, big = fm.split_others(modes, mode)
+        held = fm.prepare_mode_tensor(x, mode, precision)
+        want = fm.fused_mttkrp_plain(held, fs[small], fs[big], precision)
+        scale = want.abs().max().item()
+        planned = fm.mttkrp_batched_fused(x, fs, mode, held, precision)
+        cases = [c for c in tune.sweep(modes, mode, b, r, precision, card) if "refused" not in c]
+        assert cases[0]["planner"]
+        for case in cases:
+            got = fm.mttkrp_batched_fused(x, fs, mode, held, precision, plan=tuple(case["plan"]))
+            assert (got - want).abs().max().item() <= 2e-5 * scale, case["name"]
+            if case["planner"]:
+                assert torch.equal(got, planned)
+        before = launches.read()
+        bad = (cases[0]["plan"][0], 8) + tuple(cases[0]["plan"][2:])  # k per block not whole stages
+        with pytest.raises(ValueError, match="multiple of the stage"):
+            fm.mttkrp_batched_fused(x, fs, mode, held, precision, plan=bad)
+        assert launches.read() == before
+
+
+def test_tc_smem_mirror_matches_the_built_kernel(dev):
+    """The tensor-core kernel's shared memory as the planner computes it
+    without a card (``tc_smem``) is the built kernel's own."""
+    smem = fm._lib_tc().fused_mttkrp_tc_smem
+    for nc in fm._TC_NC:
+        for high in (0, 1):
+            for kspan in range(64, 4097, 64):
+                assert smem(nc, high, kspan) == fm.tc_smem(nc, high, kspan)
+
+
 def test_mttkrp_fp32_rejects_a_mistyped_layout(dev):
     """The "highest" tier takes only its held layout: float32 [J, K, I], rows
     of a stride that is a multiple of 4, 16-byte aligned."""
