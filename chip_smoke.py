@@ -263,6 +263,28 @@ the result lines are printed):
    and the iteration's state after one step fused against unfused. Each
    run launches exactly its kernels (replays counted); the JSONs go to
    chiprun_out/profiles/.
+6g. The last scripts (scripts_phase; the JSONs and figures go to
+   chiprun_out/scripts_phase/). The external MTTKRP study
+   (studies/bench_mttkrp_external.py) at 299x301x41, ranks 5 and 20, one
+   timed rep: every float64 contender (the port's krp_gemm and twostep on
+   the card; torch, NumPy and the OpenMP C++ MTTKRP on the host) within
+   1e-10 of the NumPy oracle, and the float32 rows of both fused kernels at
+   B = 1 ("highest" and "default"), each held to its plain version at 2e-5
+   of max|G| and launched exactly twice (warm-up and rep) per (mode, rank)
+   the gate takes, no other kernel. The grid tuner
+   (profiles/tune_lut_grid.py) at the bench workload's queue (buckets
+   4/8/12/16/20, buffer 2880, the halving ladder) at "default" into an
+   empty scratch root under build/: no exact lookup before, all exact
+   after, every pick one the gate takes. The layout-policy A/B
+   (tools/layout_policy_ab.py) at the 500^3 sweep's cut of phase 6c,
+   "materialized" then "recompute": equal iteration counts and fits bit
+   for bit, every lookup exact, no autotune, each engine run's launches
+   and routes its buckets' picks; printed: models/s, TFLOP/s, and the
+   measured peak of allocated bytes beside the reckoned bytes. The figures
+   (plot_experiments.py) of phase 6c's quick experiments.json and phase
+   6f's profile.json where matplotlib is installed (five PNGs, each
+   non-empty), else the line "figures: matplotlib not installed". The
+   phase's seconds and the run's so far are printed.
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality and
    timed beside torch.mul, eager and replayed.
@@ -273,8 +295,9 @@ the result lines are printed):
    "multi_device_launches"; each kernel's launches in the experiment
    harness's engine runs as "experiments_launches", and in the stress
    phase's float32 runs as "stress_launches", in the studies phase's
-   float32 runs as "study_launches", and in each profile's run as
-   "profile_launches"), then the last line
+   float32 runs as "study_launches", in each profile's run as
+   "profile_launches", and in phase 6g's external study as
+   "scripts_launches"), the run's seconds, then the last line
    {"ok": true, "device": {...}}. The per-shape measurements go to
    chiprun_out/chip_smoke.json, the probe's to
    chiprun_out/overhead_probe.json.
@@ -3098,10 +3121,9 @@ EXP_FILE = os.path.join("build", "chip_smoke_experiments", "jk_file.txt")  # wri
 EXP_FILE_MODES, EXP_FILE_SEED, EXP_FILE_RANKS = (40, 60, 50), 5, (4, 5, 6)
 # The harness's engine settings (cp_cals_tpu_torch/experiments.py), for the
 # tables of its buckets: the base grid's and the defrag study's buckets,
-# the jackknife runs' (and their ranks), the scale sweep's buckets and
-# column budget.
+# the jackknife runs' (and their ranks); the scale sweep's are
+# experiments.SWEEP_SETTINGS.
 EXP_BUCKETS, EXP_JK_BUCKETS, EXP_JK_RANKS = (4, 8, 12, 16, 20), (4, 8, 12), (3, 5, 7, 9)
-EXP_SWEEP_BUCKETS, EXP_SWEEP_BUFFER = (4, 8, 16, 20), 40 * 96
 # The full-width legs: the base grid at 200^3 with the paper's queue (ranks
 # 1-20 x 20, 50 forced iterations), and the scale sweep at the paper's
 # 500^3 in float32, cut in depth: 25 copies a rank (500 models) in place of
@@ -3134,6 +3156,7 @@ def experiment_tables() -> list:
     also runs each model's replicates alone (``jk_cp_batched_als``: one
     bucket of its rank)."""
     from cp_cals_tpu_torch import CalsParams
+    from cp_cals_tpu_torch.experiments import SWEEP_SETTINGS as sweep
 
     buffer = CalsParams().buffer_size
 
@@ -3153,9 +3176,11 @@ def experiment_tables() -> list:
         out += jk(modes, EXP_JK_RANKS, EXP_JK_BUCKETS)
     out += jk(EXP_FILE_MODES, EXP_FILE_RANKS, tuple(sorted(set(EXP_FILE_RANKS))))
     out += [(EXP_FILE_MODES, "high", engine_batches([r] * EXP_FILE_MODES[0], (r,), buffer)) for r in EXP_FILE_RANKS]
-    for modes, rmax, copies in (((30, 25, 20), 6, 3), (EXP_SWEEP["modes"], 20, EXP_SWEEP["copies"]),
-                                ((500, 500, 500), 20, 250)):
-        out.append((modes, "high", engine_batches(grid(rmax, copies), EXP_SWEEP_BUCKETS, EXP_SWEEP_BUFFER)))
+    top = sweep["rank_max"]
+    for modes, rmax, copies in (((30, 25, 20), 6, 3), (EXP_SWEEP["modes"], top, EXP_SWEEP["copies"]),
+                                ((500, 500, 500), top, 250)):
+        out.append((modes, sweep["precision"], engine_batches(grid(rmax, copies), sweep["bucket_ranks"],
+                                                              sweep["buffer_size"])))
     for modes, rmax, copies in (((30, 30, 30), 4, 2), ((200, 200, 200), 20, 20)):
         out.append((modes, "high", engine_batches(grid(rmax, copies), EXP_BUCKETS, buffer)))
     return out
@@ -3987,12 +4012,157 @@ def profiles_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------ the last scripts (6g)
+
+SCRIPTS_DIR = os.path.join("chiprun_out", "scripts_phase")  # the phase's JSON files and figures
+SCRIPTS_LUT_ROOT = os.path.join("build", "chip_smoke_lut_grid")  # the grid tuner's scratch tables, removed after
+# The external study cut for the phase: the bench tensor, two of the
+# script's three ranks, one timed rep.
+SCRIPTS_EXTERNAL = ["--tensors", "299-301-41", "--ranks", "5,20", "--reps", "1"]
+# The grid tuner at the bench workload's queue, buckets and budget.
+SCRIPTS_LUT = ["-t", "299-301-41", "--ranks", "1:20:20", "--buckets", "4,8,12,16,20", "--buffer", str(BUFFER),
+               "--precision", "default"]
+
+
+def external_check(summary: dict, counts: dict, reps: int, card: bool = True) -> dict:
+    """The external study's rows: every float64 contender within its 1e-10
+    of the oracle, and on the ``card`` each fused kernel launched exactly
+    (1 + reps) times per (mode, rank) its gate takes (the timing's warm-up
+    and timed reps; the check against the plain version reads the last
+    rep's result), no other kernel at all. Returns the launches and the
+    gate's refusals."""
+    from cp_cals_tpu_torch.studies import bench_mttkrp_external as ext
+
+    want = dict.fromkeys(counts, 0)
+    refused = []
+    for row in summary["rows"]:
+        for name, rel in row["vs_oracle"].items():
+            if not rel <= ext.TOL:
+                raise AssertionError(f"scripts external {name}: {rel:g} from the oracle at {row['tensor']} rank "
+                                     f"{row['rank']} mode {row['mode']}")
+        for tier, kernel in ext.FUSED_TIERS.items():
+            gate = row.get(f"ours_fused_{tier}_gate")
+            if gate is None and not card:
+                continue  # the float32 rows run on the card only
+            if gate == "refused":
+                refused.append((row["tensor"], row["rank"], row["mode"], tier))
+                continue
+            if row[f"ours_fused_{tier}_launches"] != 1 + reps:
+                raise AssertionError(f"scripts external {kernel}: {row[f'ours_fused_{tier}_launches']} launches in "
+                                     f"a row, expected {1 + reps}")
+            want[kernel] += 1 + reps
+    if counts != want:
+        raise AssertionError(f"scripts external: launches {counts}, expected {want}")
+    return dict(launches=counts, refused=refused)
+
+
+def lut_grid_check(res: dict, dev) -> None:
+    """The grid tuner into an empty root: no exact lookup before, every
+    lookup exact after, every pick one the fused gate takes."""
+    from cp_cals_tpu_torch.ops.fused_mttkrp import fused_mttkrp_supported
+
+    n = 3 * len(res["programs"])
+    if res["lookup_stats_before"]["exact"] or res["lookup_stats_after"] != {"exact": n, "nearest": 0,
+                                                                            "heuristic": 0}:
+        raise AssertionError(f"scripts lut grid: lookups before {res['lookup_stats_before']}, after "
+                             f"{res['lookup_stats_after']}; {n} exact expected after")
+    for key, methods in res["programs"].items():
+        b, r = (int(v) for v in key.split("x"))
+        for mode, m in enumerate(methods):
+            if m == "pallas" and not fused_mttkrp_supported(tuple(res["modes"]), mode, b, r, torch.float32, dev):
+                raise AssertionError(f"scripts lut grid {key} mode {mode}: 'pallas' where the gate refuses")
+
+
+def scripts_phase(dev) -> dict:
+    """The last of the JAX package's scripts on ``dev`` (module docstring,
+    phase 6g): the external MTTKRP study, the grid tuner, the layout-policy
+    A/B and the figures, each at a cut size; raises on any failure."""
+    import importlib.util
+    import shutil
+
+    from cp_cals_tpu_torch import plot_experiments
+    from cp_cals_tpu_torch.profiles import tune_lut_grid
+    from cp_cals_tpu_torch.studies import bench_mttkrp_external as ext
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SCRIPTS_DIR, ignore_errors=True)
+    out = {}
+
+    reps = int(SCRIPTS_EXTERNAL[SCRIPTS_EXTERNAL.index("--reps") + 1])
+    summary, wall, counts = timed_call(dev, lambda: ext.main(SCRIPTS_EXTERNAL + ["--device", dev.type, "--out",
+                                                                                SCRIPTS_DIR]))
+    out["external"] = dict(external_check(summary, counts, reps, dev.type == "cuda"), wall_s=wall,
+                           rows=summary["rows"])
+    print(f"scripts external: {len(summary['rows'])} rows in {wall:.1f}s, launches "
+          f"{({k: v for k, v in counts.items() if v})}, refused by the gate {out['external']['refused']}", flush=True)
+
+    shutil.rmtree(SCRIPTS_LUT_ROOT, ignore_errors=True)
+    try:
+        args = tune_lut_grid.parser().parse_args(SCRIPTS_LUT + ["--tables", SCRIPTS_LUT_ROOT, "--device", dev.type,
+                                                               "--out", SCRIPTS_DIR])
+        res, wall, _ = timed_call(dev, lambda: tune_lut_grid.run(args))
+    finally:
+        shutil.rmtree(SCRIPTS_LUT_ROOT, ignore_errors=True)
+    lut_grid_check(res, dev)
+    out["lut_grid"] = dict(res, wall_s=wall)
+    print(f"scripts lut grid: {len(res['programs'])} programs in {wall:.1f}s; lookups before "
+          f"{res['lookup_stats_before']}, after {res['lookup_stats_after']}", flush=True)
+
+    lab = tool("layout_policy_ab")
+    t0 = time.perf_counter()
+    with EngineRuns() as runs:
+        ab, _ = lab.ab(EXP_SWEEP["modes"], EXP_SWEEP["copies"], EXP_SWEEP["max_iter"], turns=1, device=dev)
+    if runs.autotunes:
+        raise AssertionError(f"scripts layout A/B: {runs.autotunes} autotunes (a table misses)")
+    for policy in lab.POLICIES:
+        if ab[policy]["mode_layouts_resolved"] != policy:
+            raise AssertionError(f"scripts layout A/B: {policy} resolved to {ab[policy]['mode_layouts_resolved']}")
+        if dev.type == "cuda" and "hbm_measured" not in ab[policy]:
+            raise AssertionError(f"scripts layout A/B {policy}: no hbm_measured on the card")
+    os.makedirs(SCRIPTS_DIR, exist_ok=True)
+    with open(os.path.join(SCRIPTS_DIR, "scale_sweep_layout_policy.json"), "w") as fh:
+        json.dump(ab, fh, indent=1)
+    out["layout_ab"] = dict(ab, wall_s=time.perf_counter() - t0, runs=runs.runs)
+
+    def peak(p):
+        m = ab[p].get("hbm_measured")
+        return "not measured" if m is None else f"{m['peak_bytes_in_use'] / 1e9:.3f} GB"
+
+    print("scripts layout A/B at " + "x".join(map(str, EXP_SWEEP["modes"])) + f", {EXP_SWEEP['copies']} copies, "
+          f"{EXP_SWEEP['max_iter']} iterations: " + "; ".join(
+              f"{p} {ab[p]['models_per_sec']} models/s, {ab[p]['mttkrp_tflops']} TFLOP/s, peak {peak(p)} (reckoned "
+              f"{(ab[p]['hbm_reckoned']['tensor'] + ab[p]['hbm_reckoned']['held_layouts']) / 1e9:.3f} GB)"
+              for p in lab.POLICIES) + f"; checks {ab['checks']}", flush=True)
+
+    profiles_dir = os.path.join("chiprun_out", "profiles")
+    drawn = plot_experiments.main(["--data", EXP_DIR, "--profiles", profiles_dir, "--out",
+                                   os.path.join(SCRIPTS_DIR, "figures")])
+    if importlib.util.find_spec("matplotlib") is None:
+        print(plot_experiments.SKIP_LINE, flush=True)
+    else:
+        want = set()
+        if os.path.exists(os.path.join(EXP_DIR, "experiments.json")):
+            want |= {"speedup.png", "jk_scale.png", "defrag.png"}
+        if os.path.exists(os.path.join(EXP_DIR, "convergence_cuda.json")):
+            want.add("convergence.png")
+        if os.path.exists(os.path.join(profiles_dir, "profile.json")):
+            want |= {"mttkrp_methods.png", "roofline.png"}
+        got = {os.path.basename(p) for p in drawn}
+        if got != want or any(os.path.getsize(p) == 0 for p in drawn):
+            raise AssertionError(f"scripts figures: drew {sorted(got)}, expected {sorted(want)}, each non-empty")
+    out["figures"] = [os.path.basename(p) for p in drawn]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"scripts phase: {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from cp_cals_tpu_torch import _build
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
@@ -4061,6 +4231,8 @@ def main() -> int:
     stress = stress_phase(dev)
     studies = studies_phase(dev)
     profiles = profiles_phase(dev)
+    scripts = scripts_phase(dev)
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f}s so far", flush=True)
     probe = probe_phase(dev)
 
     # Each kernel at the launch mix of the engine run that drives it: the
@@ -4171,6 +4343,7 @@ def main() -> int:
                 entry["study_launches"][leg + " (predicated)"] = d["launches"][entry["name"] + ".predicated"]
         entry["profile_launches"] = {name: d["launches"].get(entry["name"], 0)
                                      for name, d in profiles.items() if name != "seconds"}
+        entry["scripts_launches"] = scripts["external"]["launches"].get(entry["name"], 0)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -4185,7 +4358,8 @@ def main() -> int:
                        multi_device=multi,
                        mttkrp_j1_mix=j1_mix, nnls=nnls, line_search=ls, jk_line_search=jk_ls, debug=debug,
                        entry_points=entry_pts, experiments=exps, stress=stress, studies=studies, profiles=profiles,
-                       spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
+                       scripts=scripts, spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
+    print(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

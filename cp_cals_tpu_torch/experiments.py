@@ -242,9 +242,15 @@ def jackknife_real_experiment(path, ranks=(4, 5, 6), tol=1e-6,
     }
 
 
-def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=20,
+# The scale sweep's engine settings (bucket ranks, the bounded live-column
+# budget whose waves stream the rest, the tier) and its queue's top rank; the
+# tools that reckon its buckets read them from here.
+SWEEP_SETTINGS = dict(bucket_ranks=(4, 8, 16, 20), buffer_size=40 * 96, precision="high", rank_max=20)
+
+
+def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=SWEEP_SETTINGS["rank_max"],
                 max_iter=50, dtype=torch.float32, seed=7,
-                mode_layouts="auto", device=None):
+                mode_layouts="auto", device=None, return_run=False):
     """BASELINE.json config 5 (single-host leg): thousands of concurrent
     CPDs on one large synthetic tensor — copies models per rank 1..rank_max
     (250 copies -> 5000 models at the baseline's 500^3 size), forced
@@ -257,6 +263,7 @@ def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=20,
     ``hbm_measured`` (on the card only) reads the caching allocator after
     the run: the bytes allocated now and at the peak since the run began
     (the captured graphs' pools included), and the card's memory.
+    ``return_run`` returns (the result, cp_cals's results, its report).
     """
     from .ops.mttkrp import als_iteration_flops
     from .solvers.cals import bucket_rank, precompile_buckets
@@ -275,9 +282,8 @@ def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=20,
     ]
     params = CalsParams(
         tol=1e-6, max_iterations=max_iter, force_max_iter=True,
-        precision="high", bucket_ranks=(4, 8, 16, 20),
-        buffer_size=40 * 96,  # bounded live columns; waves stream the rest
-        mode_layouts=mode_layouts,
+        precision=SWEEP_SETTINGS["precision"], bucket_ranks=SWEEP_SETTINGS["bucket_ranks"],
+        buffer_size=SWEEP_SETTINGS["buffer_size"], mode_layouts=mode_layouts,
     )
     lut.reset_lookup_stats()
     t0 = time.perf_counter()
@@ -286,7 +292,7 @@ def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=20,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    _, rep = solvers.cp_cals(x, queue, params, device=dev)
+    results, rep = solvers.cp_cals(x, queue, params, device=dev)
     wall = time.perf_counter() - t0
     padded_flops = sum(
         m.iters * als_iteration_flops(modes, bucket_rank(m.rank, params.bucket_ranks))
@@ -329,7 +335,7 @@ def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=20,
             "peak_bytes_in_use": int(stats["allocated_bytes.all.peak"]),
             "bytes_limit": int(torch.cuda.mem_get_info(dev)[1]),
         }
-    return out
+    return (out, results, rep) if return_run else out
 
 
 def defrag_experiment(modes=(200, 200, 200), rank_max=20, copies=20,

@@ -1127,3 +1127,27 @@ def test_compare_als_cals_on_the_card(dev, tmp_path):
     assert res["n_models"] == 6 and res["n_mismatched"] == 0
     assert fm.fused_mttkrp_fp32.launches > 0 and fe.epilogue_apply.launches > 0
     assert (tmp_path / "cals_50x50x50.csv").exists()
+
+
+def test_external_study_fused_rows_match_plain_on_the_card(dev):
+    """The external MTTKRP study's float32 rows
+    (studies/bench_mttkrp_external.py) at one small shape: both fused
+    kernels at B = 1 on every mode, each launched for the warm-up and the
+    timed rep only, each result within 2e-5 of max|G| of its plain version
+    (the row raises beyond it) and near the float64 oracle; the float64
+    contenders within the script's 1e-10."""
+    from cp_cals_tpu_torch.studies import bench_mttkrp_external as ext
+
+    launches.reset()
+    rows = ext.run("40-30-20", "5", reps=1, device=dev)
+    assert len(rows) == 3
+    for row in rows:
+        assert max(row["vs_oracle"].values()) <= ext.TOL
+        for tier in ext.FUSED_TIERS:
+            assert row[f"ours_fused_{tier}_gate"] == "taken"
+            assert row[f"ours_fused_{tier}_launches"] == 2
+            assert row[f"ours_fused_{tier}_vs_plain"] <= ext.FUSED_TOL
+            assert row[f"ours_fused_{tier}_s"] > 0
+        assert row["ours_fused_highest_vs_f64"] < 1e-5
+        assert row["ours_fused_default_vs_f64"] < 5e-2
+    assert fm.fused_mttkrp_fp32.launches == 6 and fm.fused_mttkrp_tc.launches == 6
