@@ -79,6 +79,16 @@ fetch brings it back (``trace_chunks``: one (rows, wall per iteration)
 per chunk). This is the JAX loop's ``trace_cap`` buffer
 (``cp_cals_tpu/solvers/cals.py:make_run_until_evict``).
 
+Spans and counts (``utils/timers.py``), in the bucket's ``timers.Totals``:
+``loop.chunk`` (a chunk's replays or eager iterations), ``loop.capture``
+(the eager first call and the capture of a step or sweep graph, inside
+its chunk or polish), ``loop.polish`` and, per fetch, ``loop.fetch``
+(the host blocked in ``Pinned.fetch`` or in the polish's read, tagged
+with its kind); the counts ``fetches.chunk``, ``fetches.polish`` (the
+engine counts ``fetches.evict``), ``captures``, ``replays`` and
+``polish_sweeps``. ``Pinned`` counts ``uploads``, ``upload_bytes`` and
+``fetch_bytes`` while the recorder is on.
+
 ``IterLoop`` (``sync_mode="iter"``, and ``always_evict_first``) is the JAX
 engine's per-iteration mode: one eager iteration, then the host reads the
 stats, evicts and refills. It freezes nothing and does not polish, as the
@@ -104,6 +114,7 @@ import torch
 from .. import launches
 from ..config import LineSearchMethod
 from ..parallel.sharding import Shard
+from ..utils import timers
 from .state import SolverState, tree_leaves, tree_map
 
 TOL_CHUNK = 4  # iterations per chunk under a per-iteration tol
@@ -221,20 +232,26 @@ class Pinned:
             self.buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
         return self.buf[:n]
 
-    def fetch(self, t: torch.Tensor) -> np.ndarray:
-        """A host copy of the contiguous device tensor ``t``."""
+    def fetch(self, t: torch.Tensor, kind: str | None = None) -> np.ndarray:
+        """A host copy of the contiguous device tensor ``t``; ``kind`` tags
+        the span of the host's wait (the engine's: ``chunk``, ``evict``)."""
+        timers.count("fetch_bytes", t.numel() * t.element_size())
         if self.device.type != "cuda":
-            return t.numpy().copy()
+            with timers.span("loop.fetch", kind):
+                return t.numpy().copy()
         raw = t.reshape(-1).view(torch.uint8)
         host = self._host(raw.numel())
         host.copy_(raw, non_blocking=True)
         self.event = torch.cuda.Event()
         self.event.record()
-        self.event.synchronize()
-        return host.numpy().view(NP_DTYPES[t.dtype]).reshape(t.shape).copy()
+        with timers.span("loop.fetch", kind):
+            self.event.synchronize()
+            return host.numpy().view(NP_DTYPES[t.dtype]).reshape(t.shape).copy()
 
     def upload(self, data: np.ndarray) -> torch.Tensor:
         """``data`` (contiguous) on the device, copied without blocking."""
+        timers.count("uploads")
+        timers.count("upload_bytes", data.nbytes)
         if self.device.type != "cuda":
             return torch.from_numpy(np.ascontiguousarray(data))
         raw = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
@@ -274,15 +291,16 @@ class _Loop:
     """What both loops share: the bucket's state, the host's view of each
     slot's iteration count and liveness, refills, kills and compaction,
     and the counts the engine reports. ``uploader`` and ``fetcher`` carry
-    the host's transfers each way (``Pinned``). ``shard`` places the
-    bucket on a mesh (None: one process holds every slot); ``state`` holds
-    this rank's slots, ``iters_h`` and ``live_h`` every slot."""
+    the host's transfers each way (``Pinned``); ``totals`` (the bucket's
+    ``timers.Totals``) takes the loop's spans and counts. ``shard`` places
+    the bucket on a mesh (None: one process holds every slot); ``state``
+    holds this rank's slots, ``iters_h`` and ``live_h`` every slot."""
 
-    def __init__(self, state: SolverState, iters_h: np.ndarray, live_h: np.ndarray, counts: dict,
+    def __init__(self, state: SolverState, iters_h: np.ndarray, live_h: np.ndarray, totals: timers.Totals,
                  uploader: Pinned, fetcher: Pinned, shard: Shard | None = None):
         self.state = state
         self.iters_h, self.live_h = iters_h, live_h
-        self.counts, self.uploader, self.fetcher = counts, uploader, fetcher
+        self.totals, self.uploader, self.fetcher = totals, uploader, fetcher
         self.device = state.iters.device
         i0 = state.kt.factors[0].shape[1]
         self.shard = shard if shard is not None else Shard(None, len(iters_h), (0, i0, i0))
@@ -308,8 +326,8 @@ class _Loop:
         the host's stats [5, B] of every slot (their iteration counts and
         liveness become the host's view) and the bytes behind them (on a
         mesh summed over the slots' leads)."""
-        self.counts["stats_fetches"] += 1
-        raw = self.fetcher.fetch(buf)
+        self.totals.count("fetches.chunk")
+        raw = self.fetcher.fetch(buf, "chunk")
         ns = stats.numel() * stats.element_size()
         out = raw[:ns].view(NP_DTYPES[stats.dtype]).reshape(stats.shape)
         rest = raw[ns:]
@@ -323,7 +341,8 @@ class _Loop:
     def all_set(self, flags: torch.Tensor) -> bool:
         """Whether a per-slot bool tensor is set in every slot of the bucket
         (one host read, gathered on a mesh)."""
-        unset = np.array([int((~flags).sum()) if self.shard.lead else 0], np.int64)
+        with timers.span("loop.fetch", "polish"):
+            unset = np.array([int((~flags).sum()) if self.shard.lead else 0], np.int64)
         return int(self.shard.assemble([unset])[0][0]) == 0
 
     def _compacted_state(self, idx: list[int]) -> tuple[SolverState, Shard]:
@@ -337,9 +356,9 @@ class _Loop:
 class IterLoop(_Loop):
     """One eager iteration per host round (``sync_mode="iter"``)."""
 
-    def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, counts, uploader, fetcher,
+    def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, totals, uploader, fetcher,
                  shard=None):
-        super().__init__(state, iters_h, live_h, counts, uploader, fetcher, shard)
+        super().__init__(state, iters_h, live_h, totals, uploader, fetcher, shard)
         self.iteration, self.x, self.x_norm, self.prepared = iteration, x, x_norm, prepared
 
     def _write_rows(self, rows, new):
@@ -348,14 +367,15 @@ class IterLoop(_Loop):
 
     def advance(self, evict_batch: int) -> tuple[np.ndarray, int]:
         """One iteration."""
-        self.state = self.iteration(self.x, self.state, self.x_norm, self.prepared)
-        stats = pack_evict_stats(self.state)
+        with self.totals.span("loop.chunk"):
+            self.state = self.iteration(self.x, self.state, self.x_norm, self.prepared)
+            stats = pack_evict_stats(self.state)
         return self.fetch_stats(stats.reshape(-1).view(torch.uint8), stats)[0], 1
 
     def compacted(self, idx: list[int]) -> "IterLoop":
         state, shard = self._compacted_state(idx)
         return IterLoop(self.iteration, self.x, self.x_norm, self.prepared, state,
-                        self.iters_h[idx], self.live_h[idx], self.counts, self.uploader, self.fetcher, shard)
+                        self.iters_h[idx], self.live_h[idx], self.totals, self.uploader, self.fetcher, shard)
 
 
 class ChunkLoop(_Loop):
@@ -364,11 +384,11 @@ class ChunkLoop(_Loop):
     None, or (the polish iteration, its held layouts, polish_iters,
     polish_tol)."""
 
-    def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, counts, uploader,
+    def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, totals, uploader,
                  fetcher, params, polish=None, graphs: Graphs | None = None, traced: bool = False,
                  shard=None):
         state = tree_map(lambda t: t.clone(), state)  # the buffers the graphs read and write
-        super().__init__(state, iters_h, live_h, counts, uploader, fetcher, shard)
+        super().__init__(state, iters_h, live_h, totals, uploader, fetcher, shard)
         self.iteration, self.x, self.x_norm, self.prepared = iteration, x, x_norm, prepared
         self.params, self.polish_cfg, self.graphs = params, polish, graphs
         # The stats, then the trace rows (none untraced), in one byte
@@ -425,14 +445,13 @@ class ChunkLoop(_Loop):
                 fn()
             return
         if getattr(self, graph_name) is None:
-            fn()
-            n -= 1
-            t0 = time.perf_counter()
-            setattr(self, graph_name, self.graphs.capture(fn))
-            self.counts["capture_s"] += time.perf_counter() - t0
-            self.counts["captures"] += 1
+            with self.totals.span("loop.capture"):
+                fn()
+                n -= 1
+                setattr(self, graph_name, self.graphs.capture(fn))
+            self.totals.count("captures")
         getattr(self, graph_name).replay(n)
-        self.counts["replays"] += n
+        self.totals.count("replays", n)
 
     def advance(self, evict_batch: int) -> tuple[np.ndarray, int]:
         """Chunks until at least one live model has converged (or, with
@@ -443,9 +462,10 @@ class ChunkLoop(_Loop):
         while True:
             n = chunk_length(self.params, self.iters_h, self.live_h)
             t0 = time.perf_counter()
-            if self.traced:
-                self.trace_k.zero_()
-            self._run(self._step, "step_graph", n)
+            with self.totals.span("loop.chunk"):
+                if self.traced:
+                    self.trace_k.zero_()
+                self._run(self._step, "step_graph", n)
             total += n
             stats, rows = self.fetch_stats(self.fetch_buf, self.stats)
             if self.traced:
@@ -460,27 +480,28 @@ class ChunkLoop(_Loop):
     def polish(self) -> None:
         """The polish sweeps on the converged live models (module
         docstring), their converged flags and iteration counts kept."""
-        _, _, n_polish, tol = self.polish_cfg
-        st = self.state
-        self.conv0.copy_(st.converged)
-        self.iters0.copy_(st.iters)
-        torch.logical_not(st.converged & st.alive, out=self.done)
-        k = 0
-        while k < n_polish:
-            m = n_polish - k if tol <= 0 else min(1 if self.params.debug else POLISH_CHECK, n_polish - k)
-            self._run(self._sweep, "sweep_graph", m)
-            k += m
-            self.counts["polish_sweeps"] += m
-            if tol > 0 and k < n_polish:
-                self.counts["stats_fetches"] += 1
-                if self.all_set(self.done):
-                    break
-        st.converged.copy_(self.conv0)
-        st.iters.copy_(self.iters0)
-        self.stats.copy_(pack_evict_stats(st))
+        with self.totals.span("loop.polish"):
+            _, _, n_polish, tol = self.polish_cfg
+            st = self.state
+            self.conv0.copy_(st.converged)
+            self.iters0.copy_(st.iters)
+            torch.logical_not(st.converged & st.alive, out=self.done)
+            k = 0
+            while k < n_polish:
+                m = n_polish - k if tol <= 0 else min(1 if self.params.debug else POLISH_CHECK, n_polish - k)
+                self._run(self._sweep, "sweep_graph", m)
+                k += m
+                self.totals.count("polish_sweeps", m)
+                if tol > 0 and k < n_polish:
+                    self.totals.count("fetches.polish")
+                    if self.all_set(self.done):
+                        break
+            st.converged.copy_(self.conv0)
+            st.iters.copy_(self.iters0)
+            self.stats.copy_(pack_evict_stats(st))
 
     def compacted(self, idx: list[int]) -> "ChunkLoop":
         state, shard = self._compacted_state(idx)
         return ChunkLoop(self.iteration, self.x, self.x_norm, self.prepared, state,
-                         self.iters_h[idx], self.live_h[idx], self.counts, self.uploader, self.fetcher,
+                         self.iters_h[idx], self.live_h[idx], self.totals, self.uploader, self.fetcher,
                          self.params, self.polish_cfg, self.graphs, self.traced, shard)

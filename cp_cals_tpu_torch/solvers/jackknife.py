@@ -17,6 +17,12 @@ PyTorch versions) and returns host NumPy replicates. ``jk_cp_cals`` calls
 ``precompile_buckets`` before its timed engine run, as the JAX package
 does: ``solver_time`` excludes it, ``pre_time`` holds it, and a repeated
 call in one process warms nothing anew.
+
+``jk_cp_cals``'s spans (``utils/timers.py``): ``jk.prepare`` (the fitted
+models to the host, the replicate queue), ``jk.precompile``
+(``precompile_buckets``), ``jk.engine`` (the ``cp_cals`` call),
+``jk.rescale`` and ``jk.lsap`` (per fitted model). ``pre_time`` is
+``jk.prepare`` + ``jk.precompile`` and ``solver_time`` ``jk.engine``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from ..config import AlsParams, CalsParams
 from ..device import resolve_device
 from ..ktensor import Ktensor, jk_to_regular
+from ..utils import timers
 from ..utils.lsap import solve_lsap
 from .als import cp_als
 from .cals import CalsReport, _to_numpy, cp_cals, precompile_buckets
@@ -163,30 +170,34 @@ def jk_cp_cals(
     rank of the mesh calling with the same arguments and getting every
     replicate. With a mesh the run is on its device."""
     dev = mesh.device if mesh is not None and device is None else resolve_device(device)
-    t0 = time.perf_counter()
-    params = _pin_jk_fidelity(params, dev)
-    fitted = [to_host_model(kt) for kt in fitted]
-    queue: list[Ktensor] = []
-    fibers: list[int] = []
-    spans: list[tuple[int, int]] = []
-    for kt in fitted:
-        reps = generate_jk_ktensors(kt)
-        spans.append((len(queue), len(queue) + len(reps)))
-        for kt_rep, fiber in reps:
-            queue.append(kt_rep)
-            fibers.append(fiber)
+    tot = timers.Totals()
+    with tot.span("jk.prepare"):
+        params = _pin_jk_fidelity(params, dev)
+        fitted = [to_host_model(kt) for kt in fitted]
+        queue: list[Ktensor] = []
+        fibers: list[int] = []
+        spans: list[tuple[int, int]] = []
+        for kt in fitted:
+            reps = generate_jk_ktensors(kt)
+            spans.append((len(queue), len(queue) + len(reps)))
+            for kt_rep, fiber in reps:
+                queue.append(kt_rep)
+                fibers.append(fiber)
     # What the first engine call pays for, outside the timed run.
-    precompile_buckets(x, queue, params, has_jk=True, mesh=mesh, shard_mode0=shard_mode0, device=dev)
-    t1 = time.perf_counter()
-    results, cals_rep = cp_cals(
-        x, queue, params, jk_fibers=fibers, device=dev, mesh=mesh, shard_mode0=shard_mode0,
-        checkpoint_dir=checkpoint_dir, resume=resume,
-    )
-    t2 = time.perf_counter()
-    report = JKReport(pre_time=t1 - t0, solver_time=t2 - t1, cals_report=cals_rep)
+    with tot.span("jk.precompile"):
+        precompile_buckets(x, queue, params, has_jk=True, mesh=mesh, shard_mode0=shard_mode0, device=dev)
+    with tot.span("jk.engine"):
+        results, cals_rep = cp_cals(
+            x, queue, params, jk_fibers=fibers, device=dev, mesh=mesh, shard_mode0=shard_mode0,
+            checkpoint_dir=checkpoint_dir, resume=resume,
+        )
+    report = JKReport(pre_time=tot.seconds("jk.prepare") + tot.seconds("jk.precompile"),
+                      solver_time=tot.seconds("jk.engine"), cals_report=cals_rep)
     for kt_ref, (lo, hi) in zip(fitted, spans):
-        reps = [_rescale_replicate(results[i], fibers[i]) for i in range(lo, hi)]
-        report.results.append(jk_permutation_adjustment(kt_ref, reps))
+        with tot.span("jk.rescale"):
+            reps = [_rescale_replicate(results[i], fibers[i]) for i in range(lo, hi)]
+        with tot.span("jk.lsap"):
+            report.results.append(jk_permutation_adjustment(kt_ref, reps))
     return report
 
 

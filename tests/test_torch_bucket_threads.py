@@ -2,7 +2,7 @@
 wave in ``bucket_threads`` threads (``solvers/cals.py``), against the JAX
 engine's threaded default and against the port's own serial run; the trace
 under threads; checkpoint and resume under threads; every result fetched
-at once and ``materialize_s``; a bucket's exception; ``precompile_buckets``; and
+at once; a bucket's exception; ``precompile_buckets``; and
 ``utils/analysis.benchmark_dashboard`` against the JAX package's."""
 
 import json
@@ -121,7 +121,7 @@ def test_trace_in_evict_threaded_config():
         assert [t.iteration for t in trace.records if t.bucket == r] == list(range(1, n + 1))
     assert all(r.active_columns >= r.active_models for r in trace.records)
     assert {r.bucket for r in trace.records} == {2, 4}
-    assert trace.phase_totals["solve"] > 0
+    assert all(pt["solve"] > 0 for pt in rep.phase_times.values())
     for kt0, kt in zip(kts, results):
         kt_als, _ = cp_als(x, kt0, AlsParams(tol=1e-9), device="cpu")
         for fa, fb in zip(kt.factors, kt_als.factors):
@@ -137,7 +137,7 @@ def test_checkpoint_and_resume_with_threads(tmp_path, sync_mode):
     kw = dict(sync_mode=sync_mode)
     want = run(x, queue, 4, params=kw)
     part = run(x, queue, 4, params=kw, checkpoint_dir=str(tmp_path), max_rounds_per_bucket=1)
-    assert any(k is None for k in part[0]) and part[1].materialize_s == 0.0
+    assert any(k is None for k in part[0])
     got = run(x, queue, 4, params=kw, checkpoint_dir=str(tmp_path), resume=True)
     assert len(got[3]) == 3
     assert_close(want[:2], got[:2], 0.0, bits=True)
@@ -145,17 +145,17 @@ def test_checkpoint_and_resume_with_threads(tmp_path, sync_mode):
 
 def test_materialize_s_and_every_result():
     """Every eviction round fetches its results at once, with and without
-    checkpoint_dir: every result present, materialize_s 0 (nothing is left
-    to collect after the last bucket), the results and the stats fetches
-    (one per chunk and per eviction round) the same."""
+    checkpoint_dir: every result present (nothing is left to collect after
+    the last bucket), the results and the stats fetches (one per chunk and
+    per eviction round) the same."""
     x, queue = make_problem(4, n_models=16)
     res, rep, _, _ = run(x, queue, 4)
-    assert all(k is not None for k in res) and rep.materialize_s == 0.0
+    assert all(k is not None for k in res)
     import tempfile
 
     with tempfile.TemporaryDirectory() as d:
         res_c, rep_c, _, _ = run(x, queue, 4, checkpoint_dir=d)
-    assert rep_c.materialize_s == 0.0
+    assert all(k is not None for k in res_c)
     assert_close((res, rep), (res_c, rep_c), 0.0, bits=True)
     assert {r: c["stats_fetches"] for r, c in rep.loop_counts.items()} == \
         {r: c["stats_fetches"] for r, c in rep_c.loop_counts.items()}

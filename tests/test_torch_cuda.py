@@ -1151,3 +1151,49 @@ def test_external_study_fused_rows_match_plain_on_the_card(dev):
         assert row["ours_fused_highest_vs_f64"] < 1e-5
         assert row["ours_fused_default_vs_f64"] < 5e-2
     assert fm.fused_mttkrp_fp32.launches == 6 and fm.fused_mttkrp_tc.launches == 6
+
+
+def test_recorder_spans_and_clock_on_the_card(dev):
+    """The program's recorder on the card: a CUDA-activity profiler (the
+    benchmark's) switches it on; a spin kernel launched and waited for
+    inside a span, 5 ms of host sleep on either side, lies inside the span
+    on the profiler's clock with 2 ms to spare at each end; a jackknife's
+    graphs are captured inside loop.capture spans, one per capture
+    counted, and its reports equal the spans' totals."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cp_cals_tpu_torch.utils import timers
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert timers.is_recording()
+        with timers.span("check"):
+            time.sleep(0.005)
+            torch.cuda._sleep(20_000_000)  # a spin kernel of about 10 ms
+            torch.cuda.synchronize(dev)
+            time.sleep(0.005)
+    assert not timers.is_recording()
+    sp, = [s for s in timers.spans() if s.name == "check"]
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA and "spin" in e.name()]
+    assert len(ev) == 1, [e.name() for e in prof.profiler.kineto_results.events()]
+    start, end = ev[0].start_ns(), ev[0].start_ns() + ev[0].duration_ns()
+    lead, lag = start - sp.start_ns, sp.end_ns - end
+    assert lead > 2_000_000 and lag > 2_000_000, (lead, lag)
+    x, rng, modes = _als_problem(7, rank=3)
+    kt = random_ktensor_host(rng, modes, 3)
+    params = CalsParams(tol=1e-6, max_iterations=40, buffer_size=40, bucket_ranks=(4,), tol_check_interval=5,
+                        polish_iters=25, polish_tol=1e-6, evict_batch=2, precision="high", mttkrp_precision="default")
+    with timers.recording():
+        rep = jk_cp_cals(x, [kt], params)
+    spans, counts = timers.spans(), timers.counters()
+    (r, pt), = rep.cals_report.phase_times.items()
+    lc = rep.cals_report.loop_counts[r]
+    caps = [s for s in spans if s.name == "loop.capture"]
+    assert len(caps) == lc["captures"] == counts["captures"] >= 2, (len(caps), lc, counts)
+    assert lc["replays"] == counts["replays"] > 0, (lc, counts)
+    assert pt["capture"] == sum(s.end_ns - s.start_ns for s in caps) / 1e9
+    assert pt["evict"] == sum(s.end_ns - s.start_ns for s in spans if s.name == "evict.round") / 1e9
+    assert lc["stats_fetches"] == sum(counts.get(f"fetches.{k}", 0) for k in ("chunk", "polish", "evict")), (lc, counts)
