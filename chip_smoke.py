@@ -1102,7 +1102,8 @@ def bench_params(**kw):
 
 def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, per_step: dict | None = None,
                routes: dict | None = None, checked: str | None = None, **kw):
-    """One cp_cals run from counts at 0. Under AUTO (unless ``kw`` pins a
+    """One cp_cals run from counts at 0 and no kept graphs (it captures its
+    own, as its checks of captures and eager inputs expect). Under AUTO (unless ``kw`` pins a
     method) its launches and routes must equal its buckets' picks from the
     lookup table, with no heuristic decision (``check_table_run``). With a
     pinned method: ``per_step`` the kernels of its path and their launches
@@ -1110,10 +1111,11 @@ def engine_run(x, queue, tiers: dict, name: str, check_fit: bool = True, per_ste
     MTTKRP results by route (default: the fused kernels on all three
     modes), ``checked`` the MTTKRP kernel launched under a device predicate
     once per bucket-iteration (none by default)."""
-    from cp_cals_tpu_torch import cp_cals, launches
+    from cp_cals_tpu_torch import cp_cals, launches, release_graphs
     from cp_cals_tpu_torch.utils import lut
 
     params = bench_params(**tiers, **kw)
+    release_graphs()
     torch.cuda.synchronize()
     reset_counts()
     lut.reset_lookup_stats()
@@ -1482,10 +1484,14 @@ class CubeMttkrpRecorder(MttkrpRecorder):
 
 
 def jk_run(name: str, run, per_step: dict, checked: str | None = None) -> tuple:
-    """One jackknife run from counts at 0: launches (with ``checked``, the
-    mixed-tier check's MTTKRP kernel, one predicated launch per
-    bucket-iteration), 299 well-formed replicates (factor 0 NaN exactly on
-    its fiber's row, finite elsewhere, finite lam), wall and replicates/s."""
+    """One jackknife run from counts at 0 and no kept graphs: launches
+    (with ``checked``, the mixed-tier check's MTTKRP kernel, one predicated
+    launch per bucket-iteration), 299 well-formed replicates (factor 0 NaN
+    exactly on its fiber's row, finite elsewhere, finite lam), wall and
+    replicates/s."""
+    from cp_cals_tpu_torch import release_graphs
+
+    release_graphs()
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1747,12 +1753,13 @@ def j1_forced(**kw):
 def mesh_rank(rank: int, world: int, store: str, job: str, out: str) -> None:
     """One rank of the multi-device phase (spawned; module docstring, 5c):
     joins the gloo group on ``store``, runs the phase's three runs, each
-    from launch counts at 0, and writes what it got to ``out``.RANK."""
+    from launch counts at 0 and no kept graphs, and writes what it got to
+    ``out``.RANK."""
     import pickle
 
     import torch.distributed as dist
 
-    from cp_cals_tpu_torch import cp_cals, jk_cp_cals
+    from cp_cals_tpu_torch import cp_cals, jk_cp_cals, release_graphs
     from cp_cals_tpu_torch.parallel import distributed
 
     distributed.initialize(init_method="file://" + store, backend="gloo", rank=rank, world_size=world,
@@ -1771,6 +1778,7 @@ def mesh_rank(rank: int, world: int, store: str, job: str, out: str) -> None:
     got = {}
     for name, tp, run in runs:
         mesh = distributed.pod_mesh(tp, device=MESH_DEVICE)
+        release_graphs()
         torch.cuda.synchronize()
         dist.barrier()
         reset_counts()

@@ -36,6 +36,7 @@ from .solvers import (
     jk_cp_batched_als,
     jk_cp_cals,
     jk_permutation_adjustment,
+    release_graphs,
 )
 
 __all__ = [
@@ -58,6 +59,7 @@ __all__ = [
     "jk_cp_batched_als",
     "jk_cp_cals",
     "jk_permutation_adjustment",
+    "release_graphs",
     "denormalize",
     "normalize_full",
     "normalize_mode",

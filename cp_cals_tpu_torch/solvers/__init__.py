@@ -1,5 +1,5 @@
 from .als import AlsReport, cp_als, cp_batched_als
-from .cals import CalsModelReport, CalsReport, cp_cals
+from .cals import CalsModelReport, CalsReport, cp_cals, release_graphs
 from .jackknife import (
     JKReport,
     jackknife_norms,

@@ -68,7 +68,8 @@ stored first, every bucket's before any bucket runs (serially, before any
 thread starts), so no autotune times against a running bucket. The held X
 layouts are one per (mode, method,
 tier) that some bucket needs, shared by the buckets that agree, and kept
-until the call returns, since the captured graphs read them: at most one
+with the captured graphs that read them (above), or until the call returns
+where nothing is captured: at most one
 per method and mode, and the fused kernels' at a second tier where the
 check or the polish runs at another precision, each about |X| (at 500^3 in
 float32, 500 MB a layout, up to 6 GB for 3 modes).
@@ -94,6 +95,23 @@ one table at once).
 
 ``precompile_buckets`` warms, ahead of a timed call, what a first call
 pays for (the JAX package's name and arguments; PyTorch compiles nothing).
+
+The CUDA graphs of the chunk loops outlive the call (``GraphCache``, one
+per device): each bucket stream keeps the graphs captured on it and every
+buffer they read or write (``graph_loop.Graphs``), and the device keeps X
+as cast to the run's dtype, |X| and the held layouts. A later call whose
+call-level key is the same (X's shape, dtype and device, the layout
+policy, the whole ``CalsParams``, whether any model is a jackknife one,
+whether the call is traced, and the launch observers, ``launches.TALLIES``)
+copies its X and |X| into the kept ones and rebuilds the held layouts in
+place, and each of its loops whose bucket rank, batch and MTTKRP methods
+were kept on its stream writes its state into the kept buffers and
+replays: no eager first call, no capture. A call whose key differs
+releases every kept graph and buffer before it allocates; so does
+``release_graphs()``, for a caller at the memory limit. Results and launch
+counts are those of a fresh capture. So X's copy, the held layouts (below)
+and the graphs of the last key's calls stay on the device until a call of
+another key or ``release_graphs()``.
 
 Spans (``utils/timers.py``): ``engine.norms`` (the norms, the
 leave-one-out norms' fetch and ``float(x_norm)``), ``engine.programs``
@@ -126,7 +144,7 @@ import numpy as np
 import torch
 
 from .. import _build, launches
-from ..config import CalsParams, UpdateMethod, check_supported
+from ..config import CalsParams, UpdateMethod, check_supported, resolve_layouts
 from ..device import resolve_device
 from ..ktensor import Ktensor, RandomKtensorSpec, scale_jk_rows, spec_block
 from ..ops.mttkrp import als_iteration_flops
@@ -136,7 +154,7 @@ from ..utils import timers
 from ..utils.checkpoint import load_state, save_state
 from ..utils.timers import IterationRecord
 from .graph_loop import NP_DTYPES, ChunkLoop, Graphs, IterLoop, Pinned, pack_evict_stats
-from .iteration import make_iteration
+from .iteration import make_iteration, refresh_layouts
 from .state import SolverState, init_state, tree_where
 
 
@@ -163,9 +181,10 @@ class CalsReport:
     # (loop.capture: each graph's eager first call and its capture), and
     # "checkpoint" (bucket.checkpoint) where checkpoints are written.
     phase_times: dict = field(default_factory=dict)
-    # bucket rank -> the loop's counts: graph captures and replays, stats
-    # fetches (one per chunk, per polish check, per eviction round: the
-    # counters fetches.chunk + fetches.polish + fetches.evict), polish
+    # bucket rank -> the loop's counts: graph captures, kept graphs taken
+    # (graph_reuses: the counter graphs.reused) and replays, stats fetches
+    # (one per chunk, per polish check, per eviction round: the counters
+    # fetches.chunk + fetches.polish + fetches.evict), polish
     # sweeps, checkpoints written (one per eviction round under
     # checkpoint_dir), and spec blocks built.
     loop_counts: dict = field(default_factory=dict)
@@ -466,8 +485,8 @@ class SpecAhead:
 
 class _Worker(NamedTuple):
     """What one bucket thread lends the bucket it runs: its CUDA stream
-    (None on the CPU), the call's graph pool of that stream (``Graphs``:
-    the buckets of one worker run one after another, so their graphs never
+    (None on the CPU), the graphs kept on that stream (``Graphs``: the
+    buckets of one worker run one after another, so their graphs never
     replay at once; None where nothing is captured) and a pinned buffer
     each way."""
 
@@ -477,25 +496,72 @@ class _Worker(NamedTuple):
     fetcher: Pinned
 
 
-_STREAMS: dict = {}  # device index -> (the bucket threads' streams, made once; their lock)
+class GraphCache:
+    """The CUDA graphs that one device's engine calls keep (module
+    docstring): the call-level key they were captured under, X as cast to
+    the run's dtype, |X|, the held layouts (``iteration.prepare``'s dict)
+    and each bucket stream's ``Graphs``, by the stream's slot. Used under
+    the device's stream lock (``_bucket_streams``)."""
+
+    def __init__(self):
+        self.release()
+
+    def release(self) -> None:
+        """Drops every kept graph and buffer."""
+        self.key = self.x = self.x_norm = None
+        self.layouts: dict = {}
+        self.slots: list = []
+        self.observers: tuple = ()
+
+    def admit(self, key) -> None:
+        """A call of call-level ``key``: what was kept under another key is
+        released, before the call allocates."""
+        if key != self.key:
+            self.release()
+            self.key = key
+            self.observers = tuple(launches.TALLIES)  # keeps the ids in the key in use
+
+    def inputs(self, x: torch.Tensor, x_norm: torch.Tensor, owned: bool):
+        """(X, |X|, held layouts) of the admitted call: the kept ones, with
+        the call's ``x`` and ``x_norm`` copied in and the layouts rebuilt in
+        place (stream-ordered), or else the call's own, now kept (``x``
+        copied where the caller holds it: ``owned`` False)."""
+        if self.x is None:
+            self.x, self.x_norm = (x if owned else x.clone()), x_norm
+        else:
+            self.x.copy_(x)
+            self.x_norm.copy_(x_norm)
+            refresh_layouts(self.x, self.layouts)
+        return self.x, self.x_norm, self.layouts
+
+    def graphs(self, n: int) -> list[Graphs]:
+        """The kept graphs of the first ``n`` stream slots."""
+        while len(self.slots) < n:
+            self.slots.append(Graphs())
+        return self.slots[:n]
+
+
+_STREAMS: dict = {}  # device index -> (the bucket threads' streams, made once; their lock; the GraphCache)
 _STREAMS_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
 def _bucket_streams(dev: torch.device, n: int):
-    """``n`` distinct CUDA streams of ``dev`` for the bucket threads (Nones
-    on the CPU), the same ones in every call: the caching allocator keeps
-    its free blocks per stream and PyTorch a cuBLAS workspace per handle
-    and stream, so streams taken anew from PyTorch's pool in every call
-    would hold device memory anew. A call holds the device's streams until
-    its buckets have ended, and a call from another thread waits for them:
-    a capture on a stream takes in every thread's work on it."""
+    """``n`` distinct CUDA streams of ``dev`` for the bucket threads, the
+    same ones in every call, and the device's ``GraphCache`` (Nones and
+    None on the CPU): the caching allocator keeps its free blocks per
+    stream and PyTorch a cuBLAS workspace per handle and stream, so streams
+    taken anew from PyTorch's pool in every call would hold device memory
+    anew, and the kept graphs replay on their streams. A call holds the
+    device's streams and cache until its buckets have ended, and a call
+    from another thread waits for them: a capture on a stream takes in
+    every thread's work on it."""
     if dev.type != "cuda":
-        yield [None] * n
+        yield [None] * n, None
         return
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     with _STREAMS_LOCK:
-        have, busy = _STREAMS.setdefault(index, ([], threading.Lock()))
+        have, busy, cache = _STREAMS.setdefault(index, ([], threading.Lock(), GraphCache()))
     with busy:
         for _ in range(64):  # PyTorch's pool cycles through 32 streams of a priority
             if len(have) >= n:
@@ -505,7 +571,20 @@ def _bucket_streams(dev: torch.device, n: int):
                 have.append(s)
         if len(have) < n:
             raise RuntimeError(f"no {n} distinct CUDA streams for the bucket threads")
-        yield have[:n]
+        yield have[:n], cache
+
+
+def release_graphs() -> None:
+    """Releases the CUDA graphs that engine calls keep on every device, with
+    X's copy, the held layouts and the buffers the graphs read (module
+    docstring), after any call that holds them has ended. Their memory goes
+    back to PyTorch's caching allocator (``torch.cuda.empty_cache()`` hands
+    it to the driver); the next call captures anew."""
+    with _STREAMS_LOCK:
+        devices = list(_STREAMS.values())
+    for _, busy, cache in devices:
+        with busy:
+            cache.release()
 
 
 def _run_device(device, mesh, shard_mode0: bool) -> torch.device:
@@ -674,14 +753,9 @@ def cp_cals(
     # Under tp this rank's rows of mode 0 (of X and of every factor 0).
     tp = tp_rows(mesh, modes[0], shard_mode0)
     r0, r1 = (tp.start, tp.stop) if tp is not None else (0, modes[0])
-    x = x[r0:r1].to(device=dev, dtype=t_dtype).contiguous()
     if jk_fibers is None:
         jk_fibers = [-1] * len(queue)
     has_jk = any(f >= 0 for f in jk_fibers)
-    with timers.span("engine.norms"):
-        x_norm, loo = _norms(x, has_jk and x_norms_jk is None, tp)
-        x_norm_f = float(x_norm)
-    x_norms_jk = loo if x_norms_jk is None else _to_numpy(x_norms_jk)
 
     report = CalsReport(
         n_ktensors=len(queue), ktensor_comp_sum=sum(kt.rank for kt in queue)
@@ -697,9 +771,6 @@ def cp_cals(
     # The polish sweeps: full `precision`, no line search, no mixed-tier
     # check (polish keeps converged and iters), on X held at that tier.
     p_params = dataclasses.replace(params, mttkrp_precision=None, line_search=False, tol_check_interval=0)
-    # The loop-invariant layouts of X, (mode, method, tier) -> tensor, shared
-    # by every bucket (module docstring); none under mode_layouts="recompute".
-    layouts: dict = {}
     resolved: dict = {}  # (bucket rank, batch) -> (methods, polish methods), resolved once
     programs: dict = {}  # (methods, polish methods) -> (iteration, held layouts, polish)
 
@@ -721,12 +792,6 @@ def cp_cals(
             programs[key] = (iteration, iteration.prepare(x, layouts), polish)
         return programs[key]
 
-    # Every bucket's methods (autotuned on a miss) before any bucket runs,
-    # in this thread: no autotune times against a running bucket.
-    with timers.span("engine.programs"):
-        for wave in waves:
-            for r, b in wave.items():
-                bucket_program(r, b)
     results: dict[int, Ktensor] = {}
     mixed_tol = params.tol_check_interval > 0
     nnls = params.update_method == UpdateMethod.NNLS
@@ -786,10 +851,6 @@ def cp_cals(
             line_search=params.line_search, mixed_tol=mixed_tol, tp=tp,
         )
 
-    # A debug run reads the device on the host in every iteration, so it is
-    # never captured; nor is an iteration that sums over a tp group (its
-    # collectives).
-    captured = chunked and dev.type == "cuda" and not params.debug and tp is None
     if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
 
@@ -895,7 +956,7 @@ def cp_cals(
 
     def run_bucket(worker: _Worker, r: int, dq: collections.deque, b: int):
         """One bucket's whole run at its allocated batch ``b``, on its
-        worker's stream (the current one), pinned buffers and graph pool.
+        worker's stream (the current one), pinned buffers and kept graphs.
         Returns its models' reports, its phase times and loop counts (from
         its ``timers.Totals``) and its engine iterations."""
         iteration, prepared, polish = bucket_program(r, b)
@@ -1025,20 +1086,23 @@ def cp_cals(
               "evict": tot.seconds("evict.round"), "capture": capture}
         if "bucket.checkpoint" in tot:
             pt["checkpoint"] = tot.seconds("bucket.checkpoint")
-        counts = dict(captures=tot.get("captures", 0), replays=tot.get("replays", 0),
+        counts = dict(captures=tot.get("captures", 0), graph_reuses=tot.get("graphs.reused", 0),
+                      replays=tot.get("replays", 0),
                       stats_fetches=sum(tot.get(f"fetches.{k}", 0) for k in ("chunk", "polish", "evict")),
                       polish_sweeps=tot.get("polish_sweeps", 0), checkpoints=tot.get("checkpoints", 0),
                       spec_builds=ahead.builds)
         return models, pt, engine_iters, counts
 
     # One worker per bucket thread (``_Worker``), each lent to one bucket at
-    # a time, so a running bucket has its stream, graph pool and pinned
-    # buffers to itself. The streams first wait on this call's stream, which
-    # made x, the norms and the held layouts, and the call's stream waits on
-    # them before the call returns. No record_stream is needed: what the
-    # call's stream allocated lives until the call returns, after that
-    # wait, and a bucket frees only what its own stream allocated, which
-    # only later work of that stream can reuse.
+    # a time, so a running bucket has its stream, graphs and pinned buffers
+    # to itself. This call's stream first waits on the streams (the last
+    # call's work on them), then makes x, the norms and the held layouts,
+    # or writes them into the kept ones; the streams wait on it, and it
+    # waits on them before the call returns. No record_stream is needed:
+    # what the call's stream allocated lives until the call returns, after
+    # that wait, or is kept with the graphs, and a bucket frees only what
+    # its own stream allocated, which only later work of that stream can
+    # reuse.
     most = 1 if mesh is not None else max(1, min(params.bucket_threads, max(len(w) for w in waves)))
 
     def on_worker(item):
@@ -1061,12 +1125,43 @@ def cp_cals(
         finally:
             launches.retire_thread()
 
-    with _bucket_streams(dev, most) as streams:
-        workers: queue_mod.SimpleQueue = queue_mod.SimpleQueue()
-        for s in streams:
-            workers.put(_Worker(s, Graphs() if captured else None, Pinned(dev), Pinned(dev)))
+    with _bucket_streams(dev, most) as (streams, cache):
         if dev.type == "cuda":
             call_stream = torch.cuda.current_stream(dev)
+            for s in streams:
+                call_stream.wait_stream(s)
+        # Captured where the device keeps graphs (the card), but not a debug
+        # run, which reads the device on the host in every iteration, nor an
+        # iteration that sums over a tp group (its collectives).
+        captured = chunked and cache is not None and not params.debug and tp is None
+        if captured:
+            block = torch.empty(((r1 - r0),) + modes[1:], dtype=t_dtype, device="meta")
+            cache.admit((block.shape, t_dtype, str(dev), resolve_layouts(params, block), params, has_jk,
+                         trace is not None, tuple(map(id, launches.TALLIES))))
+        src = x
+        x = x[r0:r1].to(device=dev, dtype=t_dtype).contiguous()
+        with timers.span("engine.norms"):
+            x_norm, loo = _norms(x, has_jk and x_norms_jk is None, tp)
+            x_norm_f = float(x_norm)
+        x_norms_jk = loo if x_norms_jk is None else _to_numpy(x_norms_jk)
+        # The loop-invariant layouts of X, (mode, method, tier) -> tensor,
+        # shared by every bucket (module docstring); none under
+        # mode_layouts="recompute".
+        layouts: dict = {}
+        if captured:
+            owned = x.untyped_storage().data_ptr() != src.untyped_storage().data_ptr()
+            x, x_norm, layouts = cache.inputs(x, x_norm, owned)
+        # Every bucket's methods (autotuned on a miss) before any bucket
+        # runs, in this thread: no autotune times against a running bucket.
+        with timers.span("engine.programs"):
+            for wave in waves:
+                for r, b in wave.items():
+                    bucket_program(r, b)
+        workers: queue_mod.SimpleQueue = queue_mod.SimpleQueue()
+        graphs = cache.graphs(len(streams)) if captured else [None] * len(streams)
+        for s, g in zip(streams, graphs):
+            workers.put(_Worker(s, g, Pinned(dev), Pinned(dev)))
+        if dev.type == "cuda":
             for s in streams:
                 s.wait_stream(call_stream)
         for wave in waves:

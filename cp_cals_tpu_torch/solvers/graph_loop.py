@@ -66,9 +66,20 @@ its layout from ``x`` inside the graph, in the graph's memory pool, where
 each copy is freed after its mode, so a replay needs about one layout
 beside X.
 Refills and evictions write into the buffers; tail compaction (a new
-batch) makes a new loop and a new capture. The kernel wrappers count their
-launches in Python, which a replay does not run: each replay adds the
-counts its graph's capture added (``Graph``, ``launches.py``).
+batch) makes a new loop, with buffers and graphs of its own. The kernel
+wrappers count their launches in Python, which a replay does not run: each
+replay adds the counts its graph's capture added (``Graph``,
+``launches.py``).
+
+Graphs outlive the engine call that captured them. A bucket stream's
+``Graphs`` keeps, by loop key (the bucket's rank and batch and its MTTKRP
+methods and polish methods), every buffer a loop's graphs read or write
+(``LoopBuffers``) and the graphs themselves; the engine keeps X, |X| and
+the held layouts beside them and releases the whole set when a call's key
+(shapes, dtype, params, tracing, ...) differs (``cals.GraphCache``). A
+loop whose key is kept writes its state into the kept buffers and
+replays, with no eager first call and no capture; a loop whose key is not
+kept captures as above and keeps what it made.
 
 Tracing (``cp_cals(trace=...)``): each captured iteration first writes
 (live models, live true-rank columns), "live" meaning alive and not
@@ -85,9 +96,10 @@ Spans and counts (``utils/timers.py``), in the bucket's ``timers.Totals``:
 its chunk or polish), ``loop.polish`` and, per fetch, ``loop.fetch``
 (the host blocked in ``Pinned.fetch`` or in the polish's read, tagged
 with its kind); the counts ``fetches.chunk``, ``fetches.polish`` (the
-engine counts ``fetches.evict``), ``captures``, ``replays`` and
-``polish_sweeps``. ``Pinned`` counts ``uploads``, ``upload_bytes`` and
-``fetch_bytes`` while the recorder is on.
+engine counts ``fetches.evict``), ``captures``, ``graphs.reused`` (one
+per kept graph a loop takes), ``replays`` and ``polish_sweeps``.
+``Pinned`` counts ``uploads``, ``upload_bytes`` and ``fetch_bytes`` while
+the recorder is on.
 
 ``IterLoop`` (``sync_mode="iter"``, and ``always_evict_first``) is the JAX
 engine's per-iteration mode: one eager iteration, then the host reads the
@@ -192,24 +204,51 @@ class Graph:
 
 
 class Graphs:
-    """The CUDA graphs of one bucket thread of an engine call (the buckets
-    it runs one after another), kept until the call ends, in one memory
-    pool: a graph's pool holds only the temporaries of one replay, and no
-    two graphs of a thread are replayed at once, while another thread's
-    replay at the same time on its own stream (so each thread has its
-    pool). (A pool is released with its last graph, so the graphs are held
-    here and not by their loops, which tail compaction replaces.) The
-    warm-up and the capture run on the thread's stream, in the thread:
-    PyTorch keeps a cuBLAS handle per thread and its workspace per stream,
-    which the warm-up sets up outside the capture."""
+    """The CUDA graphs of one bucket stream, kept from one engine call to
+    the next with every buffer they read or write (``loops``: loop key ->
+    ``LoopBuffers``; module docstring), in one memory pool: a graph's pool
+    holds only the temporaries of one replay, and no two graphs of a
+    stream are replayed at once (the buckets of a stream run one after
+    another, and an engine call holds the device's streams until its
+    buckets end), while another stream's replay may run at the same time
+    (so each stream has its pool). The warm-up and the capture run on the
+    stream, in the bucket's thread: PyTorch keeps a cuBLAS handle per
+    thread and its workspace per stream, which the warm-up sets up outside
+    the capture, and a graph replays on the stream it was captured on, so
+    it keeps that workspace."""
 
     def __init__(self):
-        self.pool = torch.cuda.graph_pool_handle()
-        self.graphs: list[Graph] = []
+        self.pool = None  # made at the first capture
+        self.loops: dict = {}
 
     def capture(self, fn) -> Graph:
-        self.graphs.append(Graph(fn, self.pool))
-        return self.graphs[-1]
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        return Graph(fn, self.pool)
+
+
+class LoopBuffers:
+    """Every buffer a chunk loop's graphs read or write, and its step and
+    sweep graphs (None until captured): the bucket's state, the stats with
+    the trace rows behind them in one byte buffer (one fetch a chunk; no
+    rows untraced), the trace rows' counter, and the polish's flags."""
+
+    def __init__(self, state: SolverState, params, traced: bool, polish: bool):
+        self.state = tree_map(lambda t: t.clone(), state)
+        dev = state.iters.device
+        stats = pack_evict_stats(self.state)
+        ns = stats.numel() * stats.element_size()
+        cap = max(params.max_iterations, 1) if traced else 0
+        self.fetch_buf = torch.zeros(ns + 8 * cap, dtype=torch.uint8, device=dev)
+        self.stats = self.fetch_buf[:ns].view(stats.dtype).view(stats.shape)
+        self.trace_buf = self.fetch_buf[ns:].view(torch.int32).view(cap, 2)
+        self.trace_k = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.done = self.conv0 = self.iters0 = None
+        if polish:
+            self.done = torch.zeros(state.iters.shape[0], dtype=torch.bool, device=dev)
+            self.conv0 = torch.zeros_like(self.done)
+            self.iters0 = torch.zeros_like(state.iters)
+        self.step_graph = self.sweep_graph = None
 
 
 # ------------------------------------------------------------ host transfers
@@ -380,34 +419,28 @@ class IterLoop(_Loop):
 
 class ChunkLoop(_Loop):
     """Run-until-evict in chunks (module docstring); on the card (``graphs``
-    given) each chunk is replays of one captured iteration. ``polish`` is
-    None, or (the polish iteration, its held layouts, polish_iters,
-    polish_tol)."""
+    given) each chunk is replays of one captured iteration, the buffers and
+    graphs kept in ``graphs`` by the loop's key. ``polish`` is None, or (the
+    polish iteration, its held layouts, polish_iters, polish_tol)."""
 
     def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, totals, uploader,
                  fetcher, params, polish=None, graphs: Graphs | None = None, traced: bool = False,
                  shard=None):
-        state = tree_map(lambda t: t.clone(), state)  # the buffers the graphs read and write
-        super().__init__(state, iters_h, live_h, totals, uploader, fetcher, shard)
+        key = (tuple(state.kt.lam.shape), prepared.methods, polish[1].methods if polish is not None else None)
+        buf = graphs.loops.get(key) if graphs is not None else None
+        if buf is None:
+            buf = LoopBuffers(state, params, traced, polish is not None)
+            if graphs is not None:
+                graphs.loops[key] = buf
+        else:  # this call's state into the kept buffers
+            _assign(buf.state, state)
+        if graphs is not None:  # the kept graphs this loop takes (0 where it captures its own)
+            totals.count("graphs.reused", (buf.step_graph is not None) + (buf.sweep_graph is not None))
+        buf.stats.copy_(pack_evict_stats(buf.state))
+        super().__init__(buf.state, iters_h, live_h, totals, uploader, fetcher, shard)
         self.iteration, self.x, self.x_norm, self.prepared = iteration, x, x_norm, prepared
-        self.params, self.polish_cfg, self.graphs = params, polish, graphs
-        # The stats, then the trace rows (none untraced), in one byte
-        # buffer: one fetch a chunk.
-        stats = pack_evict_stats(state)
-        ns = stats.numel() * stats.element_size()
-        cap = max(params.max_iterations, 1) if traced else 0
-        self.fetch_buf = torch.zeros(ns + 8 * cap, dtype=torch.uint8, device=self.device)
-        self.stats = self.fetch_buf[:ns].view(stats.dtype).view(stats.shape)
-        self.stats.copy_(stats)
-        self.trace_buf = self.fetch_buf[ns:].view(torch.int32).view(cap, 2)
-        self.trace_k = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.params, self.polish_cfg, self.graphs, self.buf = params, polish, graphs, buf
         self.traced, self.trace_chunks = traced, []
-        self.step_graph = self.sweep_graph = None
-        if polish is not None:
-            b = state.iters.shape[0]
-            self.done = torch.zeros(b, dtype=torch.bool, device=self.device)
-            self.conv0 = torch.zeros_like(self.done)
-            self.iters0 = torch.zeros_like(state.iters)
 
     def _write_rows(self, rows, new):
         if rows is None:
@@ -417,40 +450,41 @@ class ChunkLoop(_Loop):
             dst.index_copy_(0, rows, src)
 
     def _step(self) -> None:
-        st = self.state
+        st, buf = self.state, self.buf
         if self.traced:
             live = st.alive & ~st.converged
             row = torch.stack([live.sum(), (st.rank_mask & live[:, None]).sum()]).to(torch.int32)
-            self.trace_buf.index_copy_(0, self.trace_k, row[None])
-            self.trace_k.add_(1)
+            buf.trace_buf.index_copy_(0, buf.trace_k, row[None])
+            buf.trace_k.add_(1)
         frozen = st.converged & st.alive
         _assign(st, self.iteration(self.x, st, self.x_norm, self.prepared), frozen)
-        self.stats.copy_(pack_evict_stats(st))
+        buf.stats.copy_(pack_evict_stats(st))
 
     def _sweep(self) -> None:
-        st = self.state
+        st, done = self.state, self.buf.done
         p_iter, p_prepared, _, tol = self.polish_cfg
         new = p_iter(self.x, st, self.x_norm, p_prepared)
         if tol > 0:
             delta = torch.abs(new.fit - st.fit)
-        _assign(st, new, self.done)
+        _assign(st, new, done)
         if tol > 0:
-            torch.logical_or(self.done, delta < tol, out=self.done)
+            torch.logical_or(done, delta < tol, out=done)
 
     def _run(self, fn, graph_name: str, n: int) -> None:
         """``fn`` n times: eagerly on the CPU; on the card by replays of its
-        graph, captured after a first eager call (``Graphs``)."""
+        graph (``graph_name`` of the loop's buffers), captured after a first
+        eager call where no graph is kept (``Graphs``)."""
         if self.graphs is None:
             for _ in range(n):
                 fn()
             return
-        if getattr(self, graph_name) is None:
+        if getattr(self.buf, graph_name) is None:
             with self.totals.span("loop.capture"):
                 fn()
                 n -= 1
-                setattr(self, graph_name, self.graphs.capture(fn))
+                setattr(self.buf, graph_name, self.graphs.capture(fn))
             self.totals.count("captures")
-        getattr(self, graph_name).replay(n)
+        getattr(self.buf, graph_name).replay(n)
         self.totals.count("replays", n)
 
     def advance(self, evict_batch: int) -> tuple[np.ndarray, int]:
@@ -464,10 +498,10 @@ class ChunkLoop(_Loop):
             t0 = time.perf_counter()
             with self.totals.span("loop.chunk"):
                 if self.traced:
-                    self.trace_k.zero_()
+                    self.buf.trace_k.zero_()
                 self._run(self._step, "step_graph", n)
             total += n
-            stats, rows = self.fetch_stats(self.fetch_buf, self.stats)
+            stats, rows = self.fetch_stats(self.buf.fetch_buf, self.buf.stats)
             if self.traced:
                 self.trace_chunks.append((rows.view(np.int32).reshape(-1, 2)[:n], (time.perf_counter() - t0) / n))
             n_conv = int(np.count_nonzero(stats[0]))
@@ -482,10 +516,10 @@ class ChunkLoop(_Loop):
         docstring), their converged flags and iteration counts kept."""
         with self.totals.span("loop.polish"):
             _, _, n_polish, tol = self.polish_cfg
-            st = self.state
-            self.conv0.copy_(st.converged)
-            self.iters0.copy_(st.iters)
-            torch.logical_not(st.converged & st.alive, out=self.done)
+            st, buf = self.state, self.buf
+            buf.conv0.copy_(st.converged)
+            buf.iters0.copy_(st.iters)
+            torch.logical_not(st.converged & st.alive, out=buf.done)
             k = 0
             while k < n_polish:
                 m = n_polish - k if tol <= 0 else min(1 if self.params.debug else POLISH_CHECK, n_polish - k)
@@ -494,11 +528,11 @@ class ChunkLoop(_Loop):
                 self.totals.count("polish_sweeps", m)
                 if tol > 0 and k < n_polish:
                     self.totals.count("fetches.polish")
-                    if self.all_set(self.done):
+                    if self.all_set(buf.done):
                         break
-            st.converged.copy_(self.conv0)
-            st.iters.copy_(self.iters0)
-            self.stats.copy_(pack_evict_stats(st))
+            st.converged.copy_(buf.conv0)
+            st.iters.copy_(buf.iters0)
+            buf.stats.copy_(pack_evict_stats(st))
 
     def compacted(self, idx: list[int]) -> "ChunkLoop":
         state, shard = self._compacted_state(idx)

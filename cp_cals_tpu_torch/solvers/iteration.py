@@ -27,7 +27,8 @@ where the mixed-tier check runs there (``Held.hi``; the engine's polish
 sweeps are an iteration of their own at that tier).
 Given a dict ``layouts``, it takes each layout from there, keyed by
 (mode, method, tier), and puts what it builds there, so the engine's
-buckets share the layouts they agree on.
+buckets share the layouts they agree on; ``refresh_layouts`` writes a new
+X's layouts into such a dict in place, for CUDA graphs that read them.
 Under ``mode_layouts="recompute"`` (``"auto"``: tensors above 128 MB)
 nothing is held: each MTTKRP derives its layout inside the iteration, and
 in a captured CUDA graph the copies come from the graph's pool, so the
@@ -164,6 +165,25 @@ def cube_root(t: torch.Tensor) -> torch.Tensor:
     return y - (y * y * y - t) / (3.0 * y * y)
 
 
+def held_layout(x: torch.Tensor, key) -> torch.Tensor:
+    """The held layout of ``x`` under a key of ``prepare``'s dict: (mode,
+    method, tier, or None where the method's layout has none), or
+    ``"dimtree"``, the shared TTM's."""
+    if key == "dimtree":
+        return dimtree_layout(x).contiguous()
+    n, m, tier = key
+    return prepare_mode(x, n, m, tier or "highest")
+
+
+def refresh_layouts(x: torch.Tensor, layouts: dict) -> None:
+    """Every layout of ``layouts`` (``prepare``'s dict) rebuilt from ``x``
+    in place, one at a time; a layout that is a view of ``x`` follows it."""
+    base = x.untyped_storage().data_ptr()
+    for key, t in layouts.items():
+        if t.untyped_storage().data_ptr() != base:
+            t.copy_(held_layout(x, key))
+
+
 def make_iteration(
     params: AlsParams | CalsParams,
     batched: bool = True,
@@ -225,14 +245,14 @@ def make_iteration(
             m = resolve_batched_method(methods[n], x.shape, n, x.dtype, x.device)
             key = (n, m, tier if m == "pallas" else None)
             if key not in layouts:
-                layouts[key] = prepare_mode(x, n, m, tier)
+                layouts[key] = held_layout(x, key)
             return layouts[key]
 
         if resolve_layouts(params, x) == "recompute":
             held = Held((None,) * (n_modes + dimtree))
         else:
             if dimtree and "dimtree" not in layouts:
-                layouts["dimtree"] = dimtree_layout(x).contiguous()
+                layouts["dimtree"] = held_layout(x, "dimtree")
             held = Held(tuple(layout(n, mttkrp_prec) for n in range(n_modes))
                         + ((layouts["dimtree"],) if dimtree else ()))
         held.methods = methods

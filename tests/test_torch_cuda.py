@@ -33,6 +33,7 @@ from cp_cals_tpu_torch import (
     cp_cals,
     jk_cp_cals,
     random_ktensor_host,
+    release_graphs,
 )
 from cp_cals_tpu_torch import launches
 from cp_cals_tpu_torch import probe_overhead as probe
@@ -759,6 +760,7 @@ def test_graph_loop_matches_the_iter_loop(dev, tiers):
     kernel = "fused_mttkrp_tc" if tiers else "fused_mttkrp_fp32"
     runs = {}
     for mode in ("iter", "evict"):
+        release_graphs()  # each run captures its own graphs
         _zero()
         runs[mode] = cp_cals(x, queue, dataclasses.replace(base, sync_mode=mode))
         counts = _counts()
@@ -793,6 +795,7 @@ def test_threaded_buckets_match_serial_bit_for_bit(dev, case):
     base = CalsParams(bucket_ranks=(4, 8, 12, 16, 20), buffer_size=600, **THREAD_CASES[case])
     runs = []
     for t in (1, 4, 4, 1):
+        release_graphs()  # each run captures its own graphs
         _zero()
         res, rep = cp_cals(x, queue, dataclasses.replace(base, bucket_threads=t))
         runs.append((res, rep, _counts(), launches.routes()))
@@ -839,6 +842,91 @@ def test_concurrent_calls_wait_for_the_bucket_streams(dev):
         for a, b in zip(lone, res):
             for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
                 np.testing.assert_array_equal(fa, fb)
+
+
+GRAPH_CACHE_CASES = {
+    "forced-bench-tiers": THREAD_CASES["forced-bench-tiers"],
+    "jk-tol-polish-compaction": dict(tol=1e-6, max_iterations=40, tol_check_interval=5, polish_iters=25,
+                                     polish_tol=1e-6, evict_batch=2, precision="high", mttkrp_precision="default",
+                                     bucket_ranks=(8,), buffer_size=2400),
+    "threads-4": dict(THREAD_CASES["forced-bench-tiers"], bucket_threads=4),
+}
+
+
+def _engine_call(case, x, queue, kt):
+    """One run of a GRAPH_CACHE_CASES case from counts at 0: (results,
+    report, launch counts, routes)."""
+    _zero()
+    kw = GRAPH_CACHE_CASES[case]
+    if case.startswith("jk"):
+        rep = jk_cp_cals(x, [kt], CalsParams(**kw))
+        res, rep = rep.results[0], rep.cals_report
+    else:
+        res, rep = cp_cals(x, queue, CalsParams(bucket_ranks=(4, 8, 12, 16, 20), buffer_size=600, **kw))
+    return res, rep, _counts(), launches.routes()
+
+
+def _assert_runs_equal(a, b):
+    (res_a, rep_a, counts_a, routes_a), (res_b, rep_b, counts_b, routes_b) = a, b
+    assert (counts_a, routes_a) == (counts_b, routes_b)
+    assert rep_a.engine_iterations == rep_b.engine_iterations
+    assert [(m.id, m.iters, m.fit, m.approx_error) for m in rep_a.models] == \
+        [(m.id, m.iters, m.fit, m.approx_error) for m in rep_b.models]
+    for a_, b_ in zip(res_a, res_b):
+        for fa, fb in zip(a_.factors + (a_.lam,), b_.factors + (b_.lam,)):
+            np.testing.assert_array_equal(fa, fb)
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CACHE_CASES))
+def test_a_second_call_replays_kept_graphs_bit_for_bit(dev, case):
+    """A second call of the same shapes and params takes the graphs the
+    first kept (and captures none where every bucket finds its stream's)
+    and is bit for bit the call after a release: every model's iterations,
+    fit, error, factors and lam, and the launch counts and routes. The
+    jackknife case is tol-driven, polished and tail-compacted."""
+    x, queue = _bench_problem(5, 2)
+    kt = random_ktensor_host(np.random.default_rng(6), x.shape, 5)
+    release_graphs()
+    fresh = _engine_call(case, x, queue, kt)
+    second = _engine_call(case, x, queue, kt)
+    _assert_runs_equal(fresh, second)
+    (cap0, reuse0), (cap1, reuse1) = [[sum(c[k] for c in run[1].loop_counts.values())
+                                       for k in ("captures", "graph_reuses")] for run in (fresh, second)]
+    assert cap0 > 0 and reuse0 == 0 and reuse1 > 0, (cap0, reuse0, cap1, reuse1)
+    if case != "threads-4":  # four threads may put a bucket on another stream than last time
+        assert cap1 == 0 and reuse1 == cap0, (cap0, reuse0, cap1, reuse1)
+    if case.startswith("jk"):
+        assert len({b for g in _kept_slots() for (b, _), *_ in g.loops}) >= 2  # a compacted loop's entry
+    release_graphs()
+    _assert_runs_equal(fresh, _engine_call(case, x, queue, kt))
+
+
+def _kept_slots():
+    from cp_cals_tpu_torch.solvers import cals
+
+    return [g for _, _, cache in cals._STREAMS.values() for g in cache.slots]
+
+
+def test_a_new_x_or_one_written_in_place_gives_a_fresh_calls_results(dev):
+    """The kept graphs read the kept copy of X and its layouts: another X of
+    the same shape, and the caller's X written in place between calls, each
+    give the results of a call after a release."""
+    x, queue = _bench_problem(7, 1)
+    other, _ = _bench_problem(8, 1)
+    params = CalsParams(bucket_ranks=(4, 8, 12, 16, 20), buffer_size=600, **GRAPH_CACHE_CASES["forced-bench-tiers"])
+    xt = torch.from_numpy(x).to(dev)
+    for second in (lambda: torch.from_numpy(other).to(dev), lambda: xt.mul_(0.5)):
+        release_graphs()
+        cp_cals(xt, queue, params)
+        x2 = second()
+        _zero()
+        res, rep = cp_cals(x2, queue, params)
+        got = (res, rep, _counts(), launches.routes())
+        assert sum(c["captures"] for c in rep.loop_counts.values()) == 0
+        release_graphs()
+        _zero()
+        res, rep = cp_cals(x2, queue, params)
+        _assert_runs_equal(got, (res, rep, _counts(), launches.routes()))
 
 
 def test_precompile_buckets_leaves_no_autotune_to_cp_cals(dev, monkeypatch):
@@ -1186,6 +1274,7 @@ def test_recorder_spans_and_clock_on_the_card(dev):
     kt = random_ktensor_host(rng, modes, 3)
     params = CalsParams(tol=1e-6, max_iterations=40, buffer_size=40, bucket_ranks=(4,), tol_check_interval=5,
                         polish_iters=25, polish_tol=1e-6, evict_batch=2, precision="high", mttkrp_precision="default")
+    release_graphs()  # the call captures its own graphs
     with timers.recording():
         rep = jk_cp_cals(x, [kt], params)
     spans, counts = timers.spans(), timers.counters()

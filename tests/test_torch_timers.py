@@ -9,6 +9,7 @@ not."""
 
 import gc
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -261,7 +262,7 @@ def test_capture_span_and_counts():
         _run = graph_loop.ChunkLoop._run
 
     loop = Loop()
-    loop.graphs, loop.totals, loop.step_graph = Graphs(), timers.Totals(), None
+    loop.graphs, loop.totals, loop.buf = Graphs(), timers.Totals(), SimpleNamespace(step_graph=None)
     with timers.recording():
         for n in (3, 2):
             with loop.totals.span("loop.chunk"):
