@@ -5,7 +5,8 @@ Each wrapper that launches a kernel is a ``Wrapper`` and adds one to its
 wrappers count a launch under a device predicate
 (``ops/fused_mttkrp.py``) on their ``predicated`` count instead.
 ``ops/mttkrp.py:ROUTES`` counts the batched MTTKRP results by route (fused,
-twostep, krp_gemm, dimtree), so a run shows which route each mode took.
+twostep, krp_gemm, dimtree), so a run shows which route each mode took,
+and ``ops/mttkrp.py:LAYOUTS`` the layouts derived inside the iteration.
 ``TALLIES`` holds further counts by key that observers of the wrappers keep
 while they watch a run (a ``Tally`` each, e.g. launches by shape).
 
@@ -187,20 +188,27 @@ def _routes() -> Tally:
     return ROUTES
 
 
+def _layouts() -> Tally:
+    from .ops.mttkrp import LAYOUTS
+
+    return LAYOUTS
+
+
 def routes() -> dict:
     """``{route: MTTKRP results}`` (fused, twostep, krp_gemm, dimtree)."""
     return dict(_routes())
 
 
 def reset() -> None:
-    """Every wrapper's counts and the route counts to 0 (while no thread
-    counts)."""
+    """Every wrapper's counts, the route counts and the derived layouts'
+    to 0 (while no thread counts)."""
     KERNELS.clear()
     _routes().clear()
+    _layouts().clear()
 
 
 def _tallies() -> list:
-    return [KERNELS, _routes(), *TALLIES]
+    return [KERNELS, _routes(), _layouts(), *TALLIES]
 
 
 def retire_thread() -> None:

@@ -24,6 +24,12 @@ summed in float32 or wider, as the fused kernels' plain version emulates
 
 ``ROUTES`` counts the MTTKRP results by route, each one mode of one batched
 call (``launches.py`` carries the counts across CUDA-graph replays).
+``LAYOUTS`` counts the layouts a batched MTTKRP derives from X where it is
+given none held (``mode_layouts="recompute"``), and the bytes they take,
+the same way; while the recorder is on (``utils/timers.py``) they also
+count as ``layouts.derived`` and ``layouts.derived_bytes``, which a CUDA
+graph's replay adds in ``solvers/graph_loop.Graph``. A layout that is a
+view of X (mode 0's unfolding) is no copy and not counted.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from ..launches import Tally
+from ..utils import timers
 from .fused_mttkrp import fused_mttkrp_supported, mttkrp_batched_fused, prepare_mode_tensor
 from .khatri_rao import khatri_rao_chain
 
@@ -42,6 +49,7 @@ PRECISIONS = ("highest", "high", "default")
 # as the JAX package's TS_COMPACT_INTERMEDIATE.
 TS_COMPACT_INTERMEDIATE: bool = True
 ROUTES = Tally(fixed=("fused", "twostep", "krp_gemm", "dimtree"))  # MTTKRP results by route
+LAYOUTS = Tally(fixed=("derived", "derived_bytes"))  # layouts derived inside the iteration
 
 
 def _others(n_modes: int, mode: int) -> list[int]:
@@ -112,6 +120,27 @@ def _ttv(tb: torch.Tensor, u: torch.Tensor, ax: int, precision: str, out_dtype=N
     a = tb.movedim(ax, -1).reshape(c, -1, s)
     out = tier_matmul(a, u.t().reshape(c, s, 1), precision, out_dtype)
     return out.reshape(c, *rest)
+
+
+def layout_bytes(x: torch.Tensor, layout: torch.Tensor) -> int:
+    """The bytes ``layout``, a layout of ``x``, holds: its storage's, or 0
+    where it is a view of ``x``."""
+    st = layout.untyped_storage()
+    return 0 if st.data_ptr() == x.untyped_storage().data_ptr() else st.nbytes()
+
+
+def _derived(x: torch.Tensor, layout: torch.Tensor) -> torch.Tensor:
+    """``layout``, derived from ``x`` inside the iteration, counted (module
+    docstring). Inside a capture only ``LAYOUTS`` counts: the graph adds
+    the recorder's counts at each replay."""
+    n = layout_bytes(x, layout)
+    if n:
+        LAYOUTS.add("derived")
+        LAYOUTS.add("derived_bytes", n)
+        if not (layout.is_cuda and torch.cuda.is_current_stream_capturing()):
+            timers.count("layouts.derived")
+            timers.count("layouts.derived_bytes", n)
+    return layout
 
 
 # ------------------------------------------------------------ single model
@@ -258,11 +287,11 @@ def mttkrp_batched(x: torch.Tensor, factors, mode: int, method: str = "krp_gemm"
     (``ops/fused_mttkrp.py``), is ignored by the other methods, which
     always compute. Where the gate sends an asked ``"pallas"`` to the
     twostep, ``prepared`` (the fused kernels' layout) is not the twostep's,
-    and the twostep derives its own."""
+    and the twostep's is derived. A derived layout counts on ``LAYOUTS``."""
     b, r = factors[0].shape[0], factors[0].shape[-1]
     asked, method = method, resolve_batched_method(method, x.shape, mode, x.dtype, x.device, b, r)
-    if method != asked:
-        prepared = None
+    if method != asked or prepared is None:
+        prepared = _derived(x, prepare_mode(x, mode, method, precision))
     if method == "pallas":
         ROUTES.add("fused")
         return mttkrp_batched_fused(x, factors, mode, prepared, precision, pred)
@@ -307,7 +336,7 @@ def dimtree_ttm(x: torch.Tensor, f0: torch.Tensor, precision: str = "highest",
     bf16 T would add a rounding stage to each (the JAX package measured
     3.2e-3 of mean fit at 50 iterations)."""
     b, i0, r = f0.shape
-    xd = prepared if prepared is not None else dimtree_layout(x)
+    xd = prepared if prepared is not None else _derived(x, dimtree_layout(x))
     t = tier_matmul(xd, f0.permute(1, 0, 2).reshape(i0, b * r), precision)
     return t.reshape(x.shape[1], x.shape[2], b, r)
 

@@ -69,7 +69,9 @@ Refills and evictions write into the buffers; tail compaction (a new
 batch) makes a new loop, with buffers and graphs of its own. The kernel
 wrappers count their launches in Python, which a replay does not run: each
 replay adds the counts its graph's capture added (``Graph``,
-``launches.py``).
+``launches.py``), and so the layouts its iteration derives
+(``ops/mttkrp.LAYOUTS``) to the recorder's ``layouts.derived`` and
+``layouts.derived_bytes``.
 
 Graphs outlive the engine call that captured them. A bucket stream's
 ``Graphs`` keeps, by loop key (the bucket's rank and batch and its MTTKRP
@@ -125,6 +127,7 @@ import torch
 
 from .. import launches
 from ..config import LineSearchMethod
+from ..ops.mttkrp import LAYOUTS
 from ..parallel.sharding import Shard
 from ..utils import timers
 from .state import SolverState, tree_leaves, tree_map
@@ -176,7 +179,8 @@ class Graph:
     """``fn`` captured once into a CUDA graph on the current stream (not
     the default stream), and what one replay adds to the launch counts
     (``launches.py``: what the capture, which launches nothing, added in
-    this thread; the counts are put back). ``pool`` is a memory pool the
+    this thread; the counts are put back), of which the derived layouts
+    also go to the recorder at each replay. ``pool`` is a memory pool the
     graph may share with others that are never replayed at once and keep
     nothing between replays in it.
 
@@ -196,11 +200,14 @@ class Graph:
         finally:
             self.graph.capture_end()
         self.per_replay = launches.take_added(before)
+        self.derived = [(f"layouts.{key}", d) for t, key, d in self.per_replay if t is LAYOUTS]
 
     def replay(self, n: int) -> None:
         for _ in range(n):
             self.graph.replay()
         launches.add(self.per_replay, n)
+        for name, d in self.derived:
+            timers.count(name, n * d)
 
 
 class Graphs:

@@ -32,7 +32,10 @@ X's layouts into such a dict in place, for CUDA graphs that read them.
 Under ``mode_layouts="recompute"`` (``"auto"``: tensors above 128 MB)
 nothing is held: each MTTKRP derives its layout inside the iteration, and
 in a captured CUDA graph the copies come from the graph's pool, so the
-peak is about X plus one layout.
+peak is about X plus one layout and its temporaries. A held layout's
+build or rebuild is a span ``layouts.build`` and counts its bytes on
+``layouts.held_bytes`` (``utils/timers.py``); a derived one counts on
+``layouts.derived`` and ``layouts.derived_bytes`` (``ops/mttkrp.py``).
 
 Under ``update_method=NNLS`` every mode takes the unfused path with the
 batched NNLS update (``ops/update.py:update_factor_nnls``), whatever
@@ -96,11 +99,13 @@ from ..ops.mttkrp import (
     dimtree_layout,
     dimtree_ttm,
     dimtree_ttv,
+    layout_bytes,
     mttkrp_batched,
     prepare_mode,
     resolve_batched_method,
 )
 from ..ops.update import padded_hadamard, update_factor_nnls, update_factor_unconstrained
+from ..utils import timers
 from .state import BIG_ERROR, HiState, LsState, SolverState, tree_map, tree_where
 
 
@@ -165,23 +170,30 @@ def cube_root(t: torch.Tensor) -> torch.Tensor:
     return y - (y * y * y - t) / (3.0 * y * y)
 
 
-def held_layout(x: torch.Tensor, key) -> torch.Tensor:
+def held_layout(x: torch.Tensor, key, into: torch.Tensor | None = None) -> torch.Tensor:
     """The held layout of ``x`` under a key of ``prepare``'s dict: (mode,
     method, tier, or None where the method's layout has none), or
-    ``"dimtree"``, the shared TTM's."""
-    if key == "dimtree":
-        return dimtree_layout(x).contiguous()
-    n, m, tier = key
-    return prepare_mode(x, n, m, tier or "highest")
+    ``"dimtree"``, the shared TTM's; with ``into``, written into that
+    layout in place. A span ``layouts.build``, its bytes counted on
+    ``layouts.held_bytes`` (none for a view of ``x``)."""
+    with timers.span("layouts.build"):
+        if key == "dimtree":
+            t = dimtree_layout(x).contiguous()
+        else:
+            n, m, tier = key
+            t = prepare_mode(x, n, m, tier or "highest")
+        if into is not None:
+            t = into.copy_(t)
+    timers.count("layouts.held_bytes", layout_bytes(x, t))
+    return t
 
 
 def refresh_layouts(x: torch.Tensor, layouts: dict) -> None:
     """Every layout of ``layouts`` (``prepare``'s dict) rebuilt from ``x``
     in place, one at a time; a layout that is a view of ``x`` follows it."""
-    base = x.untyped_storage().data_ptr()
     for key, t in layouts.items():
-        if t.untyped_storage().data_ptr() != base:
-            t.copy_(held_layout(x, key))
+        if layout_bytes(x, t):
+            held_layout(x, key, into=t)
 
 
 def make_iteration(

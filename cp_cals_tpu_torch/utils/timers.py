@@ -26,8 +26,9 @@ its host and device events; the recorder reads ``perf_counter_ns`` and
 adds the offset between the two clocks read when recording begins, so a
 span and a kernel of the same trace compare directly.
 
-Spans open per call, per bucket, per chunk, per polish, per eviction round
-and per capture, never per model, kernel launch or replay. The names, and
+Spans open per call, per bucket, per chunk, per polish, per eviction round,
+per capture and per held layout built, never per model, kernel launch or
+replay. The names, and
 the metrics that read them, are listed in PERF.md §3.
 
 A traced engine run takes one ``IterationRecord`` per engine iteration

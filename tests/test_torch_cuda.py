@@ -1146,6 +1146,53 @@ def test_recompute_equals_materialized_on_the_card(dev, kw):
             np.testing.assert_array_equal(fa, fb)
 
 
+def test_auto_recompute_replays_its_kept_graphs_and_counts_its_layouts(dev, monkeypatch):
+    """The ``cube500.select50_high`` cell's path at 160^3: with the
+    threshold lowered, ``mode_layouts="auto"`` derives every layout inside
+    the captured graphs. A second call replays the kept graphs
+    (``graphs.reused`` > 0, no capture); both calls' fits, factors and lam
+    equal a "materialized" run's bit for bit; and the derived-layout
+    counters read the same on replay as on capture: three hi/lo layouts,
+    [2, 160, 160, 160] bf16, per bucket-iteration."""
+    from cp_cals_tpu_torch import config
+    from cp_cals_tpu_torch.utils import timers
+
+    monkeypatch.setattr(config, "LAYOUT_RECOMPUTE_BYTES", 1 << 20)
+    rng = np.random.default_rng(22)
+    modes = (160, 160, 160)
+    kt = random_ktensor_host(rng, modes, 5)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    x = (x + 0.05 * x.std() * rng.standard_normal(modes)).astype(np.float32)
+    queue = [random_ktensor_host(rng, modes, r) for r in range(1, 21) for _ in range(2)]
+    params = CalsParams(tol=1e-6, max_iterations=10, force_max_iter=True, precision="high",
+                        bucket_ranks=(4, 8, 16, 20), buffer_size=384)
+    assert config.resolve_layouts(params, torch.from_numpy(x)) == "recompute"
+    release_graphs()
+    runs = []
+    for _ in range(2):
+        with timers.recording():
+            res, rep = cp_cals(x, queue, params)
+        runs.append((res, rep, timers.counters()))
+    release_graphs()
+    res_m, rep_m = cp_cals(x, queue, dataclasses.replace(params, mode_layouts="materialized"))
+    release_graphs()
+    (_, rep0, c0), (_, rep1, c1) = runs
+    caps = [sum(c[k] for c in rep.loop_counts.values()) for rep in (rep0, rep1) for k in ("captures", "graph_reuses")]
+    assert caps[0] > 0 and caps[1] == 0 and caps[2] == 0 and caps[3] > 0, caps
+    iters = sum(rep0.engine_iterations.values())
+    assert iters == sum(rep1.engine_iterations.values())
+    for c in (c0, c1):
+        assert c["layouts.derived"] == 3 * iters, c
+        assert c["layouts.derived_bytes"] == 3 * 2 * 160**3 * 2 * iters, c
+        assert "layouts.held_bytes" not in c
+    for res, rep, _ in runs:
+        assert [(m.id, m.iters, m.fit, m.approx_error) for m in rep.models] == \
+            [(m.id, m.iters, m.fit, m.approx_error) for m in rep_m.models]
+        for a, b in zip(res, res_m):
+            for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
+                np.testing.assert_array_equal(fa, fb)
+
+
 @pytest.mark.parametrize("precision", ["highest", "default"])
 def test_autotune_on_the_card_writes_valid_entries(dev, precision):
     """Every mode gets a method its gate takes, each candidate a finite
