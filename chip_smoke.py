@@ -3292,7 +3292,8 @@ def experiments_phase(dev) -> dict:
     500^3 float32, cut in depth (``EXP_SWEEP``). Every engine run is
     checked against the committed tables' picks (``EngineRuns``); no table
     may miss (no autotune), no comparison may mismatch, the 500^3 sweep
-    must derive its layouts in the loop ("recompute"), every number must be
+    must hold its layouts ("auto" resolves to "materialized": 1.512 GB of
+    hi/lo layouts fit a quarter of the card), every number must be
     finite."""
     import shutil
 
@@ -3345,9 +3346,9 @@ def experiments_phase(dev) -> dict:
             raise AssertionError(f"experiments {name}: lookup decisions {sweep['lut_dispatch']}, all exact expected")
         if "hbm_measured" not in sweep:
             raise AssertionError(f"experiments {name}: no hbm_measured on the card")
-    if out["scale_sweep"]["mode_layouts_resolved"] != "recompute":
+    if out["scale_sweep"]["mode_layouts_resolved"] != "materialized":
         raise AssertionError(f"experiments scale sweep: layouts {out['scale_sweep']['mode_layouts_resolved']}, "
-                             f"expected 'recompute' at {EXP_SWEEP['modes']}")
+                             f"expected 'materialized' at {EXP_SWEEP['modes']}")
     with open(os.path.join(EXP_DIR, "experiments.json")) as fh:
         if json.load(fh) != json.loads(json.dumps(quick)):
             raise AssertionError("experiments: experiments.json is not the quick run's results")

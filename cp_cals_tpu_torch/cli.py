@@ -61,8 +61,9 @@ def parse_args(argv=None):
     p.add_argument("--mode-layouts", default="auto",
                    choices=("auto", "materialized", "recompute"),
                    help="per-mode tensor layouts held or derived in each "
-                        "iteration (config.mode_layouts; auto = recompute "
-                        "above 128 MB)")
+                        "iteration (config.mode_layouts; auto = held where "
+                        "they fit a quarter of the card's memory, or X fits "
+                        "128 MB off the card; recompute otherwise)")
     p.add_argument("--epilogue", default="auto", choices=("auto", "fused", "xla"),
                    help="per-mode epilogue (config.epilogue)")
     p.add_argument("--dimtree", default="auto", choices=("auto", "on", "off"),

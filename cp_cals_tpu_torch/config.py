@@ -18,7 +18,11 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
+import math
 from typing import Optional
+
+import torch
 
 PRECISIONS = ("default", "high", "highest")
 NNLS_ALGORITHMS = ("bpp", "lawson_hanson")
@@ -183,14 +187,55 @@ def resolve_dimtree(params: AlsParams | CalsParams, ndim: int) -> bool:
     return params.dimtree == "on" and ndim == 3
 
 
+# The JAX package's rule, which "auto" keeps off a CUDA card.
 LAYOUT_RECOMPUTE_BYTES = 128 * 1024 * 1024
+# The share of a CUDA card's total memory that "auto" lets X's held layouts take.
+LAYOUT_CARD_SHARE = 0.25
 
 
-def resolve_layouts(params: AlsParams | CalsParams, x) -> str:
-    """``mode_layouts``: ``"auto"`` derives the layouts inside the iteration
-    for tensors above 128 MB and holds them otherwise (the JAX package's
-    rule, ``cp_cals_tpu/solvers/iteration.py:195-202``)."""
+@functools.lru_cache(maxsize=None)
+def card_memory(index: int) -> int:
+    """The total memory of CUDA card ``index`` in bytes, read once."""
+    return torch.cuda.get_device_properties(index).total_memory
+
+
+def held_layout_bytes(params: AlsParams | CalsParams, shape, itemsize: int) -> int:
+    """The most bytes ``mode_layouts="materialized"`` holds for a tensor of
+    ``shape`` whose elements take ``itemsize`` bytes, whatever MTTKRP
+    method a bucket picks: per mode the larger of the fused kernels' layout
+    (3-D, ``ops/fused_mttkrp.held_nbytes``) and X's own bytes (the
+    twostep's or krp_gemm's), at the MTTKRP's tier and, where the
+    mixed-tier check or polish sweeps run, at ``params.precision`` too;
+    plus the dimension tree's shared layout where it runs."""
+    from .ops.fused_mttkrp import held_nbytes
+
+    n_modes = len(shape)
+    x_bytes = math.prod(shape) * itemsize
+    tiers = {params.mttkrp_precision or params.precision}
+    if params.tol_check_interval > 0 or getattr(params, "polish_iters", 0) > 0:
+        tiers.add(params.precision)
+    per_mode = [max(x_bytes, held_nbytes(shape, n, t, itemsize) if n_modes == 3 else 0)
+                for t in tiers for n in range(n_modes)]
+    return sum(per_mode) + (x_bytes if resolve_dimtree(params, n_modes) else 0)
+
+
+def resolve_layouts(params: AlsParams | CalsParams, x, device=None) -> str:
+    """``mode_layouts``: ``"auto"`` holds X's layouts where they fit the
+    device's budget and derives them inside the iteration otherwise. On a
+    CUDA card ``held_layout_bytes`` must fit ``LAYOUT_CARD_SHARE`` of the
+    card's total memory; on any other device X must fit 128 MB, the JAX
+    package's rule (``cp_cals_tpu/solvers/iteration.py:195-202``).
+    ``device`` (default ``x.device``) lets a caller resolve on a meta
+    tensor of X's shape. The budget reads total memory, not free memory,
+    so that the policy, a part of the kept graphs' key
+    (``solvers/cals.py``), does not change from call to call."""
     if params.mode_layouts != "auto":
         return params.mode_layouts
-    big = x.numel() * x.element_size() > LAYOUT_RECOMPUTE_BYTES
-    return "recompute" if big else "materialized"
+    dev = torch.device(device if device is not None else x.device)
+    if dev.type == "cuda":
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        budget = LAYOUT_CARD_SHARE * card_memory(index)
+        fits = held_layout_bytes(params, tuple(x.shape), x.element_size()) <= budget
+    else:
+        fits = x.numel() * x.element_size() <= LAYOUT_RECOMPUTE_BYTES
+    return "materialized" if fits else "recompute"

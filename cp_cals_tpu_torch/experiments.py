@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from . import launches, solvers
-from .config import AlsParams, CalsParams, UpdateMethod
+from .config import AlsParams, CalsParams, UpdateMethod, resolve_layouts
 from .device import resolve_device
 from .ktensor import Ktensor, RandomKtensorSpec, random_ktensor, random_ktensor_host, to_tensor
 from .prng import normal, prng_key, split
@@ -307,17 +307,12 @@ def scale_sweep(modes=(500, 500, 500), copies=250, rank_max=SWEEP_SETTINGS["rank
         "lut_dispatch": dict(lut.LOOKUP_STATS),
     }
     # HBM accounting, policy-aware: under "materialized" the N per-mode
-    # layouts are the dominant residents (N x |X|); under "recompute"
-    # (what "auto" picks above 128 MB, including this default 500^3 f32
-    # shape) they are derived in-loop and at most ONE transient layout is
-    # live at a time.
+    # layouts are the dominant residents (N x |X|); under "recompute" they
+    # are derived in-loop and at most ONE transient layout is live at a
+    # time. "auto" resolves as the engine does (config.resolve_layouts).
     itemsize = np_dtype.itemsize
     x_bytes = int(np.prod(modes)) * itemsize
-    resolved = mode_layouts
-    if resolved == "auto":
-        resolved = (
-            "recompute" if x_bytes > 128 * 1024 * 1024 else "materialized"
-        )
+    resolved = resolve_layouts(params, x, dev)
     out["mode_layouts_resolved"] = resolved
     out["hbm_model_bytes"] = {
         "tensor": x_bytes,

@@ -95,6 +95,16 @@ def padded_i(i: int) -> int:
     return -(-i // 4) * 4
 
 
+def held_nbytes(shape, mode: int, precision: str, itemsize: int) -> int:
+    """The bytes ``prepare_mode_tensor`` holds for mode ``mode`` of a 3-D
+    tensor of ``shape`` whose elements take ``itemsize`` bytes."""
+    small, big = split_others(tuple(shape), mode)
+    j, i, k = shape[small], shape[mode], shape[big]
+    if precision == "highest":
+        return j * k * padded_i(i) * itemsize
+    return PLANES[precision] * j * i * padded_k(k) * 2
+
+
 def mode_layout(x: torch.Tensor, mode: int) -> torch.Tensor:
     """X's own ``[J, I, K]`` view of mode ``mode`` (the TPU kernel's layout)."""
     small, big = split_others(tuple(x.shape), mode)

@@ -25,7 +25,9 @@ summed in float32 or wider, as the fused kernels' plain version emulates
 ``ROUTES`` counts the MTTKRP results by route, each one mode of one batched
 call (``launches.py`` carries the counts across CUDA-graph replays).
 ``LAYOUTS`` counts the layouts a batched MTTKRP derives from X where it is
-given none held (``mode_layouts="recompute"``), and the bytes they take,
+given none held (``mode_layouts="recompute"``, which ``"auto"`` takes where
+the held layouts would not fit the device's budget:
+``config.resolve_layouts``), and the bytes they take,
 the same way; while the recorder is on (``utils/timers.py``) they also
 count as ``layouts.derived`` and ``layouts.derived_bytes``, which a CUDA
 graph's replay adds in ``solvers/graph_loop.Graph``. A layout that is a

@@ -680,6 +680,7 @@ def _warm_programs(x, x_norm, buckets: list, methods: list, params: CalsParams, 
     p_params = dataclasses.replace(params, mttkrp_precision=None, line_search=False, tol_check_interval=0)
     chunked = params.sync_mode == "evict" and not params.always_evict_first
     layouts: dict = {}
+    policy = resolve_layouts(params, x)
     for (r, shard), (fast, polish) in zip(buckets, methods):
         b = shard.hi - shard.lo
         kt = Ktensor(tuple(torch.zeros((b, m, r), dtype=x.dtype, device=x.device) for m in x.shape),
@@ -692,7 +693,7 @@ def _warm_programs(x, x_norm, buckets: list, methods: list, params: CalsParams, 
             runs.append((p_params, polish or fast))
         for p, m in runs:
             it = make_iteration(p, batched=True, mttkrp_methods=m, has_jk=has_jk, tp=tp)
-            it(x, state, x_norm, it.prepare(x, layouts))
+            it(x, state, x_norm, it.prepare(x, layouts, policy))
 
 
 def cp_cals(
@@ -788,8 +789,8 @@ def cp_cals(
             if chunked and params.polish_iters > 0:
                 p_iter = make_iteration(p_params, batched=True, mttkrp_methods=polish_methods or methods,
                                         has_jk=has_jk, tp=tp)
-                polish = (p_iter, p_iter.prepare(x, layouts), params.polish_iters, params.polish_tol)
-            programs[key] = (iteration, iteration.prepare(x, layouts), polish)
+                polish = (p_iter, p_iter.prepare(x, layouts, policy), params.polish_iters, params.polish_tol)
+            programs[key] = (iteration, iteration.prepare(x, layouts, policy), polish)
         return programs[key]
 
     results: dict[int, Ktensor] = {}
@@ -1134,9 +1135,12 @@ def cp_cals(
         # run, which reads the device on the host in every iteration, nor an
         # iteration that sums over a tp group (its collectives).
         captured = chunked and cache is not None and not params.debug and tp is None
+        # The layout policy of the call, resolved once on this rank's block
+        # of X: the kept graphs' key and every bucket's layouts agree on it.
+        block = torch.empty(((r1 - r0),) + modes[1:], dtype=t_dtype, device="meta")
+        policy = resolve_layouts(params, block, dev)
         if captured:
-            block = torch.empty(((r1 - r0),) + modes[1:], dtype=t_dtype, device="meta")
-            cache.admit((block.shape, t_dtype, str(dev), resolve_layouts(params, block), params, has_jk,
+            cache.admit((block.shape, t_dtype, str(dev), policy, params, has_jk,
                          trace is not None, tuple(map(id, launches.TALLIES))))
         src = x
         x = x[r0:r1].to(device=dev, dtype=t_dtype).contiguous()

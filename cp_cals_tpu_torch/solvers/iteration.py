@@ -29,12 +29,16 @@ Given a dict ``layouts``, it takes each layout from there, keyed by
 (mode, method, tier), and puts what it builds there, so the engine's
 buckets share the layouts they agree on; ``refresh_layouts`` writes a new
 X's layouts into such a dict in place, for CUDA graphs that read them.
-Under ``mode_layouts="recompute"`` (``"auto"``: tensors above 128 MB)
-nothing is held: each MTTKRP derives its layout inside the iteration, and
-in a captured CUDA graph the copies come from the graph's pool, so the
-peak is about X plus one layout and its temporaries. A held layout's
-build or rebuild is a span ``layouts.build`` and counts its bytes on
-``layouts.held_bytes`` (``utils/timers.py``); a derived one counts on
+Given ``policy``, the layout policy its caller resolved once for the call
+(the engine, ``solvers/cals.py``), it follows that; else it resolves
+``params.mode_layouts`` on X (``config.resolve_layouts``). Under
+``"recompute"`` (``"auto"``: on a CUDA card where the held layouts would
+take more than a quarter of its memory, elsewhere where X takes more than
+128 MB) nothing is held: each MTTKRP derives its layout inside the
+iteration, and in a captured CUDA graph the copies come from the graph's
+pool, so the peak is about X plus one layout and its temporaries. A held
+layout's build or rebuild is a span ``layouts.build`` and counts its bytes
+on ``layouts.held_bytes`` (``utils/timers.py``); a derived one counts on
 ``layouts.derived`` and ``layouts.derived_bytes`` (``ops/mttkrp.py``).
 
 Under ``update_method=NNLS`` every mode takes the unfused path with the
@@ -242,7 +246,7 @@ def make_iteration(
     # The sum over the tp group of what mode 0's split rows leave partial.
     psum = tp.sum if tp is not None else (lambda t: t)
 
-    def prepare(x, layouts: dict | None = None) -> Held:
+    def prepare(x, layouts: dict | None = None, policy: str | None = None) -> Held:
         n_modes = x.ndim
         if mttkrp_methods is not None:
             methods = tuple(mttkrp_methods)
@@ -260,7 +264,7 @@ def make_iteration(
                 layouts[key] = held_layout(x, key)
             return layouts[key]
 
-        if resolve_layouts(params, x) == "recompute":
+        if (policy or resolve_layouts(params, x)) == "recompute":
             held = Held((None,) * (n_modes + dimtree))
         else:
             if dimtree and "dimtree" not in layouts:

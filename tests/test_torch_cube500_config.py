@@ -2,10 +2,12 @@
 ``cube500``, cell ``cube500.select50_high``) at a size the CPU holds.
 
 The cell's traffic (``cals_bench/traffic/select50_high.json``) runs
-``"high"`` with ``mode_layouts`` at ``"auto"``, which at 500 MB derives
-every MTTKRP layout inside the loop. Here the cube is 14 x 13 x 12, and
-``config.LAYOUT_RECOMPUTE_BYTES`` is lowered so that ``"auto"`` takes the
-same path; the queue is ranks 1-4 x 2 copies, buckets 4/8, 5 forced
+``"high"`` with ``mode_layouts`` at ``"auto"``, which on an 80 GB card
+holds the three hi/lo layouts (1.512 GB, within a quarter of the card) and
+off the card, above 128 MB, derives every MTTKRP layout inside the loop.
+Here the cube is 14 x 13 x 12, and ``config.LAYOUT_RECOMPUTE_BYTES`` is
+lowered so that ``"auto"`` on the CPU takes the derived path, or raised so
+that it holds; the queue is ranks 1-4 x 2 copies, buckets 4/8, 5 forced
 iterations. The program (``solvers.cp_cals``, float32) is held against the
 benchmark's float64 reference (``cals_bench/reference/als.py``) from the
 same initial models, and its derived-layout counters against the bytes
@@ -82,16 +84,24 @@ def _gaps(params: dict) -> tuple[float, float]:
     return fit_gap, model_gap
 
 
-def test_the_traffic_parses_and_resolves_to_recompute_at_500_cubed():
+def test_the_traffic_parses_and_holds_its_layouts_on_an_80_gb_card(monkeypatch):
+    monkeypatch.setattr(config, "card_memory", lambda index: 80 * 10**9)
     p = params_from_dict(TRAFFIC["params"])
     assert (p.precision, p.mttkrp_precision, p.mode_layouts, p.polish_iters) == ("high", None, "auto", 0)
     assert (p.bucket_ranks, p.buffer_size, p.max_iterations, p.force_max_iter) == ((4, 8, 16, 20), 3840, 50, True)
     assert (p.result_wire_dtype, p.tail_compaction_depth) == (None, 2)
     x = torch.empty(tuple(CONFIG["modes"]), dtype=getattr(torch, CONFIG["dtype"]), device="meta")
     assert x.numel() * x.element_size() == 500_000_000
-    assert config.resolve_layouts(p, x) == "recompute"
-    # cube300 (108 MB) stays below the threshold and holds its layouts.
-    assert config.resolve_layouts(p, torch.empty((300, 300, 300), device="meta")) == "materialized"
+    # On the card the three hi/lo layouts (1.512 GB) fit a quarter of it.
+    held = config.held_layout_bytes(p, tuple(x.shape), x.element_size())
+    assert held == _layout_bytes(CONFIG["modes"]) == 1_512_000_000
+    assert config.resolve_layouts(p, x, "cuda:0") == "materialized"
+    # Off the card the JAX package's rule: 500 MB is above 128 MB.
+    assert config.resolve_layouts(p, x, "cpu") == "recompute"
+    # cube300 (108 MB) holds its layouts under both rules.
+    cube300 = torch.empty((300, 300, 300), device="meta")
+    assert config.resolve_layouts(p, cube300, "cpu") == "materialized"
+    assert config.resolve_layouts(p, cube300, "cuda:0") == "materialized"
     assert data.queue_ranks(TRAFFIC) == [r for r in range(1, 21) for _ in range(20)]
 
 

@@ -1147,9 +1147,9 @@ def test_recompute_equals_materialized_on_the_card(dev, kw):
 
 
 def test_auto_recompute_replays_its_kept_graphs_and_counts_its_layouts(dev, monkeypatch):
-    """The ``cube500.select50_high`` cell's path at 160^3: with the
-    threshold lowered, ``mode_layouts="auto"`` derives every layout inside
-    the captured graphs. A second call replays the kept graphs
+    """The ``cube500.select50_high`` cell's old path at 160^3: with the
+    card's layout share lowered, ``mode_layouts="auto"`` derives every
+    layout inside the captured graphs. A second call replays the kept graphs
     (``graphs.reused`` > 0, no capture); both calls' fits, factors and lam
     equal a "materialized" run's bit for bit; and the derived-layout
     counters read the same on replay as on capture: three hi/lo layouts,
@@ -1157,7 +1157,7 @@ def test_auto_recompute_replays_its_kept_graphs_and_counts_its_layouts(dev, monk
     from cp_cals_tpu_torch import config
     from cp_cals_tpu_torch.utils import timers
 
-    monkeypatch.setattr(config, "LAYOUT_RECOMPUTE_BYTES", 1 << 20)
+    monkeypatch.setattr(config, "LAYOUT_CARD_SHARE", 1e-6)  # a budget of about 85 kB
     rng = np.random.default_rng(22)
     modes = (160, 160, 160)
     kt = random_ktensor_host(rng, modes, 5)
@@ -1166,7 +1166,7 @@ def test_auto_recompute_replays_its_kept_graphs_and_counts_its_layouts(dev, monk
     queue = [random_ktensor_host(rng, modes, r) for r in range(1, 21) for _ in range(2)]
     params = CalsParams(tol=1e-6, max_iterations=10, force_max_iter=True, precision="high",
                         bucket_ranks=(4, 8, 16, 20), buffer_size=384)
-    assert config.resolve_layouts(params, torch.from_numpy(x)) == "recompute"
+    assert config.resolve_layouts(params, torch.from_numpy(x), dev) == "recompute"
     release_graphs()
     runs = []
     for _ in range(2):
@@ -1191,6 +1191,42 @@ def test_auto_recompute_replays_its_kept_graphs_and_counts_its_layouts(dev, monk
         for a, b in zip(res, res_m):
             for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
                 np.testing.assert_array_equal(fa, fb)
+
+
+def test_auto_holds_layouts_above_128_mb_on_the_card(dev):
+    """A 143.7 MB tensor (330^3 float32) at "high": above the JAX package's
+    128 MB, but its three hi/lo layouts fit a quarter of the card, so
+    ``mode_layouts="auto"`` holds them. They are built once
+    (``layouts.held_bytes`` the reckoned bytes), none is derived, and the
+    fits, factors and lam equal an explicit "recompute" run's bit for
+    bit."""
+    from cp_cals_tpu_torch import config
+    from cp_cals_tpu_torch.utils import timers
+
+    rng = np.random.default_rng(23)
+    modes = (330, 330, 330)
+    kt = random_ktensor_host(rng, modes, 5)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam)
+    x = (x + 0.05 * x.std() * rng.standard_normal(modes)).astype(np.float32)
+    assert x.nbytes > config.LAYOUT_RECOMPUTE_BYTES
+    queue = [random_ktensor_host(rng, modes, r) for r in range(1, 9) for _ in range(2)]
+    params = CalsParams(tol=1e-6, max_iterations=5, force_max_iter=True, precision="high",
+                        mttkrp_method=MttkrpMethod.PALLAS, bucket_ranks=(4, 8), buffer_size=64)
+    assert config.resolve_layouts(params, torch.empty(modes, device="meta"), dev) == "materialized"
+    release_graphs()
+    with timers.recording():
+        res_a, rep_a = cp_cals(x, queue, params)
+    counts = timers.counters()
+    release_graphs()
+    res_r, rep_r = cp_cals(x, queue, dataclasses.replace(params, mode_layouts="recompute"))
+    release_graphs()
+    assert counts["layouts.held_bytes"] == config.held_layout_bytes(params, modes, 4) == 3 * 2 * 330 * 330 * 336 * 2
+    assert "layouts.derived" not in counts and "layouts.derived_bytes" not in counts
+    assert [(m.id, m.iters, m.fit, m.approx_error) for m in rep_a.models] == \
+        [(m.id, m.iters, m.fit, m.approx_error) for m in rep_r.models]
+    for a, b in zip(res_a, res_r):
+        for fa, fb in zip(a.factors + (a.lam,), b.factors + (b.lam,)):
+            np.testing.assert_array_equal(fa, fb)
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"])

@@ -4,7 +4,10 @@ At (12, 10, 8), 2 copies a rank (40 models of ranks 1-20), 3 forced
 iterations in float64, "materialized" and "recompute" give equal iteration
 counts and factors within 1e-12 (bit for bit, the tool's band), and the
 file holds the committed JAX file's per-policy keys. The reckoning of the
-held bytes follows ``ops/mttkrp.prepare_mode``.
+held bytes follows ``ops/mttkrp.prepare_mode``. ``mode_layouts="auto"``
+(``config.resolve_layouts``) holds the layouts on a CUDA card where they
+fit a quarter of its memory (the card's memory given here), and keeps the
+JAX package's 128 MB rule elsewhere.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from cp_cals_tpu_torch import CalsParams, config
 from cp_cals_tpu_torch.ops.mttkrp import prepare_mode
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -99,3 +103,37 @@ def test_a_parting_policy_fails_the_check(ab_run):
     moved = dataclasses.replace(rep, models=[dataclasses.replace(m, fit=m.fit + 1e-9) for m in rep.models])
     with pytest.raises(AssertionError, match="fits 1e-09 apart"):
         LAB.check({"materialized": last["materialized"], "recompute": (results, moved)}, {}, False)
+
+
+CARD = "cuda:0"
+BENCH_TIERS = dict(precision="high", mttkrp_precision="default", tol_check_interval=5, polish_iters=25)
+
+
+@pytest.mark.parametrize("params, shape, device, policy, reckoned", [
+    (CalsParams(precision="high"), (500, 500, 500), CARD, "materialized", 3 * 2 * 500 * 500 * 504 * 2),
+    (CalsParams(precision="high"), (1400, 1400, 1400), CARD, "recompute", 3 * 2 * 1400**3 * 2),
+    (CalsParams(), (300, 300, 300), CARD, "materialized", 3 * 300 * 300 * 300 * 4),
+    (CalsParams(**BENCH_TIERS), (299, 301, 41), CARD, "materialized", None),
+    (CalsParams(), (100, 100, 100, 100), CARD, "materialized", 4 * 400_000_000),
+    (CalsParams(), (1025, 1024, 32), "cpu", "recompute", None),
+    (CalsParams(), (1024, 1024, 32), "cpu", "materialized", None),
+    (CalsParams(precision="high"), (500, 500, 500), "cpu", "recompute", None),
+    (CalsParams(mode_layouts="materialized"), (1400, 1400, 1400), CARD, "materialized", None),
+    (CalsParams(mode_layouts="materialized"), (1025, 1024, 32), "cpu", "materialized", None),
+    (CalsParams(mode_layouts="recompute"), (4, 4, 4), CARD, "recompute", None),
+    (CalsParams(mode_layouts="recompute"), (4, 4, 4), "cpu", "recompute", None),
+], ids=["500_high_card", "1400_high_card", "300_highest_card", "299x301x41_bench_tiers_card", "100^4_card",
+        "cpu_above_128MB", "cpu_at_128MB", "500_high_cpu", "materialized_card", "materialized_cpu",
+        "recompute_card", "recompute_cpu"])
+def test_auto_layouts_follow_the_devices_budget(monkeypatch, params, shape, device, policy, reckoned):
+    """"auto" on an 80 GB card holds the layouts where their reckoned bytes
+    fit 20 GB, and off the card where X fits 128 MB; an explicit policy
+    passes through. A meta tensor given the device resolves as the real
+    tensor does."""
+    monkeypatch.setattr(config, "card_memory", lambda index: 80 * 10**9)
+    meta = torch.empty(shape, device="meta")
+    assert config.resolve_layouts(params, meta, device) == policy
+    if reckoned is not None:
+        assert config.held_layout_bytes(params, shape, 4) == reckoned
+    if device == "cpu":
+        assert config.resolve_layouts(params, torch.empty(shape)) == policy

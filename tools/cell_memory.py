@@ -62,7 +62,7 @@ def main(argv=None) -> dict:
     job = job_class(traffic["job"])(cfg, traffic, args.seed, dev)
     torch.cuda.synchronize(dev)
     rec = dict(card=torch.cuda.get_device_name(dev), workload=args.workload, seed=args.seed,
-               policy=config.resolve_layouts(job.params, job.x), inputs_peak=torch.cuda.max_memory_allocated(dev),
+               policy=config.resolve_layouts(job.params, job.x, dev), inputs_peak=torch.cuda.max_memory_allocated(dev),
                held_after_inputs=torch.cuda.memory_allocated(dev))
     torch.cuda.reset_peak_memory_stats(dev)
     lut.reset_lookup_stats()

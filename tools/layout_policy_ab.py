@@ -54,7 +54,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from cp_cals_tpu_torch import experiments  # noqa: E402
 from cp_cals_tpu_torch.device import resolve_device  # noqa: E402
-from cp_cals_tpu_torch.ops.fused_mttkrp import padded_i, padded_k, split_others  # noqa: E402
+from cp_cals_tpu_torch.ops.fused_mttkrp import held_nbytes  # noqa: E402
 from cp_cals_tpu_torch.ops.mttkrp import resolve_batched_method  # noqa: E402
 from cp_cals_tpu_torch.profiles.tune_lut_grid import allocations  # noqa: E402
 from cp_cals_tpu_torch.utils import lut  # noqa: E402
@@ -68,11 +68,7 @@ def layout_bytes(shape, mode: int, method: str, tier: str, itemsize: int) -> int
     prepare_mode``)."""
     if method != "pallas":
         return int(np.prod(shape)) * itemsize
-    small, big = split_others(tuple(shape), mode)
-    j, i, k = shape[small], shape[mode], shape[big]
-    if tier == "highest":
-        return j * k * padded_i(i) * 4
-    return (2 if tier == "high" else 1) * j * i * padded_k(k) * 2
+    return held_nbytes(shape, mode, tier, itemsize)
 
 
 def reckon(modes, copies: int, dtype, dev) -> dict:
