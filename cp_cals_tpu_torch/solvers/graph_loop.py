@@ -90,7 +90,10 @@ device-side counter k, which the host zeroes before each chunk. The
 buffer sits behind the stats in one byte buffer, so the chunk's one stats
 fetch brings it back (``trace_chunks``: one (rows, wall per iteration)
 per chunk). This is the JAX loop's ``trace_cap`` buffer
-(``cp_cals_tpu/solvers/cals.py:make_run_until_evict``).
+(``cp_cals_tpu/solvers/cals.py:make_run_until_evict``). Each loop hands
+the engine its rows (``trace_rows``): the chunk loop these, the
+per-iteration loop one row a round from the occupied slots the engine
+hands it, as the JAX engine's host records.
 
 Spans and counts (``utils/timers.py``), in the bucket's ``timers.Totals``:
 ``loop.chunk`` (a chunk's replays or eager iterations), ``loop.capture``
@@ -106,7 +109,9 @@ the recorder is on.
 ``IterLoop`` (``sync_mode="iter"``, and ``always_evict_first``) is the JAX
 engine's per-iteration mode: one eager iteration, then the host reads the
 stats, evicts and refills. It freezes nothing and does not polish, as the
-JAX step program does not.
+JAX step program does not. Under ``always_evict_first`` its stats mark the
+leftmost occupied slot, and it alone, as converged every round (the
+reference's defrag stress); the engine's round does not know the knob.
 
 On a mesh (``parallel.sharding.Shard``) a loop holds this rank's slots of
 the bucket and the host's view of every slot: each stats fetch (and the
@@ -391,6 +396,9 @@ class _Loop:
             unset = np.array([int((~flags).sum()) if self.shard.lead else 0], np.int64)
         return int(self.shard.assemble([unset])[0][0]) == 0
 
+    def polish(self) -> None:
+        """The end of a run-until-evict: no polish in this loop."""
+
     def _compacted_state(self, idx: list[int]) -> tuple[SolverState, Shard]:
         """This rank's part of the bucket's slots ``idx`` (a half-size
         batch), and the batch's shard."""
@@ -400,12 +408,16 @@ class _Loop:
 
 
 class IterLoop(_Loop):
-    """One eager iteration per host round (``sync_mode="iter"``)."""
+    """One eager iteration per host round (``sync_mode="iter"``). With
+    ``evict_first`` (``always_evict_first``, the reference's defrag-stress
+    knob, cals.cpp:346-352) each round's stats mark the leftmost occupied
+    slot, and it alone, as converged, whether it converged or not."""
 
     def __init__(self, iteration, x, x_norm, prepared, state, iters_h, live_h, totals, uploader, fetcher,
-                 shard=None):
+                 shard=None, evict_first: bool = False):
         super().__init__(state, iters_h, live_h, totals, uploader, fetcher, shard)
         self.iteration, self.x, self.x_norm, self.prepared = iteration, x, x_norm, prepared
+        self.evict_first = evict_first
 
     def _write_rows(self, rows, new):
         self.state = new if rows is None else tree_map(
@@ -416,12 +428,22 @@ class IterLoop(_Loop):
         with self.totals.span("loop.chunk"):
             self.state = self.iteration(self.x, self.state, self.x_norm, self.prepared)
             stats = pack_evict_stats(self.state)
-        return self.fetch_stats(stats.reshape(-1).view(torch.uint8), stats)[0], 1
+        stats = self.fetch_stats(stats.reshape(-1).view(torch.uint8), stats)[0]
+        if self.evict_first:  # occupied: alive, converged (row 0) or not (row 4)
+            first = int(np.argmax((stats[0] != 0) | (stats[4] != 0)))
+            stats[0] = 0
+            stats[0][first] = 1
+        return stats, 1
+
+    def trace_rows(self, ranks: list, wall: float) -> list:
+        """The round's one row: the occupied slots the host hands in (their
+        models' ranks) and the round's wall."""
+        return [(len(ranks), sum(ranks), wall)]
 
     def compacted(self, idx: list[int]) -> "IterLoop":
         state, shard = self._compacted_state(idx)
-        return IterLoop(self.iteration, self.x, self.x_norm, self.prepared, state,
-                        self.iters_h[idx], self.live_h[idx], self.totals, self.uploader, self.fetcher, shard)
+        return IterLoop(self.iteration, self.x, self.x_norm, self.prepared, state, self.iters_h[idx],
+                        self.live_h[idx], self.totals, self.uploader, self.fetcher, shard, self.evict_first)
 
 
 class ChunkLoop(_Loop):
@@ -518,9 +540,19 @@ class ChunkLoop(_Loop):
             elif n_conv >= evict_batch or not np.count_nonzero(stats[4]):
                 return stats, total
 
+    def trace_rows(self, ranks: list, wall: float) -> list:
+        """The rows of the chunks run since the last call: the device's
+        counts, each chunk's wall shared by its iterations."""
+        rows = [(*row, w) for chunk, w in self.trace_chunks for row in chunk]
+        self.trace_chunks.clear()
+        return rows
+
     def polish(self) -> None:
         """The polish sweeps on the converged live models (module
-        docstring), their converged flags and iteration counts kept."""
+        docstring), their converged flags and iteration counts kept; none
+        without a polish."""
+        if self.polish_cfg is None:
+            return
         with self.totals.span("loop.polish"):
             _, _, n_polish, tol = self.polish_cfg
             st, buf = self.state, self.buf

@@ -16,7 +16,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from cp_cals_tpu_torch import CalsParams, cp_cals, random_ktensor_host
+from cp_cals_tpu_torch import CalsParams, RandomKtensorSpec, cp_cals, random_ktensor_host
 from cp_cals_tpu_torch.solvers import graph_loop
 from cp_cals_tpu_torch.solvers.jackknife import jk_cp_cals
 from cp_cals_tpu_torch.utils import timers
@@ -228,6 +228,50 @@ def test_jackknife_spans_fill_the_reports(tmp_path):
                          ("bucket.solve", "engine.bucket"), ("engine.bucket", "jk.engine"),
                          ("engine.norms", "jk.engine"), ("loop.polish", "bucket.solve")):
         assert {s.parent for s in by_name(sp, name)} == {parent}, name
+
+
+# The (span, parent) pairs of a small engine run with a checkpoint dir, on
+# the CPU; the "evict" loop adds the polish. The per-layer metrics and the
+# gap naming read spans by these names and parents.
+ENGINE_PAIRS = {
+    ("engine.norms", None), ("engine.programs", None), ("layouts.build", "engine.programs"),
+    ("engine.bucket", None), ("engine.results", None), ("bucket.intake", "engine.bucket"),
+    ("bucket.solve", "engine.bucket"), ("loop.chunk", "bucket.solve"), ("loop.fetch", "bucket.solve"),
+    ("evict.round", "engine.bucket"), ("evict.store", "evict.round"), ("loop.fetch", "evict.store"),
+    ("evict.refill", "evict.round"), ("evict.kill", "evict.round"), ("evict.compact", "evict.round"),
+    ("bucket.checkpoint", "engine.bucket"),
+}
+ENGINE_COUNTERS = {"checkpoints", "fetch_bytes", "fetches.chunk", "fetches.evict", "layouts.held_bytes",
+                   "upload_bytes", "uploads"}
+
+
+@pytest.mark.parametrize("sync_mode", ["evict", "iter"])
+def test_engine_spans_and_report_keys(sync_mode, tmp_path):
+    """A traced run of ten models (one a spec) through four slots, with
+    refills, kills, a tail compaction and a checkpoint after every round:
+    exactly these (span, parent) pairs and counters, and these
+    ``phase_times`` and ``loop_counts`` keys."""
+    rng = np.random.default_rng(7)
+    kt = random_ktensor_host(rng, MODES, 3, dtype=np.float64)
+    x = np.einsum("ir,jr,kr,r->ijk", *kt.factors, kt.lam) + 0.05 * rng.standard_normal(MODES)
+    queue = [random_ktensor_host(rng, MODES, r, dtype=np.float64) for r in (1, 2, 3, 4, 2, 3, 1, 4, 3)]
+    queue.append(RandomKtensorSpec(MODES, 2, seed=3, dtype="float64"))
+    params = CalsParams(tol=1e-6, max_iterations=60, buffer_size=16, bucket_ranks=(4,), polish_iters=3,
+                        sync_mode=sync_mode)
+    trace = timers.RunTrace()
+    with timers.recording():
+        res, rep = cp_cals(x, queue, params, device="cpu", checkpoint_dir=str(tmp_path), trace=trace)
+    sp, counts = timers.spans(), timers.counters()
+    polish = {("loop.polish", "bucket.solve")} if sync_mode == "evict" else set()
+    assert {(s.name, s.parent) for s in sp if s.name != "gc"} == ENGINE_PAIRS | polish
+    assert set(counts) - {"gc.collections"} == ENGINE_COUNTERS | ({"polish_sweeps"} if polish else set())
+    assert all(r is not None for r in res) and sorted(m.id for m in rep.models) == list(range(10))
+    (r, pt), = rep.phase_times.items()
+    assert r == 4 and set(pt) == {"setup", "solve", "evict", "capture", "checkpoint"}
+    assert set(rep.loop_counts[4]) == {"captures", "graph_reuses", "replays", "stats_fetches", "polish_sweeps",
+                                       "checkpoints", "spec_builds"}
+    assert rep.loop_counts[4]["spec_builds"] > 0 and rep.loop_counts[4]["checkpoints"] > 1
+    assert [t.iteration for t in trace.records] == list(range(1, rep.engine_iterations[4] + 1))
 
 
 def test_recording_moves_no_result():
