@@ -285,6 +285,14 @@ the result lines are printed):
    6f's profile.json where matplotlib is installed (five PNGs, each
    non-empty), else the line "figures: matplotlib not installed". The
    phase's seconds and the run's so far are printed.
+6h. cube500's MTTKRP launches (cube500_mttkrp_phase): the tensor-core
+   MTTKRP at "high" on a 500^3 tensor at each (B, R) of the
+   cube500.select50_high cell's launches (96x4, 96x8, 64x16, 32x16, 64x20,
+   16x20) and every mode, with the planner's plans: held against its plain
+   version at TOL["mttkrp"] and timed replayed from a CUDA graph beside
+   the one-wave plan (ops/fused_mttkrp.py: one_wave_tc). The phase's own
+   counts must hold mttkrp.tc_balanced > 0, one for each launch whose j
+   splits fill more than one wave (96x4, 96x8 and 64x20: 9 of 18).
 7. Probe: the launch-overhead probe (cp_cals_tpu_torch/probe_overhead.py),
    eager and graph-captured; its copy kernel is held to exact equality and
    timed beside torch.mul, eager and replayed.
@@ -1560,6 +1568,58 @@ def mttkrp_mix(rec, x, label="J1") -> list:
               f"(graph {m['graph_ms']:.4f}), plain {m['plain_ms']:.4f}ms, twostep {m['library_ms']:.4f}ms, "
               f"bound {m['bound_ms']:.4f}ms, err/max {err / scale:.2e}", flush=True)
     return mix
+
+
+CUBE500_LAUNCHES = ((96, 4), (96, 8), (64, 16), (32, 16), (64, 20), (16, 20))  # phase 6h's (B, R)
+
+
+def cube500_mttkrp_phase(dev) -> list:
+    """Phase 6h (module docstring): the tensor-core MTTKRP at cube500's
+    launches, each checked, timed beside the one-wave plan, and counted."""
+    from cp_cals_tpu_torch.ops import fused_mttkrp as fm
+    from cp_cals_tpu_torch.utils import timers
+
+    modes, tier, planes = (500, 500, 500), "high", fm.PLANES["high"]
+    gen = torch.Generator(device=dev).manual_seed(500)
+    x = torch.randn(modes, device=dev, generator=gen)
+    index = torch.cuda.current_device()
+    rows, several, balanced = [], 0, 0
+    for mode in range(3):
+        small, big = fm.split_others(modes, mode)
+        x3 = fm.prepare_mode_tensor(x, mode, tier)
+        j, i, kp = modes[small], modes[mode], x3.shape[-1]
+        for b, r in CUBE500_LAUNCHES:
+            u1 = torch.randn((b, j, r), device=dev, generator=gen)
+            u2 = torch.randn((b, modes[big], r), device=dev, generator=gen)
+            plan = fm.tc_plan(index, j, i, kp, b * r, planes)
+            slots = fm._tc_slots(index, plan[0], planes, plan[1])
+            wave = fm.one_wave_tc(plan[:3], j, i, b * r, slots)
+            with timers.recording():  # this launch's own counts
+                got = fm.fused_mttkrp(x3, u1, u2, tier)
+            balanced += timers.counters().get("mttkrp.tc_balanced", 0)
+            want = fm.fused_mttkrp_plain(x3, u1, u2, tier)
+            torch.cuda.synchronize()
+            err, scale = rel_err(got, want)
+            if not err <= TOL["mttkrp"] * scale:
+                raise AssertionError(f"fused_mttkrp {tier} 500^3 B={b} R={r} mode={mode} plan {plan}: "
+                                     f"{err} vs {scale}")
+            several += plan[3] > 1 and fm.tc_waves(plan, i, b * r, slots) > 1
+            rows.append(dict(B=b, R=r, mode=mode, plan=list(plan), waves=fm.tc_waves(plan, i, b * r, slots),
+                             max_abs_err=err, ref_max=scale,
+                             graph_ms=graph_ms(lambda: fm.fused_mttkrp_tc(x3, u1, u2, tier, plan=plan)),
+                             one_wave_plan=list(wave),
+                             one_wave_graph_ms=graph_ms(lambda: fm.fused_mttkrp_tc(x3, u1, u2, tier, plan=wave))))
+            m = rows[-1]
+            print(f"mttkrp cube500 high B={b} R={r} mode={mode}: plan {plan} ({m['waves']} waves) "
+                  f"{m['graph_ms']:.4f}ms graph-replayed, one wave {wave} {m['one_wave_graph_ms']:.4f}ms, "
+                  f"err/max {err / scale:.2e}", flush=True)
+        del x3
+    if not 0 < balanced == several == 9:
+        raise AssertionError(f"cube500 launches: mttkrp.tc_balanced {balanced}, over several waves {several}, "
+                             f"9 expected")
+    print(f"cube500 launches: {several} of {len(rows)} over several waves, mttkrp.tc_balanced {balanced}",
+          flush=True)
+    return rows
 
 
 def jk_phase(x_np, kt5):
@@ -4241,6 +4301,7 @@ def main() -> int:
     studies = studies_phase(dev)
     profiles = profiles_phase(dev)
     scripts = scripts_phase(dev)
+    cube500_mix = cube500_mttkrp_phase(dev)
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f}s so far", flush=True)
     probe = probe_phase(dev)
 
@@ -4365,7 +4426,8 @@ def main() -> int:
                        float64_on_card=f64, nd=nd, widened=wide,
                        cross_check=check, cp_als=fit5, jackknife=jk_runs, jk_cross_check=jk_check,
                        multi_device=multi,
-                       mttkrp_j1_mix=j1_mix, nnls=nnls, line_search=ls, jk_line_search=jk_ls, debug=debug,
+                       mttkrp_j1_mix=j1_mix, mttkrp_cube500=cube500_mix, nnls=nnls, line_search=ls,
+                       jk_line_search=jk_ls, debug=debug,
                        entry_points=entry_pts, experiments=exps, stress=stress, studies=studies, profiles=profiles,
                        scripts=scripts, spd_inverse=spd, probe=probe, kernels=kernels), fh, indent=1, default=str)
     print(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f}s", flush=True)

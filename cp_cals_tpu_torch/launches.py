@@ -6,7 +6,9 @@ wrappers count a launch under a device predicate
 (``ops/fused_mttkrp.py``) on their ``predicated`` count instead.
 ``ops/mttkrp.py:ROUTES`` counts the batched MTTKRP results by route (fused,
 twostep, krp_gemm, dimtree), so a run shows which route each mode took,
-and ``ops/mttkrp.py:LAYOUTS`` the layouts derived inside the iteration.
+``ops/mttkrp.py:LAYOUTS`` the layouts derived inside the iteration, and
+``ops/fused_mttkrp.py:BALANCED`` the tensor-core launches whose j splits
+fill more than one wave.
 ``TALLIES`` holds further counts by key that observers of the wrappers keep
 while they watch a run (a ``Tally`` each, e.g. launches by shape).
 
@@ -194,21 +196,28 @@ def _layouts() -> Tally:
     return LAYOUTS
 
 
+def _balanced() -> Tally:
+    from .ops.fused_mttkrp import BALANCED
+
+    return BALANCED
+
+
 def routes() -> dict:
     """``{route: MTTKRP results}`` (fused, twostep, krp_gemm, dimtree)."""
     return dict(_routes())
 
 
 def reset() -> None:
-    """Every wrapper's counts, the route counts and the derived layouts'
-    to 0 (while no thread counts)."""
+    """Every wrapper's counts, the route counts, the derived layouts' and
+    the balanced tensor-core launches' to 0 (while no thread counts)."""
     KERNELS.clear()
     _routes().clear()
     _layouts().clear()
+    _balanced().clear()
 
 
 def _tallies() -> list:
-    return [KERNELS, _routes(), _layouts(), *TALLIES]
+    return [KERNELS, _routes(), _layouts(), _balanced(), *TALLIES]
 
 
 def retire_thread() -> None:

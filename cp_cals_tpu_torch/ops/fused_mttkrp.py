@@ -50,6 +50,13 @@ counterpart of the Pallas kernel's ``db=``/``cj=``, which
 Python before the launch (``check_fp32_plan``, ``check_tc_plan``) and an
 illegal one raises ``ValueError``; no plan falls back to another. On the
 CPU the plain version ignores the plan, as it ignores the predicate.
+
+Where the tensor-core kernel's output tiles leave some of the card's block
+slots idle in its last wave, ``plan_tc`` may split j over more waves than
+one (``tc_cost``); each such launch counts on ``BALANCED`` and, while the
+recorder is on, as ``mttkrp.tc_balanced``, which a CUDA graph's replay adds
+(``solvers/graph_loop.Graph``). The wrapper's own launch count holds every
+tensor-core launch.
 """
 
 from __future__ import annotations
@@ -60,6 +67,8 @@ import functools
 import torch
 
 from .. import _build, launches
+from ..launches import Tally
+from ..utils import timers
 
 TIERS = ("highest", "high", "default")
 PLANES = {"default": 1, "high": 2}  # bf16 planes of the held X at the bf16 tiers
@@ -74,6 +83,19 @@ _FP32_TK, _FP32_STAGES = 16, 4  # k per ring stage and ring depth of the fp32 ke
 _TC_NC = (128, 64, 32, 16)  # column tiles of the tensor-core kernel, widest first
 _TC_TM = 64  # rows of an output tile of the tensor-core kernel
 _TC_KS = 64  # k per ring stage of the tensor-core kernel; its k ranges are whole stages
+# What a block of the tensor-core kernel costs besides its ring stages (U2
+# staged, the ring filled, its sum written), in ring stages: the
+# least-squares fit (each launch shape its own time a stage) of 136 launches
+# of 30 to 1,500 blocks in 27 shapes on an H100, at 500^3 "high" and at
+# 299x301x41 at both bf16 tiers (PERF.md §6). Any value from 18 to 34
+# gives the same plans there.
+_TC_BLOCK_STAGES = 21
+# More waves are taken below this share of one wave's cost (tc_cost): in
+# the 109 plans of those shapes timed against their one-wave plan, the
+# measured share came out at most 6.6 % above the modelled one, and
+# 1 / 1.066 = 0.938.
+_TC_MARGIN = 0.93
+BALANCED = Tally(fixed=("tc_balanced",))  # tensor-core launches whose j splits fill more than one wave
 
 
 def split_others(shape, mode: int) -> tuple[int, int]:
@@ -412,6 +434,41 @@ def tc_smem(nc: int, high: bool, kspan: int) -> int:
         4 * nc + 16)
 
 
+def tc_waves(plan, i: int, c: int, slots: int) -> int:
+    """Waves of the tensor-core kernel's grid under ``plan`` for I = ``i``
+    and ``c`` columns on a card of ``slots`` block slots (blocks that run
+    at once)."""
+    nc, _, ksplits, jsplits, _ = plan
+    return -(-(-(-c // nc) * -(-i // _TC_TM) * ksplits * jsplits) // slots)
+
+
+def tc_cost(plan, i: int, c: int, slots: int) -> int:
+    """Ring stages of the busiest block slot under tensor-core ``plan``,
+    each wave counted as its longest block (j per split times the stages of
+    a k range) plus what a block costs besides (``_TC_BLOCK_STAGES``)."""
+    return tc_waves(plan, i, c, slots) * (plan[4] * (plan[1] // _TC_KS) + _TC_BLOCK_STAGES)
+
+
+def tc_slots(nc: int, planes: int, kspan: int, n_sm: int, smem_sm: int, smem=tc_smem) -> int:
+    """Blocks of this column tile and k range that run at once on a card
+    of ``n_sm`` SMs of ``smem_sm`` bytes of shared memory each."""
+    return max(1, smem_sm // (smem(nc, planes - 1, kspan) + 1024)) * n_sm
+
+
+def split_j(head: tuple, j: int, want: int) -> tuple:
+    """``head`` (column tile, k per block, k splits) with j split into
+    ``want`` parts as nearly equal as whole parts allow."""
+    jchunk = -(-j // want)
+    return head + (-(-j // jchunk), jchunk)
+
+
+def one_wave_tc(head: tuple, j: int, i: int, c: int, slots: int) -> tuple:
+    """``head`` with j split into as many parts as keep the grid within
+    one wave of ``slots`` blocks: every block then runs at once."""
+    tiles = -(-c // head[0]) * -(-i // _TC_TM) * head[2]
+    return split_j(head, j, max(1, min(j, slots // tiles)))
+
+
 def plan_tc(
     j: int, i: int, kp: int, c: int, planes: int, n_sm: int, smem_block: int, smem_sm: int,
     smem=tc_smem,
@@ -424,7 +481,9 @@ def plan_tc(
     shared memory, one range in all but very long modes. The tile is the
     narrowest that covers all C columns, else the widest that fits. Then j
     is split into as many parts as keep the grid within one wave (as many
-    blocks per SM as fit in its shared memory)."""
+    blocks per SM as fit in its shared memory), unless more parts over
+    more waves cost less than ``_TC_MARGIN`` of that (``tc_cost``): then
+    the cheapest such split, the fewest parts of equals."""
     chunks = max(1, -(-kp // _TC_KS))
     for ksplits in range(1, chunks + 1):
         kspan = -(-chunks // ksplits) * _TC_KS
@@ -436,12 +495,16 @@ def plan_tc(
     ksplits = -(-chunks * _TC_KS // kspan)  # no empty range
     covering = [nc for nc in fits if nc >= c]
     nc = covering[-1] if covering else fits[0]
-    per_sm = max(1, smem_sm // (smem(nc, planes - 1, kspan) + 1024))
-    tiles = -(-c // nc) * -(-i // _TC_TM) * ksplits
-    # As many splits as fit in one wave of blocks: every block then runs at once.
-    want = max(1, min(j, per_sm * n_sm // tiles))
-    jchunk = -(-j // want)
-    return nc, kspan, ksplits, -(-j // jchunk), jchunk
+    slots = tc_slots(nc, planes, kspan, n_sm, smem_sm, smem)
+    plan = one_wave_tc((nc, kspan, ksplits), j, i, c, slots)
+    best, cost = plan, tc_cost(plan, i, c, slots)
+    for want in range(plan[3] + 1, j + 1):
+        split = split_j(plan[:3], j, want)
+        if tc_waves(split, i, c, slots) * _TC_BLOCK_STAGES >= cost:
+            break  # the waves alone cost more from here on
+        if tc_cost(split, i, c, slots) < cost:
+            best, cost = split, tc_cost(split, i, c, slots)
+    return best if cost < _TC_MARGIN * tc_cost(plan, i, c, slots) else plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -451,6 +514,13 @@ def tc_plan(index: int, j: int, i: int, kp: int, c: int, planes: int) -> tuple[i
     props = torch.cuda.get_device_properties(index)
     return plan_tc(j, i, kp, c, planes, props.multi_processor_count, props.shared_memory_per_block_optin,
                    props.shared_memory_per_multiprocessor, _lib_tc().fused_mttkrp_tc_smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_slots(index: int, nc: int, planes: int, kspan: int) -> int:
+    props = torch.cuda.get_device_properties(index)
+    return tc_slots(nc, planes, kspan, props.multi_processor_count, props.shared_memory_per_multiprocessor,
+                    _lib_tc().fused_mttkrp_tc_smem)
 
 
 def check_tc_plan(plan, j: int, i: int, kp: int, planes: int, smem_block: int, smem=tc_smem) -> tuple:
@@ -512,6 +582,11 @@ def fused_mttkrp_tc(
     )
     _build.check(code, "fused_mttkrp_tc")
     fused_mttkrp_tc.count(pred is not None)
+    if jsplits > 1 and tc_waves(plan, i, b * r, _tc_slots(index, nc, planes, kspan)) > 1:
+        # In a capture only on the tally: the graph adds the recorder's count at each replay.
+        BALANCED.add("tc_balanced")
+        if not torch.cuda.is_current_stream_capturing():
+            timers.count("mttkrp.tc_balanced")
     return out
 
 

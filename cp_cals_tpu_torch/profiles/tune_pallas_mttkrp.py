@@ -18,7 +18,9 @@ the cases are
   tiers each column tile of ``_TC_NC``, each with j splits at 1/2, 1 and 2
   times the planner's (the k ranges as the planner splits them), named by
   their plan: ``fused/t{tile}/k{kspan}x{ksplits}/j{jchunk}x{jsplits}/{tier}``,
-  ``fused/nc{nc}/...`` for the tensor-core kernel.
+  ``fused/nc{nc}/...`` for the tensor-core kernel;
+- at the bf16 tiers, where the planner split j over more than one wave,
+  the one-wave plan it passed over (``one_wave_tc``).
 
 A plan the validator (``check_fp32_plan``, ``check_tc_plan``) refuses is
 skipped and recorded with its reason, as the script skips a ``db`` that
@@ -107,6 +109,9 @@ def sweep(shape, mode: int, b: int, r: int, tier: str, card: Card) -> list[dict]
         def check(p):
             return fm.check_tc_plan(p, j, i, kp, planes, card.smem_block, card.tc_smem)
     plans = [pick]
+    if tier != "highest":
+        slots = fm.tc_slots(pick[0], planes, pick[1], card.n_sm, card.smem_sm, card.tc_smem)
+        plans += [p for p in [fm.one_wave_tc(pick[:3], j, i, c, slots)] if p != pick]
     for base in bases:
         for js in (max(1, pick[3] // 2), pick[3], min(j, 2 * pick[3])):
             jchunk = -(-j // js)

@@ -71,7 +71,9 @@ wrappers count their launches in Python, which a replay does not run: each
 replay adds the counts its graph's capture added (``Graph``,
 ``launches.py``), and so the layouts its iteration derives
 (``ops/mttkrp.LAYOUTS``) to the recorder's ``layouts.derived`` and
-``layouts.derived_bytes``.
+``layouts.derived_bytes``, and its tensor-core MTTKRP launches whose j
+splits fill more than one wave (``ops/fused_mttkrp.BALANCED``) to
+``mttkrp.tc_balanced``.
 
 Graphs outlive the engine call that captured them. A bucket stream's
 ``Graphs`` keeps, by loop key (the bucket's rank and batch and its MTTKRP
@@ -132,11 +134,15 @@ import torch
 
 from .. import launches
 from ..config import LineSearchMethod
+from ..ops.fused_mttkrp import BALANCED
 from ..ops.mttkrp import LAYOUTS
 from ..parallel.sharding import Shard
 from ..utils import timers
 from .state import SolverState, tree_leaves, tree_map
 
+# The launch counts a replay also adds to the recorder, by tally: the
+# recorder's name is the prefix and the key.
+RECORDED = ((LAYOUTS, "layouts."), (BALANCED, "mttkrp."))
 TOL_CHUNK = 4  # iterations per chunk under a per-iteration tol
 POLISH_CHECK = 4  # polish sweeps between host reads of the polish's done flags
 
@@ -185,9 +191,10 @@ class Graph:
     the default stream), and what one replay adds to the launch counts
     (``launches.py``: what the capture, which launches nothing, added in
     this thread; the counts are put back), of which the derived layouts
-    also go to the recorder at each replay. ``pool`` is a memory pool the
-    graph may share with others that are never replayed at once and keep
-    nothing between replays in it.
+    and the tensor-core launches over several waves (``RECORDED``) also go
+    to the recorder at each replay. ``pool`` is a memory pool the graph may
+    share with others that are never replayed at once and keep nothing
+    between replays in it.
 
     The capture runs in ``thread_local`` error mode: the engine's other
     bucket threads go on fetching, synchronising and allocating while it
@@ -205,13 +212,14 @@ class Graph:
         finally:
             self.graph.capture_end()
         self.per_replay = launches.take_added(before)
-        self.derived = [(f"layouts.{key}", d) for t, key, d in self.per_replay if t is LAYOUTS]
+        self.recorded = [(prefix + key, d) for t, key, d in self.per_replay
+                         for tally, prefix in RECORDED if t is tally]
 
     def replay(self, n: int) -> None:
         for _ in range(n):
             self.graph.replay()
         launches.add(self.per_replay, n)
-        for name, d in self.derived:
+        for name, d in self.recorded:
             timers.count(name, n * d)
 
 

@@ -696,7 +696,8 @@ def _raw_launch(x3, u1, u2, precision, pred, out):
 
 
 PRED_CASES = [("highest", c) for c in ((41, 301, 299, 12, 8), (299, 3001, 3, 6, 5), (20, 30, 1, 1, 3))] + [
-    (p, c) for p in ("default", "high") for c in ((41, 301, 299, 12, 8), (70, 3001, 3, 6, 5), (20, 30, 1, 1, 3))]
+    (p, c) for p in ("default", "high") for c in ((41, 301, 299, 12, 8), (70, 3001, 3, 6, 5), (20, 30, 1, 1, 3),
+                                                  (299, 301, 41, 96, 20))]  # the last: j split over two waves
 
 
 @pytest.mark.parametrize("precision,case", PRED_CASES)
@@ -728,6 +729,83 @@ def test_predicated_mttkrp(dev, precision, case):
     assert (kernel.launches, kernel.predicated) == (before[0], before[1] + 2)
     with pytest.raises(ValueError):
         fm.fused_mttkrp(x3, u1, u2, precision, pred=on.to(torch.int64))
+
+
+# ------------------------------------- the tensor-core MTTKRP over several waves
+
+# (tensor modes, B, R, target mode): launches the planner splits over more
+# than one wave (tests/test_torch_tc_schedule.py): 299x301x41 at 1,920 and
+# 6,400 columns, and cube500's bucket 20 (64 x 20 at 500^3).
+WAVES_CASES = [((299, 301, 41), 96, 20, 0), ((299, 301, 41), 320, 20, 2),
+               ((500, 500, 500), 64, 20, 0), ((500, 500, 500), 64, 20, 2)]
+
+
+def _waves_problem(dev, modes, b, r, mode, precision):
+    """X's held layout and the factors of ``mode``, and the planner's plan,
+    which splits j over more than one wave of the card's block slots."""
+    rng = np.random.default_rng(sum(modes) + b * r + mode)
+    x = torch.from_numpy(rng.normal(size=modes).astype(np.float32)).to(dev)
+    fs = [torch.from_numpy(rng.normal(size=(b, m, r)).astype(np.float32)).to(dev) for m in modes]
+    small, big = fm.split_others(modes, mode)
+    x3 = fm.prepare_mode_tensor(x, mode, precision)
+    j, i, kp = modes[small], modes[mode], x3.shape[-1]
+    index, planes = torch.cuda.current_device(), fm.PLANES[precision]
+    plan = fm.tc_plan(index, j, i, kp, b * r, planes)
+    slots = fm._tc_slots(index, plan[0], planes, plan[1])
+    assert plan[3] > 1 and fm.tc_waves(plan, i, b * r, slots) > 1, plan
+    assert plan != fm.one_wave_tc(plan[:3], j, i, b * r, slots)
+    return x3, fs[small], fs[big], plan
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("modes,b,r,mode", WAVES_CASES)
+def test_several_waves_match_plain_and_relaunch_bit_for_bit(dev, precision, modes, b, r, mode):
+    """The planner's launch over several waves against the plain version
+    at 2e-5 * max|G|; a second launch, and the plan passed explicitly, give
+    the same bits."""
+    x3, u1, u2, plan = _waves_problem(dev, modes, b, r, mode, precision)
+    got = fm.fused_mttkrp_tc(x3, u1, u2, precision)
+    again = fm.fused_mttkrp_tc(x3, u1, u2, precision)
+    given = fm.fused_mttkrp_tc(x3, u1, u2, precision, plan=plan)
+    want = fm.fused_mttkrp_plain(x3, u1, u2, precision)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2e-5 * scale
+    assert torch.equal(got, again) and torch.equal(got, given)
+
+
+def test_several_waves_under_capture_count_at_replay(dev):
+    """Captured beside a one-wave launch, the launch over several waves
+    replays the eager bits; each replay adds both to the wrapper's launch
+    count and the one over several waves to ``mttkrp.tc_balanced``, which
+    the capture itself did not count; an eager launch counts at once."""
+    from cp_cals_tpu_torch.solvers.graph_loop import Graph
+    from cp_cals_tpu_torch.utils import timers
+
+    x3, u1, u2, plan = _waves_problem(dev, (299, 301, 41), 96, 20, 0, "high")
+    wave = plan[:3] + (1, u1.shape[1])
+    eager = (fm.fused_mttkrp_tc(x3, u1, u2, "high"), fm.fused_mttkrp_tc(x3, u1, u2, "high", plan=wave))
+    box = {}
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+
+    def body():
+        box["out"] = (fm.fused_mttkrp_tc(x3, u1, u2, "high"), fm.fused_mttkrp_tc(x3, u1, u2, "high", plan=wave))
+
+    with timers.recording():
+        with torch.cuda.stream(stream):
+            graph = Graph(body)
+            captured = timers.counters()
+            before = fm.fused_mttkrp_tc.launches
+            graph.replay(3)
+        stream.synchronize()
+        replayed, launched = timers.counters(), fm.fused_mttkrp_tc.launches - before
+        fm.fused_mttkrp_tc(x3, u1, u2, "high")
+        eager_counts = timers.counters()
+    assert "mttkrp.tc_balanced" not in captured
+    assert (replayed["mttkrp.tc_balanced"], launched) == (3, 6)
+    assert eager_counts["mttkrp.tc_balanced"] == 4
+    assert torch.equal(box["out"][0], eager[0]) and torch.equal(box["out"][1], eager[1])
 
 
 # ------------------------------------------------------------ the engine loops
